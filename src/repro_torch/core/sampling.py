@@ -1,0 +1,85 @@
+"""Element-wise uniform sampling without replacement (the R_i R_iᵀ step).
+
+Each sample keeps exactly ``m`` of ``p`` coordinates, chosen uniformly at random
+without replacement, with an independent draw per sample. Sparse rows are a
+compact pair ``(values (n, m), indices (n, m))``, indices sorted ascending.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.utils.prng import uniform
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseRows:
+    """Exactly-m-sparse rows of an (n, p) matrix in compact form.
+
+    values:  (n, m) — the kept entries.
+    indices: (n, m) int32 — their column positions, sorted ascending per row.
+    p:       full dimensionality.
+    """
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    p: int
+
+    @property
+    def n(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.values.shape[1]
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense (n, p) with zeros at unsampled coordinates: R_i R_iᵀ y_i."""
+        out = torch.zeros((self.n, self.p), dtype=self.values.dtype,
+                          device=self.values.device)
+        # indices are distinct per row, so a plain scatter equals the add
+        return out.scatter_(1, self.indices.long(), self.values)
+
+
+def sample_indices(key, n: int, p: int, m: int, device="cpu") -> torch.Tensor:
+    """(n, m) int32 — m distinct columns per row, uniform without replacement.
+
+    The reference takes ``lax.top_k`` of threefry uniforms, which puts the
+    lower index first among equal values; a stable descending sort does the
+    same (``torch.topk`` leaves the order of ties undefined).
+    """
+    if not (0 < m <= p):
+        raise ValueError(f"need 0 < m <= p, got m={m}, p={p}")
+    u = uniform(key, (n, p), device=device)
+    order = torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
+    return torch.sort(order.to(torch.int32), dim=-1).values
+
+
+def subsample(y: torch.Tensor, key, m: int) -> SparseRows:
+    """Keep m of p entries of each row of ``y`` (n, p), independent per row."""
+    n, p = y.shape
+    idx = sample_indices(key, n, p, m, device=y.device)
+    return SparseRows(torch.gather(y, 1, idx.long()), idx, p)
+
+
+def scatter_to_dense(values: torch.Tensor, indices: torch.Tensor, p: int) -> torch.Tensor:
+    """Functional form of SparseRows.to_dense for raw (values, indices)."""
+    return SparseRows(values, indices, p).to_dense()
+
+
+def counts_per_coordinate(indices: torch.Tensor, p: int, dtype=torch.int32) -> torch.Tensor:
+    """(p,) — how many rows sampled each coordinate (the n_k^{(j)} of Eq. 39).
+
+    Counted exactly in integers, then cast to ``dtype``.
+    """
+    counts = torch.bincount(indices.reshape(-1).long(), minlength=p)
+    return counts.to(dtype)
+
+
+def row_sampled_gather(dense_vecs: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """R_iᵀ v for a batch: gather ``dense_vecs`` (n, p) or (p,) at (n, m) indices."""
+    idx = indices.long()
+    if dense_vecs.ndim == 1:
+        return dense_vecs[idx]
+    return torch.gather(dense_vecs, 1, idx)

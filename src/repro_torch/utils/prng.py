@@ -1,0 +1,170 @@
+"""Counter-based PRNG that reproduces ``jax.random`` bit for bit.
+
+The port's randomness contract is the reference's: every sign vector, mask and
+K-means++ draw regenerates from ``(root key, step, shard)``. So this module is
+threefry-2x32 in the layout JAX uses with ``jax_threefry_partitionable=True``
+(each element's bits are a hash of the key and the element's flat index).
+
+Keys are numpy ``uint32[2]`` on the host — the same key data
+``jax.random.key_data`` returns. Bits are generated on the target device in
+int64 tensors holding 32-bit values, in chunks of rows, so an (n, p) draw never
+needs more than a bounded scratch.
+
+The original (non-partitionable) layout is not implemented.
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+# elements hashed per chunk: bounds the int64 scratch of one draw to ~256 MiB
+_CHUNK = 1 << 24
+
+
+def _threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
+    """The threefry-2x32 hash of count pairs ``(x0, x1)``, in place.
+
+    ``x0``/``x1`` are int64 tensors holding uint32 values; they are
+    overwritten with the two output words.
+    """
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0.add_(ks[0]).bitwise_and_(M32)
+    x1.add_(ks[1]).bitwise_and_(M32)
+    tmp = torch.empty_like(x1)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(M32)
+            torch.bitwise_right_shift(x1, 32 - r, out=tmp)
+            x1.bitwise_left_shift_(r).bitwise_or_(tmp).bitwise_and_(M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(M32)
+    return x0, x1
+
+
+def _key_ints(key) -> tuple[int, int]:
+    k = np.asarray(key, dtype=np.uint32)
+    if k.shape != (2,):
+        raise ValueError(f"a threefry key is uint32[2], got shape {k.shape}")
+    return int(k[0]), int(k[1])
+
+
+def _hash_pairs(key, hi, lo) -> np.ndarray:
+    """Hash a few count pairs on the host → (2, len) uint32."""
+    x0 = torch.tensor(hi, dtype=torch.int64)
+    x1 = torch.tensor(lo, dtype=torch.int64)
+    y0, y1 = _threefry2x32(*_key_ints(key), x0, x1)
+    return np.stack([y0.numpy(), y1.numpy()]).astype(np.uint32)
+
+
+# ------------------------------------------------------------------ keys ----
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` key data (32-bit mode: the seed's low word)."""
+    return np.array([0, int(seed) & M32], dtype=np.uint32)
+
+
+def fold_in(key, data) -> np.ndarray:
+    """``jax.random.fold_in``: hash the pair (0, data) under ``key``."""
+    out = _hash_pairs(key, [0], [int(data) & M32])
+    return out[:, 0]
+
+
+def fold_in_str(key, tag: str) -> np.ndarray:
+    """Derive a subkey from ``key`` using a stable hash of ``tag``."""
+    h = int.from_bytes(hashlib.sha256(tag.encode()).digest()[:4], "little")
+    return fold_in(key, h)
+
+
+def key_for_step(key, step: int) -> np.ndarray:
+    """Per-step key (``fold_in`` of the step)."""
+    return fold_in(key, step)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split`` → (num, 2) uint32 keys."""
+    out = _hash_pairs(key, [0] * num, list(range(num)))
+    return np.ascontiguousarray(out.T)
+
+
+# ------------------------------------------------------------------ bits ----
+
+def _bits_chunks(key, numel: int, device):
+    """Yield ``(start, bits)`` over the flat index range, ``bits`` int64."""
+    k1, k2 = _key_ints(key)
+    for start in range(0, numel, _CHUNK):
+        count = min(_CHUNK, numel - start)
+        idx = torch.arange(start, start + count, dtype=torch.int64, device=device)
+        hi = idx >> 32
+        lo = idx.bitwise_and_(M32)
+        y0, y1 = _threefry2x32(k1, k2, hi, lo)
+        yield start, y0.bitwise_xor_(y1)
+
+
+def random_bits(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int64 tensor."""
+    shape = tuple(shape)
+    out = torch.empty(math.prod(shape), dtype=torch.int64, device=device)
+    for start, bits in _bits_chunks(key, out.numel(), device):
+        out[start:start + bits.numel()] = bits
+    return out.reshape(shape)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits in [1, 2) − 1."""
+    shape = tuple(shape)
+    out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    for start, bits in _bits_chunks(key, out.numel(), device):
+        f = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
+        f = f.to(torch.int32).view(torch.float32) - 1.0
+        out[start:start + f.numel()] = torch.maximum(lo, f * span + lo)
+    return out.reshape(shape)
+
+
+def bernoulli(key, p: float = 0.5, shape=(), device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli`` ("low" mode): ``uniform < p``."""
+    return uniform(key, shape, device=device) < p
+
+
+def rademacher(key, shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """±1 entries with equal probability (the diagonal of D in the ROS)."""
+    b = bernoulli(key, 0.5, shape, device=device).to(dtype)
+    return (2 * b - 1).to(dtype)
+
+
+def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint`` for int32: two 32-bit draws folded into the span."""
+    if not (-(1 << 31) <= minval and maxval <= (1 << 31) - 1):
+        raise ValueError("randint supports the int32 range only")
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = 1 if maxval <= minval else (maxval - minval) & M32
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & M32) % span
+    off = ((higher % span) * mult).bitwise_and_(M32).add_(lower % span)
+    off = off.bitwise_and_(M32) % span
+    return (off + minval).to(torch.int32)
+
+
+def gumbel(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel`` ("low" mode) in float32."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device=device)))
+
+
+def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis of 1-D ``logits``
+    (Gumbel-max; ``shape`` is the sample shape)."""
+    if logits.ndim != 1:
+        raise ValueError("categorical takes 1-D logits here")
+    shape = () if shape is None else tuple(shape)
+    g = gumbel(key, (*shape, logits.shape[0]), device=logits.device)
+    return torch.argmax(g + logits, dim=-1)

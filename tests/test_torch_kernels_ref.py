@@ -1,0 +1,106 @@
+"""repro_torch.kernels.ref (the plain versions of K1, K2, K4) against the
+reference's jnp oracles in repro.kernels.ref, and the CPU routing of the
+kernel wrappers and the dispatch layer."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ros as jros
+from repro.kernels import ref as jref
+from repro_torch.kernels import fwht, ops, ref, sketch_fused, sparse_assign
+
+
+# jitted reference oracles: one compile per shape instead of one per op
+J_SKETCH = jax.jit(jref.ref_sketch_fused)
+J_HD = jax.jit(jref.ref_hd_precondition)
+J_HD_AFTER = jax.jit(lambda x, s: jros.fwht(x) * s[None, :])
+J_ASSIGN = jax.jit(jref.ref_sparse_assign)
+
+
+def _case(n, p, m, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    s = np.where(rng.random(p) < 0.5, -1.0, 1.0).astype(np.float32)
+    idx = np.sort(np.argsort(rng.random((n, p)), axis=1)[:, :m], axis=1).astype(np.int32)
+    return x, s, idx
+
+
+def _t(*arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _close(a, b, tol=1e-5):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol, atol=tol)
+
+
+# the shapes of tests/test_sketch_fused.py, plus ragged row counts
+SKETCH_SHAPES = [(10, 128, 8), (33, 256, 16), (9, 512, 32), (21, 4096, 64),
+                 (1, 512, 24), (7, 512, 24), (127, 512, 24), (130, 512, 24)]
+
+
+@pytest.mark.parametrize("n,p,m", SKETCH_SHAPES)
+def test_sketch_fused_and_hd_precondition_plain(n, p, m):
+    x, s, idx = _case(n, p, m, seed=n * p)
+    _close(ref.ref_sketch_fused(*_t(x, s, idx)), J_SKETCH(x, s, idx))
+    _close(ref.ref_hd_precondition(*_t(x, s)), J_HD(x, s))
+    # the unmix direction: signs after the transform
+    _close(ref.ref_hd_precondition(*_t(x, s), signs_after=True), J_HD_AFTER(x, s))
+
+
+def _check_assign(d, a, d_ref, a_ref):
+    d, a, d_ref, a_ref = (np.asarray(v) for v in (d, a, d_ref, a_ref))
+    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=0)
+    top2 = np.sort(np.concatenate([d_ref, np.full(d_ref.shape[:-1] + (1,), np.inf)], -1),
+                   axis=-1)[..., :2]
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * np.abs(top2[..., 0])
+    np.testing.assert_array_equal(a[clear], a_ref[clear])
+    assert a.dtype == np.int32
+
+
+@pytest.mark.parametrize("n,m,k,p", [(50, 16, 5, 128), (200, 64, 8, 1024), (3, 1, 1, 4)])
+def test_sparse_assign_plain(n, m, k, p):
+    rng = np.random.default_rng(n + k)
+    _, _, idx = _case(n, p, m, seed=k)
+    vals = rng.normal(size=(n, m)).astype(np.float32)
+    centers = rng.normal(size=(3, k, p)).astype(np.float32)
+    for c in (centers[0], centers):
+        d, a = ref.ref_sparse_assign(*_t(vals, idx, c))
+        if c.ndim == 2:
+            d_j, a_j = J_ASSIGN(vals, idx, c)
+        else:
+            outs = [J_ASSIGN(vals, idx, ci) for ci in c]
+            d_j, a_j = np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs])
+        _check_assign(d, a, d_j, a_j)
+
+
+def test_wrappers_use_plain_versions_for_cpu_tensors():
+    x, s, idx = _t(*_case(4, 64, 8, seed=0))
+    ops.reset_counts()
+    np.testing.assert_array_equal(fwht.hd_precondition(x, s), ref.ref_hd_precondition(x, s))
+    np.testing.assert_array_equal(sketch_fused.sketch_fused(x, s, idx),
+                                  ref.ref_sketch_fused(x, s, idx))
+    c = torch.ones((2, 64))
+    vals = torch.zeros((4, 8))
+    d, a = sparse_assign.sparse_assign(vals, idx, c)
+    assert torch.equal(d, torch.full((4, 2), 8.0)) and torch.equal(a, torch.zeros(4, dtype=torch.int32))
+    ops.sketch_fused(x, s, idx)
+    ops.sparse_assign(vals, idx, c, mode="ref")
+    assert ops.launch_counts() == {"sketch_fused": 0, "hd_precondition": 0, "sparse_assign": 0}
+    assert ops.DISPATCH == {("sketch_fused", "ref"): 1, ("sparse_assign", "ref"): 1}
+    with pytest.raises(ValueError, match="mode"):
+        ops.hd_precondition(x, s, mode="interpret")
+
+
+def test_kernel_checks_reject_what_the_kernel_does_not_take():
+    """The CUDA-side argument checks run before any library is loaded."""
+    from repro_torch.kernels import _build
+
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.require(torch.zeros(2, 2), torch.float32, 2, "x")
+    with pytest.raises(ValueError, match="K3"):
+        fwht.check_p(1 << 16)
+    with pytest.raises(ValueError, match="power-of-two"):
+        fwht.check_p(1000)
+    assert fwht.check_p(1 << 15) == 15 and fwht.check_p(1) == 0
+    assert fwht.scale_for(1 << 15) == float(np.float32(1 / np.sqrt(1 << 15)))
