@@ -9,16 +9,25 @@ Phases, in order; any failure exits non-zero:
 2. build    — compile every CUDA source for sm_90a; print registers, shared
               memory and spills from ptxas.
 3. kernels  — each kernel against its plain PyTorch version on the card, at the
-              shapes the streaming path gives it (and at its edges), with its
-              time over repeated launches beside its bound.
-4. parity   — a small stream run on the card with the kernels against the same
-              run on the CPU with the plain versions (same seed, same masks).
+              shapes the two streaming paths give it (and at its edges), with
+              its time over repeated launches beside its bound.
+4. parity   — small runs on the card with the kernels against the same runs on
+              the CPU with the plain versions (same seed, same masks): the
+              dense path at p = 1000 and the low-rank path at p = 40000.
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
-              (K = 10, r = 3), then pca_from_stream(k=8); every kernel must have
-              launched, the outputs must be finite, and the top-8 subspace and
-              eigenvalues must match the source's planted ones.
+              (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
+              path (K1, K2, K4) must have launched, the outputs must be finite,
+              and the top-8 subspace and eigenvalues must match the source's
+              planted ones.
 6. costs    — the step's largest costs that are not kernels.
+7. lowrank  — the second path at full width: Plan(cov_path="lowrank",
+              rank=128), p = 65536, 8 steps of 4096 rows, streaming K-means
+              (K = 10, r = 3), then cov_lowrank.top(8) unmixed; every kernel of
+              the path (K3, K4, K5, K6) must have launched, the outputs must be
+              finite, the state O(l·p), and the subspace and eigenvalues of the
+              planted directions that the range-finder resolves at this n
+              must match the planted ones.
 
 Then one JSON line listing every kernel, the card's line again, and the result
 line ``{"ok": true, "device": {...}}`` last.
@@ -43,6 +52,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
 P, BATCH, STEPS, GAMMA, K, N_INIT, PCA_K = 16384, 4096, 16, 0.05, 10, 3, 8
+# the low-rank path: p, sketch width l, steps
+P_LR, ELL, STEPS_LR = 65536, 128, 8
+PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
+PATH2 = ("hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t")
 
 
 def fail(msg: str) -> None:
@@ -103,7 +116,9 @@ def main() -> None:
     from repro_torch.core import estimators
     from repro_torch.core.sampling import sample_indices
     from repro_torch.data.pipeline import VectorStreamSource
+    from repro_torch.core import sketch as sketch_mod
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.stream import StreamKMeansConfig
     from repro_torch.utils import prng
 
@@ -204,6 +219,83 @@ def main() -> None:
     del x, idx, vals, centers, d, a, d_ref, a_ref
     torch.cuda.empty_cache()
 
+    # K3 hd_precondition above 2^15: a batch of the low-rank path in both sign
+    # modes, the unmix shapes of its finalize, and K3's outer passes at 2^17, 2^19
+    m_lr = round(GAMMA * P_LR)
+    for n, p, modes in [(BATCH, P_LR, (False, True)), (PCA_K, P_LR, (True,)), (K, P_LR, (True,)),
+                        (256, 1 << 17, (False, True)), (64, 1 << 19, (False, True))]:
+        gen = torch.Generator(device=dev).manual_seed(n + p)
+        x = torch.randn((n, p), device=dev, generator=gen)
+        s = prng.rademacher(prng.fold_in(key, n + p), (p,), device=dev)
+        for after in modes:
+            got = ops.hd_precondition(x, s, signs_after=after)
+            torch.cuda.synchronize()
+            err = (got - ref.ref_hd_precondition(x, s, after)).abs().max().item()
+            ms = time_ms(lambda: ops.hd_precondition(x, s, signs_after=after), 20)
+            plain_ms = time_ms(lambda: ref.ref_hd_precondition(x, s, after), 3)
+            b = bound(4 * (2 * n * p + p), n * p * (math.log2(p) + 2))
+            # one PyTorch call would be x @ (H·D): H alone is p² floats (16 GiB at 2^16)
+            report(f"K3 hd_precondition ({n}, {p}) signs_after={after}, bit-equal expected",
+                   err, 1e-5, ms, plain_ms, b)
+            if (n, p, after) == (BATCH, P_LR, False):
+                entries["hd_precondition_chunked"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None)
+        del x, s, got
+    torch.cuda.empty_cache()
+
+    # K5 spmm and K6 spmm_t at the low-rank path's shapes, at a ragged n, and at
+    # an l that is not a multiple of 32 (float4 lanes) or of 4 (one float a lane)
+    def csr(vals, idx, n_rows, n_cols, transpose=False):
+        rows = torch.arange(vals.shape[0], device=dev).repeat_interleave(vals.shape[1])
+        cols = idx.reshape(-1).long()
+        ij = torch.stack([cols, rows]) if transpose else torch.stack([rows, cols])
+        return torch.sparse_coo_tensor(ij, vals.reshape(-1), (n_rows, n_cols)).coalesce().to_sparse_csr()
+
+    for n, ell in [(BATCH, ELL), (777, ELL), (BATCH, 100), (1000, 13)]:
+        idx = sample_indices(prng.fold_in(key, n + ell), n, P_LR, m_lr, device=dev)
+        vals = torch.from_numpy(rng.normal(size=(n, m_lr)).astype(np.float32)).to(dev)
+        om = prng.normal(prng.fold_in(key, ell), (P_LR, ell), device=dev)
+        t = ops.spmm(vals, idx, om)
+        y = ops.spmm_t(vals, idx, t, P_LR)
+        torch.cuda.synchronize()
+        t_ref, y_ref = ref.ref_spmm(vals, idx, om), ref.ref_spmm_t(vals, idx, t, P_LR)
+        err_t = (t - t_ref).abs().max().item()
+        err_y = (y - y_ref).abs().max().item()
+        flops = 2 * n * m_lr * ell
+        main = (n, ell) == (BATCH, ELL)
+        reps = 10 if main else 3
+        ms_t = time_ms(lambda: ops.spmm(vals, idx, om), reps)
+        ms_y = time_ms(lambda: ops.spmm_t(vals, idx, t, P_LR), reps)
+        plain_t = time_ms(lambda: ref.ref_spmm(vals, idx, om), 2, warmup=1)
+        plain_y = time_ms(lambda: ref.ref_spmm_t(vals, idx, t, P_LR), 2, warmup=1)
+        lib_t = lib_y = None
+        if main:
+            w, wt = csr(vals, idx, n, P_LR), csr(vals, idx, P_LR, n, transpose=True)
+            lib_t = time_ms(lambda: torch.sparse.mm(w, om), reps)
+            lib_y = time_ms(lambda: torch.sparse.mm(wt, t), reps)
+            del w, wt
+            prep = time_ms(lambda: spmm_mod.column_buckets(idx, P_LR), reps)
+            again = [ops.spmm_t(vals, idx, t, P_LR) for _ in range(2)]
+            check(torch.equal(again[0], y) and torch.equal(again[1], y),
+                  "K6: repeated launches are not bit-identical")
+            print(f"  K6 bucketing (stable sort + searchsorted) alone {prep:.4f} ms of the "
+                  f"{ms_y:.4f} ms; repeated launches bit-identical")
+        b_t = bound(4 * (2 * n * m_lr + P_LR * ell + n * ell), flops)
+        b_y = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell), flops)
+        tol_t, tol_y = 1e-5 * t_ref.abs().max().item(), 1e-5 * y_ref.abs().max().item()
+        report(f"K5 spmm (n={n}, m={m_lr}, p={P_LR}, l={ell}), tol 1e-5 of max |plain|",
+               err_t, tol_t, ms_t, plain_t, b_t, lib_t)
+        report(f"K6 spmm_t (n={n}, m={m_lr}, p={P_LR}, l={ell}), tol 1e-5 of max |plain|",
+               err_y, tol_y, ms_y, plain_y, b_y, lib_y)
+        if main:
+            entries["spmm"] = dict(max_abs_err=err_t, ms=ms_t, plain_ms=plain_t, bound_ms=b_t[0],
+                                   bound_by=b_t[1], library_ms=lib_t)
+            entries["spmm_t"] = dict(max_abs_err=err_y, ms=ms_y, plain_ms=plain_y,
+                                     bound_ms=b_y[0], bound_by=b_y[1], library_ms=lib_y)
+        del idx, vals, om, t, y, t_ref, y_ref
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4 parity
     print("== 4 small run on the card against the same run on the CPU", flush=True)
 
@@ -215,8 +307,8 @@ def main() -> None:
 
     ops.reset_counts()
     on_card, on_cpu = small("cuda"), small("cpu")
-    check(all(v > 0 for v in ops.launch_counts().values()),
-          f"small run on the card did not launch every kernel: {ops.launch_counts()}")
+    check(all(ops.launch_counts()[name] > 0 for name in PATH1),
+          f"small run on the card did not launch every kernel of its path: {ops.launch_counts()}")
     check(int(on_card.count) == int(on_cpu.count) == 384, "row counts differ")
     for name, tol in [("mean", 1e-5), ("cov", 1e-5), ("centers_pre", 1e-4), ("centers", 1e-4),
                       ("kmeans_obj", 1e-4)]:
@@ -224,6 +316,45 @@ def main() -> None:
         ok = np.allclose(a, b_, rtol=tol, atol=tol)
         print(f"  {name}: max |card - cpu| {np.abs(a - b_).max():.3g} (rtol = atol = {tol:g})")
         check(ok, f"{name} differs between the card and the CPU beyond {tol:g}")
+
+    # the low-rank path: p = 40000 pads to 65536 (K3), l = 16, K-means K = 4, r = 2
+    def small_lowrank(device):
+        plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=64, cov_path="lowrank", rank=16)
+        eng = api.make_engine(plan, 40000, prng.PRNGKey(3),
+                              VectorStreamSource(p=40000, batch=64, seed=0),
+                              kmeans=StreamKMeansConfig(k=4, n_init=2), device=device)
+        return eng, eng.run(3)
+
+    ops.reset_counts()
+    (eng_card, lr_card), (eng_cpu, lr_cpu) = small_lowrank("cuda"), small_lowrank("cpu")
+    check(all(ops.launch_counts()[name] > 0 for name in PATH2),
+          f"small low-rank run on the card did not launch every kernel of its path: "
+          f"{ops.launch_counts()}")
+    check(torch.equal(eng_card._omega.cpu(), eng_cpu._omega), "the card and the CPU drew another Ω")
+    check(int(lr_card.count) == int(lr_cpu.count) == 192, "low-rank row counts differ")
+    st_card, st_cpu = eng_card.state.lowrank, eng_cpu.state.lowrank
+    # sums in another order (K5/K6 and atomics against the CPU's sequential
+    # sums): relative to the largest entry; centers as on the dense path
+    for name, a, b_, tol in [("mean", lr_card.mean, lr_cpu.mean, 1e-5),
+                             ("RangeState.y", st_card.y, st_cpu.y, 1e-5),
+                             ("RangeState.diag", st_card.diag, st_cpu.diag, 1e-5),
+                             ("centers", lr_card.centers, lr_cpu.centers, 1e-4)]:
+        diff = (a.cpu() - b_).abs().max().item()
+        scale = b_.abs().max().item()
+        print(f"  low-rank {name}: max |card - cpu| {diff:.3g} (tol {tol:g} of max |cpu| {scale:.3g})")
+        check(diff <= tol * scale, f"low-rank {name} differs between the card and the CPU")
+    ev_card = lr_card.cov_lowrank.eigenvalues.cpu().double().numpy()
+    ev_cpu = lr_cpu.cov_lowrank.eigenvalues.double().numpy()
+    rel = np.abs(ev_card - ev_cpu) / np.abs(ev_cpu)
+    cos = np.abs(np.sum(lr_card.cov_lowrank.components_pre.cpu().double().numpy()
+                        * lr_cpu.cov_lowrank.components_pre.double().numpy(), axis=1))
+    print(f"  low-rank eigenvalues {np.round(ev_cpu, 3).tolist()}: relative |card - cpu| "
+          f"{rel.max():.3g}; |cos| of components card vs cpu {np.round(cos, 6).tolist()}")
+    # the top 4 of the 8: at 192 rows the lower ones sit at the noise floor,
+    # where the basis boundary is not well separated
+    check(rel[:4].max() <= 1e-4, "low-rank eigenvalues differ between the card and the CPU")
+    check(cos[:4].min() >= 1 - 1e-4, "low-rank components differ between the card and the CPU")
+    del eng_card, eng_cpu, lr_card, lr_cpu, st_card, st_cpu
 
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
@@ -247,7 +378,7 @@ def main() -> None:
           f"seeding included); pca_from_stream {t_pca:.2f} s; peak memory {peak / 2**30:.2f} GiB")
     print(f"  launches on the main path: {launches}")
     check(rows == STEPS * BATCH, f"count {rows} != {STEPS * BATCH}")
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    check(all(launches[name] > 0 for name in PATH1), f"a kernel of the path never launched: {launches}")
     for name in ("mean", "cov", "centers", "centers_pre", "kmeans_obj"):
         check(bool(torch.isfinite(getattr(res, name)).all()), f"{name} is not finite")
     check(tuple(res.centers.shape) == (K, P), f"centers shape {tuple(res.centers.shape)}")
@@ -303,16 +434,127 @@ def main() -> None:
     for step in range(3):
         src.batch_at(step)
     print(f"  host source batch_at ({BATCH}, {P}): {(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+    del eng, res, pca, src
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- 7 lowrank
+    print(f"== 7 the low-rank path: p={P_LR}, l={ELL}, {BATCH} rows a step, {STEPS_LR} steps, "
+          f"K={K}, r={N_INIT}", flush=True)
+    src = VectorStreamSource(p=P_LR, batch=BATCH, seed=0)
+    plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, cov_path="lowrank", rank=ELL)
+    t0 = time.perf_counter()
+    eng = api.make_engine(plan, P_LR, prng.PRNGKey(1), src,
+                          kmeans=StreamKMeansConfig(k=K, n_init=N_INIT))
+    t_make = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = eng.run(STEPS_LR)
+    comps_pre, evals = res.cov_lowrank.top(PCA_K)
+    comps = sketch_mod.unmix_dense(comps_pre, eng.spec)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches_lr = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    eng.finalize()
+    torch.cuda.synchronize()
+    t_fin = time.perf_counter() - t0
+    rows = int(res.count)
+    state_bytes = eng.state.lowrank.nbytes()
+    print(f"  make_engine (Ω drawn on the host) {t_make:.2f} s; streamed {rows} rows in {t_run:.2f} s "
+          f"({rows / t_run:.0f} rows/s, K-means++ seeding, finalize and unmix included); "
+          f"finalize alone {t_fin:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+    print(f"  low-rank state {state_bytes} bytes (the (p, p) accumulator would be {4 * P_LR**2} bytes)")
+    print(f"  launches on the low-rank path: {launches_lr}")
+    check(rows == STEPS_LR * BATCH, f"count {rows} != {STEPS_LR * BATCH}")
+    check(all(launches_lr[name] > 0 for name in PATH2),
+          f"a kernel of the low-rank path never launched: {launches_lr}")
+    check(eng.state.moments is None, "the low-rank path also ran the dense moments")
+    check(state_bytes <= (ELL + 3) * P_LR * 4 + 64, f"low-rank state of {state_bytes} bytes is not O(l·p)")
+    check(tuple(res.cov_lowrank.eigenvalues.shape) == (ELL // 2,),
+          f"{tuple(res.cov_lowrank.eigenvalues.shape)} eigenpairs, expected {ELL // 2}")
+    for name in ("mean", "centers", "centers_pre", "kmeans_obj"):
+        check(bool(torch.isfinite(getattr(res, name)).all()), f"low-rank {name} is not finite")
+    check(bool(torch.isfinite(comps).all() and torch.isfinite(res.cov_lowrank.eigenvalues).all()),
+          "low-rank PCA output is not finite")
+    check(tuple(comps.shape) == (PCA_K, P_LR) and tuple(res.centers.shape) == (K, P_LR),
+          f"shapes {tuple(comps.shape)}, {tuple(res.centers.shape)}")
+    # Which planted directions the range-finder can resolve at this n: one
+    # entry of the Thm-6 estimate has std σ = v/(γ√n), v = tr(C)/p; the sketch
+    # Y' = S'·Ω then carries a noise bulk with singular values near
+    # σ√p(√p + √l), against λ²√l for a planted direction. Gate on the
+    # directions whose λ² is at least 5× that edge (PERF.md, PR 12).
+    planted = src._lam.astype(np.float64) ** 2
+    u = src._u.astype(np.float64)
+    v = (planted.sum() + 0.05 ** 2 * P_LR) / P_LR
+    sigma = v / (GAMMA * math.sqrt(rows))
+    edge = sigma * math.sqrt(P_LR) * (math.sqrt(P_LR) + math.sqrt(ELL)) / math.sqrt(ELL)
+    k_res = int(np.sum(planted >= 5 * edge))
+    comps_np = comps.double().cpu().numpy()
+    comps_np /= np.linalg.norm(comps_np, axis=1, keepdims=True)
+    best = np.abs(comps_np @ u).max(axis=0)
+    q, _ = np.linalg.qr(comps_np[:k_res].T)
+    cosines = np.linalg.svd(q.T @ u[:, :k_res], compute_uv=False)
+    sine = float(np.sqrt(max(0.0, 1.0 - cosines.min() ** 2)))
+    ev = evals.cpu().numpy()
+    print(f"  range-finder noise edge at n={rows}: λ² ≈ {edge:.2f}; gating on the {k_res} planted "
+          f"directions with λ² ≥ {5 * edge:.1f}")
+    print(f"  best |cos| of each planted direction with the top-{PCA_K} components: "
+          f"{np.round(best, 4).tolist()}")
+    print(f"  top-{k_res} subspace vs planted: sine of largest principal angle {sine:.4f} (< 0.35)")
+    print(f"  eigenvalues {np.round(ev, 2).tolist()} vs planted {np.round(planted, 2).tolist()}")
+    check(k_res >= 4, f"only {k_res} planted directions are resolvable: the run is too short")
+    check(sine < 0.35, f"low-rank top-{k_res} subspace is off the planted one: sine {sine:.3f}")
+    check(bool(np.all(np.abs(ev[:k_res] - planted[:k_res]) <= 0.1 * planted[:k_res])),
+          "a resolvable low-rank eigenvalue is more than 10% off its planted value")
+    state, t_src, t_dev = eng.state, 0.0, 0.0
+    for step in range(STEPS_LR, STEPS_LR + 2):
+        t0 = time.perf_counter()
+        x = eng.host_global_batch(None, step)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = eng.update(state, x, step)
+        torch.cuda.synchronize()
+        t_src, t_dev = t_src + t1 - t0, t_dev + time.perf_counter() - t1
+    print(f"  a step: host source + copy {t_src / 2 * 1e3:.1f} ms, device update {t_dev / 2 * 1e3:.1f} ms; "
+          f"device share {t_dev / (t_src + t_dev):.3f}")
+    print(f"  sample_indices ({BATCH}, {P_LR}, m={m_lr}): "
+          f"{time_ms(lambda: sample_indices(key, BATCH, P_LR, m_lr, device=dev), 2, 1):.2f} ms")
+    # one device update under the profiler: device time by kernel (the
+    # kernels' own entries, not the host ops that launched them)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.update(state, x, STEPS_LR + 2)
+        torch.cuda.synchronize()
+    kernel_rows = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and e.key.startswith("void ")),
+                         key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in kernel_rows)
+    print(f"  one device update under torch.profiler: {len(kernel_rows)} kernels, "
+          f"{sum(e.count for e in kernel_rows)} launches, {total / 1e3:.1f} ms of kernel time; the largest:")
+    for e in kernel_rows[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:100]}")
+    del state, x
 
     # ---------------------------------------------------------------- summary
-    sources = {"sketch_fused": ("src/repro_torch/kernels/csrc/hadamard.cu",
-                                "src/repro/kernels/sketch_fused.py:80"),
-               "hd_precondition": ("src/repro_torch/kernels/csrc/hadamard.cu",
-                                   "src/repro/kernels/fwht.py:205"),
+    hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
+    sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
+               "hd_precondition": (hadamard, "src/repro/kernels/fwht.py:205", launches),
+               "hd_precondition_chunked": (hadamard, "src/repro/kernels/fwht.py:132", launches_lr),
                "sparse_assign": ("src/repro_torch/kernels/csrc/sparse_assign.cu",
-                                 "src/repro/kernels/sparse_assign.py:75")}
-    kernels = [dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-                    launches=launches[name], **entries[name]) for name in sources]
+                                 "src/repro/kernels/sparse_assign.py:75", launches),
+               "spmm": ("src/repro_torch/kernels/csrc/spmm.cu", "src/repro/kernels/spmm.py:183",
+                        launches_lr),
+               "spmm_t": ("src/repro_torch/kernels/csrc/spmm.cu", "src/repro/kernels/spmm.py:219",
+                          launches_lr)}
+    # launches: each kernel's count on its own path's run (phase 5 or phase 7)
+    kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=counts[name], **entries[name])
+               for name, (source, replaces, counts) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

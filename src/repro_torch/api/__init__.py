@@ -11,6 +11,15 @@ streaming engine from it::
     src = VectorStreamSource(p=16384, batch=4096, seed=0)
     res = make_engine(plan, 16384, 1, src, kmeans=StreamKMeansConfig(k=10)).run(16)
 
+and, where the (p, p) accumulator would not fit, the low-rank path::
+
+    plan = Plan(backend="stream", gamma=0.05, batch_size=4096,
+                cov_path="lowrank", rank=128)
+    eng = make_engine(plan, 65536, 1, VectorStreamSource(p=65536, batch=4096),
+                      kmeans=StreamKMeansConfig(k=10))
+    comps_pre, evals = eng.run(8).cov_lowrank.top(8)
+    comps = sketch.unmix_dense(comps_pre, eng.spec)   # repro_torch.core.sketch
+
 The estimator classes of the reference (``SparsifiedMean/Cov/PCA/KMeans``,
 ``fit_many``) are not ported yet.
 """
@@ -34,9 +43,10 @@ def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
                 kmeans=None, device="cuda"):
     """Construct a :class:`repro_torch.stream.StreamEngine` from a Plan.
 
-    The engine is the fused one-pass runner (moments + streaming K-means over
-    one sketch of each batch) on ``device`` (the card by default). Backend
-    "stream" folds the shards one after another.
+    The engine is the fused one-pass runner (moments or the low-rank
+    range-finder state, + streaming K-means, over one sketch of each batch) on
+    ``device`` (the card by default). Backend "stream" folds the shards one
+    after another.
     """
     from repro_torch.stream import StreamEngine
 
@@ -46,10 +56,13 @@ def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
         raise not_ported("Plan(backend='batch')", "Estimator front door")
     if plan.mesh is not None:
         raise not_ported("Plan(mesh=...)", "Sharded backend")
-    if plan.cov_path == "lowrank":
-        raise not_ported("Plan(cov_path='lowrank')", "Low-rank PCA and refinement")
+    if plan.cov_path == "lowrank" and plan.lowrank_method == "fd":
+        raise ValueError(
+            "the engine's low-rank path sums the linear range-finder delta; "
+            "lowrank_method='fd' (order-dependent shrink) is estimator-layer "
+            "only — use lowrank_method='range'")
     if plan.refine_passes:
-        raise not_ported("Plan(refine_passes=...)", "Low-rank PCA and refinement")
+        raise not_ported("Plan(refine_passes=...)", "Low-rank FD and refinement")
     return StreamEngine(plan.spec(p, as_key(key)), source, n_shards=plan.n_shards,
-                        track_cov=track_cov, kmeans=kmeans,
-                        impl=plan.impl, cov_path=plan.cov_path, device=device)
+                        track_cov=track_cov, kmeans=kmeans, impl=plan.impl,
+                        cov_path=plan.cov_path, rank=plan.rank, device=device)

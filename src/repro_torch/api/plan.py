@@ -1,9 +1,10 @@
 """The execution :class:`Plan` — one config object selecting how a sketch job runs.
 
 The same fields and validation as the reference's ``repro.api.Plan``. This
-package runs ``backend="stream"`` through :func:`repro_torch.api.make_engine`;
-the other backends, the low-rank covariance path and refinement passes raise
-``NotImplementedError`` there until they are ported.
+package runs ``backend="stream"`` through :func:`repro_torch.api.make_engine`,
+with the dense, compact or low-rank (``lowrank_method="range"``) covariance
+path; the other backends and refinement passes raise ``NotImplementedError``
+there until they are ported.
 """
 from __future__ import annotations
 
@@ -31,9 +32,10 @@ class Plan:
     n_shards:   logical shards per step (the shard axis of the key discipline).
     axis:       mesh axis name for the sharded backend.
     mesh:       device mesh for the sharded backend.
-    cov_path:   "dense", "compact" or "lowrank" (the last not ported yet).
+    cov_path:   "dense", "compact" or "lowrank".
     rank:       sketch width of the low-rank path (required there).
-    lowrank_method: "range" or "fd".
+    lowrank_method: "range" or "fd" (the engine takes "range" only, as the
+                reference's does).
     refine_passes: second-pass replay refinements (not ported yet).
     dtype:      input rows are cast to this before sketching.
     """

@@ -28,9 +28,14 @@ SIGNATURES = {
     "hadamard": {
         "hd_precondition_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
         "sketch_fused_f32": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+        "hd_precondition_chunked_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
     },
     "sparse_assign": {
         "sparse_assign_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "spmm": {
+        "spmm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "spmm_t_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -4,7 +4,8 @@
 CUDA kernel for a CUDA tensor and computes the plain version for a CPU tensor;
 "ref" asks for the plain version on any device. Every call is tallied in
 :data:`DISPATCH` by (op, path), where path is "kernel" when a kernel was
-launched.
+launched, "kernel_chunked" when the transform went to K3 (p > 2^15), and
+"ref" otherwise.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.kernels import fwht as _fwht
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_fused as _sf
 from repro_torch.kernels import sparse_assign as _sa
+from repro_torch.kernels import spmm as _spmm
 
 DISPATCH: collections.Counter = collections.Counter()
 
@@ -24,15 +26,21 @@ DISPATCH: collections.Counter = collections.Counter()
 WRAPPERS = {
     "sketch_fused": _sf.sketch_fused,
     "hd_precondition": _fwht.hd_precondition,
+    "hd_precondition_chunked": _fwht.hd_precondition_chunked,
     "sparse_assign": _sa.sparse_assign,
+    "spmm": _spmm.spmm,
+    "spmm_t": _spmm.spmm_t,
 }
 
 
-def _use_kernel(op: str, mode: str, t: torch.Tensor) -> bool:
+def _use_kernel(op: str, mode: str, t: torch.Tensor, chunked: bool = False) -> bool:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     kernel = mode in ("auto", "kernel")
-    DISPATCH[(op, "kernel" if kernel and t.device.type == "cuda" else "ref")] += 1
+    path = "ref"
+    if kernel and t.device.type == "cuda":
+        path = "kernel_chunked" if chunked else "kernel"
+    DISPATCH[(op, path)] += 1
     return kernel
 
 
@@ -50,9 +58,10 @@ def reset_counts() -> None:
 
 def hd_precondition(x: torch.Tensor, signs: torch.Tensor, signs_after: bool = False,
                     mode: str = "auto") -> torch.Tensor:
-    """y = H·(d⊙x), or d⊙(H·x) with ``signs_after`` (unmix)."""
+    """y = H·(d⊙x), or d⊙(H·x) with ``signs_after`` (unmix); K2 up to
+    p = 2^15, K3 above."""
     x = x.contiguous()
-    if _use_kernel("hd_precondition", mode, x):
+    if _use_kernel("hd_precondition", mode, x, chunked=x.shape[-1] > _fwht.MAX_P_SINGLE):
         return _fwht.hd_precondition(x, signs, signs_after)
     return _ref.ref_hd_precondition(x, signs, signs_after)
 
@@ -60,11 +69,18 @@ def hd_precondition(x: torch.Tensor, signs: torch.Tensor, signs_after: bool = Fa
 def sketch_fused(x: torch.Tensor, signs: torch.Tensor, indices: torch.Tensor,
                  mode: str = "auto") -> torch.Tensor:
     """values (n, m) = (H·(signs⊙x))[i, indices[i]] — precondition and keep m
-    values per row in one pass."""
+    values per row in one pass.
+
+    Above K1's single-row ceiling (p > 2^15) the kernel path composes K3 with a
+    gather, as the reference does: the kernel transform, not in one pass.
+    """
     x = x.contiguous()
-    if _use_kernel("sketch_fused", mode, x):
-        return _sf.sketch_fused(x, signs, indices.contiguous())
-    return _ref.ref_sketch_fused(x, signs, indices)
+    chunked = x.shape[-1] > _fwht.MAX_P_SINGLE
+    if not _use_kernel("sketch_fused", mode, x, chunked=chunked):
+        return _ref.ref_sketch_fused(x, signs, indices)
+    if chunked:
+        return torch.gather(_fwht.hd_precondition_chunked(x, signs), 1, indices.long())
+    return _sf.sketch_fused(x, signs, indices.contiguous())
 
 
 def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Tensor,
@@ -75,3 +91,19 @@ def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Te
         return _sa.sparse_assign(values.contiguous(), indices.contiguous(),
                                  centers.contiguous())
     return _ref.ref_sparse_assign(values, indices, centers)
+
+
+def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor,
+         mode: str = "auto") -> torch.Tensor:
+    """T (n, l) = W @ dense — project compact sparse rows onto l columns."""
+    if _use_kernel("spmm", mode, values):
+        return _spmm.spmm(values.contiguous(), indices.contiguous(), dense.contiguous())
+    return _ref.ref_spmm(values, indices, dense)
+
+
+def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor, p: int,
+           mode: str = "auto") -> torch.Tensor:
+    """Y (p, l) = Wᵀ @ t — scatter sparse rows into the l-dim sketch."""
+    if _use_kernel("spmm_t", mode, values):
+        return _spmm.spmm_t(values.contiguous(), indices.contiguous(), t.contiguous(), p)
+    return _ref.ref_spmm_t(values, indices, t, p)

@@ -13,7 +13,8 @@ from repro_torch.core import ros
 def ref_hd_precondition(x: torch.Tensor, signs: torch.Tensor,
                         signs_after: bool = False) -> torch.Tensor:
     """y = H·(d ⊙ x), or d ⊙ (H·x) with ``signs_after`` (the unmix direction),
-    along the last axis — oracle for ``kernels.fwht.hd_precondition`` (K2).
+    along the last axis — oracle for ``kernels.fwht.hd_precondition`` (K2) and
+    ``kernels.fwht.hd_precondition_chunked`` (K3): the same butterfly at any p.
 
     ``x``: (n, p) with p a power of two; ``signs``: (p,) of ±1.
     """
@@ -43,3 +44,28 @@ def ref_sparse_assign(values: torch.Tensor, indices: torch.Tensor,
     g = centers.T[indices.long()]                            # (n, m, K)
     d = torch.sum((values[..., None] - g) ** 2, dim=1)
     return d, torch.argmin(d, dim=1).to(torch.int32)
+
+
+def spmm_out_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The spmm promotion rule: operands promote jointly, and accumulation and
+    output are at least float32 (the reference's ``promoted_dtypes``)."""
+    return torch.promote_types(torch.promote_types(a, b), torch.float32)
+
+
+def ref_spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    """T (n, l) = W @ dense — oracle for ``kernels.spmm.spmm`` (K5).
+
+    values/indices (n, m) compact sparse rows over p columns; dense (p, l).
+    """
+    out = spmm_out_dtype(values.dtype, dense.dtype)
+    return torch.einsum("nm,nml->nl", values.to(out), dense.to(out)[indices.long()])
+
+
+def ref_spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
+               p: int) -> torch.Tensor:
+    """Y (p, l) = Wᵀ @ t — oracle for ``kernels.spmm.spmm_t`` (K6): a
+    scatter-add of the rows v_ij·t_i into column idx_ij."""
+    out = spmm_out_dtype(values.dtype, t.dtype)
+    contrib = values.to(out)[..., None] * t.to(out)[:, None, :]
+    y = torch.zeros((p, t.shape[1]), dtype=out, device=t.device)
+    return y.index_add_(0, indices.reshape(-1).long(), contrib.reshape(-1, t.shape[1]))

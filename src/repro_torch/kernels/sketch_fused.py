@@ -5,8 +5,8 @@ preconditioned row stays in shared memory and only the m kept values are
 written (``csrc/hadamard.cu``, the same kernel as K2 in its gather mode).
 
 On a CPU tensor the wrapper computes the plain version (``kernels.ref``); on a
-CUDA tensor it launches the kernel or raises — above p = 2^15 it raises, since
-the chunked transform (K3) is not ported yet.
+CUDA tensor it launches the kernel or raises — above p = 2^15 it raises
+(``kernels.ops.sketch_fused`` composes K3 and a gather there).
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ setting, §IV–V estimators, §VI K-means):
   (step, shard) batch (``core.sketch.batch_key``) — the same masks as the
   reference engine for the same key;
 - **accumulate** folds each sketched batch into constant-memory accumulators
-  (``stream.accumulators``) — Thm-4 mean, Thm-6 covariance, and mini-batch
-  streaming sparsified K-means;
+  (``stream.accumulators``) — Thm-4 mean, Thm-6 covariance (or, with
+  ``cov_path="lowrank"``, the O(l·p) range-finder state of ``lowrank``), and
+  mini-batch streaming sparsified K-means;
 - **finalize** applies the closed-form debiasing once, after the last batch.
 
 ``n_shards`` logical shards per step are folded one after another: every
@@ -26,6 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import lowrank as lowrank_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
@@ -58,10 +60,15 @@ class StreamKMeansConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineState:
-    """Everything the engine carries between batches."""
+    """Everything the engine carries between batches.
+
+    Exactly one of ``moments`` / ``lowrank`` accumulates the second moment and
+    the Thm-4 mean (RangeState carries sum_w and count itself).
+    """
 
     moments: acc.MomentState | None
     kmeans: acc.KMeansState | None
+    lowrank: lowrank_mod.RangeState | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +82,7 @@ class StreamResult:
     centers: torch.Tensor | None = None        # original domain, (K, p)
     centers_pre: torch.Tensor | None = None    # preconditioned domain, (K, p_pad)
     kmeans_obj: torch.Tensor | None = None
+    cov_lowrank: lowrank_mod.LowRankCov | None = None  # cov_path="lowrank"
 
 
 def normalize_source(source) -> Source:
@@ -113,12 +121,17 @@ class StreamEngine:
         sparsified K-means alongside the moment estimators.
     impl: kernel dispatch ("auto" = the CUDA kernels on a card, their plain
         versions on the CPU; "ref" = the plain versions anywhere).
-    cov_path: "dense" (scatter the batch to (b, p), one fp32 product) or
-        "compact" (scatter b·m² outer products).
+    cov_path: "dense" (scatter the batch to (b, p), one fp32 product),
+        "compact" (scatter b·m² outer products) or "lowrank" (the range-finder
+        state of ``repro_torch.lowrank``: the second moment shrinks from (p, p)
+        to the (p, rank) projection S·Ω, fed by the K5/K6 kernels; finalize
+        returns the factored eigenmodel on ``StreamResult.cov_lowrank``
+        instead of ``cov``).
+    rank: sketch width l of the "lowrank" path (required there).
     device: where the state lives and the work runs ("cuda" by default).
 
-    ``mesh``, ``cov_path="lowrank"``/``rank`` and K-means reassignment tracking
-    are not ported yet and raise ``NotImplementedError``.
+    ``mesh`` and K-means reassignment tracking are not ported yet and raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, spec: sketch_mod.SketchSpec, source, *, n_shards: int = 1,
@@ -127,10 +140,9 @@ class StreamEngine:
                  cov_path: str = "dense", rank: int | None = None, device="cuda"):
         if mesh is not None:
             raise not_ported("StreamEngine(mesh=...)", "Sharded backend")
-        if cov_path == "lowrank" or rank is not None:
-            raise not_ported("cov_path='lowrank'", "Low-rank PCA and refinement")
-        if cov_path not in ("dense", "compact"):
-            raise ValueError(f"cov_path must be 'dense' or 'compact', got {cov_path!r}")
+        if cov_path not in ("dense", "compact", "lowrank"):
+            raise ValueError(
+                f"cov_path must be 'dense', 'compact' or 'lowrank', got {cov_path!r}")
         if kmeans is not None and kmeans.track_reassignments:
             raise not_ported("StreamKMeansConfig(track_reassignments=True)", _ENGINE_ITEM)
         if track_cov and spec.m < 2:
@@ -147,6 +159,15 @@ class StreamEngine:
         self.kmeans = kmeans
         self.impl = impl
         self.cov_path = cov_path
+        self.lowrank = cov_path == "lowrank" and track_cov
+        self._omega = None
+        if self.lowrank:
+            if rank is None or not 2 <= rank <= spec.p_pad:
+                raise ValueError(f"cov_path='lowrank' needs 2 <= rank <= "
+                                 f"p_pad={spec.p_pad}, got rank={rank}")
+            self.rank = int(rank)
+            self._omega = lowrank_mod.omega(spec.key, spec.p_pad, self.rank,
+                                            device=self.device)
         self.state: EngineState | None = None  # set by run()
 
     # ------------------------------------------------------------ plumbing --
@@ -156,17 +177,23 @@ class StreamEngine:
                                  impl=self.impl)
 
     def _deltas(self, state: EngineState, batch: SparseRows):
-        md = acc.moment_delta(batch, track_cov=self.track_cov, cov_path=self.cov_path)
+        md = (None if self.lowrank
+              else acc.moment_delta(batch, track_cov=self.track_cov, cov_path=self.cov_path))
         kd = (acc.kmeans_delta(state.kmeans, batch, impl=self.impl)
               if state.kmeans is not None else None)
-        return md, kd
+        ld = (lowrank_mod.range_delta(batch, self._omega, impl=self.impl)
+              if self.lowrank else None)
+        return md, kd, ld
 
     def _apply(self, state: EngineState, deltas) -> EngineState:
-        md, kd = deltas
+        md, kd, ld = deltas
         return EngineState(
-            moments=acc.moment_apply(state.moments, md),
+            moments=(acc.moment_apply(state.moments, md)
+                     if md is not None else state.moments),
             kmeans=(acc.kmeans_apply(state.kmeans, kd, decay=self.kmeans.decay)
                     if kd is not None else state.kmeans),
+            lowrank=(lowrank_mod.range_apply(state.lowrank, ld)
+                     if ld is not None else state.lowrank),
         )
 
     def host_global_batch(self, seed, step: int) -> torch.Tensor:
@@ -189,19 +216,23 @@ class StreamEngine:
                                  self.kmeans.k, self.kmeans.n_init,
                                  decay=self.kmeans.decay, impl=self.impl)
         return EngineState(
-            moments=acc.moment_init(self.spec.p_pad, track_cov=self.track_cov,
-                                    device=self.device),
-            kmeans=km)
+            moments=(None if self.lowrank
+                     else acc.moment_init(self.spec.p_pad, track_cov=self.track_cov,
+                                          device=self.device)),
+            kmeans=km,
+            lowrank=(lowrank_mod.range_init(self.spec.p_pad, self.rank, device=self.device)
+                     if self.lowrank else None))
 
     def update(self, state: EngineState, x: torch.Tensor, step: int) -> EngineState:
         """Fold one global batch x (n_shards, b, p): every shard's delta is
         taken against the step-start state, summed, and applied once."""
-        md, kd = self._deltas(state, self._sketch_local(x[0], step, 0))
+        md, kd, ld = self._deltas(state, self._sketch_local(x[0], step, 0))
         for shard in range(1, self.n_shards):
-            md2, kd2 = self._deltas(state, self._sketch_local(x[shard], step, shard))
-            md = acc.moment_apply(md, md2)
+            md2, kd2, ld2 = self._deltas(state, self._sketch_local(x[shard], step, shard))
+            md = acc.moment_apply(md, md2) if md is not None else None
             kd = acc.kmeans_add(kd, kd2) if kd is not None else None
-        return self._apply(state, (md, kd))
+            ld = lowrank_mod.range_apply(ld, ld2) if ld is not None else None
+        return self._apply(state, (md, kd, ld))
 
     def run(self, steps: int, seed: int | None = None,
             state: EngineState | None = None, *, start_step: int = 0,
@@ -247,15 +278,23 @@ class StreamEngine:
         if state is None:
             raise RuntimeError("no stream folded yet — call run(), or pass an "
                                "EngineState explicitly")
-        mean = acc.moment_finalize_mean(state.moments, self.spec.m)
-        cov = (acc.moment_finalize_cov(state.moments, self.spec.m)
-               if self.track_cov else None)
+        cov = cov_lowrank = None
+        if state.lowrank is not None:
+            # RangeState carries the Thm-4 accumulators itself (see EngineState)
+            mean = lowrank_mod.range_finalize_mean(state.lowrank, self.spec.m)
+            count = state.lowrank.count
+            cov_lowrank = lowrank_mod.range_finalize(state.lowrank, self.spec.m, self._omega)
+        else:
+            mean = acc.moment_finalize_mean(state.moments, self.spec.m)
+            count = state.moments.count
+            if self.track_cov:
+                cov = acc.moment_finalize_cov(state.moments, self.spec.m)
         centers = centers_pre = obj = None
         if state.kmeans is not None:
             centers_pre, obj = acc.kmeans_finalize(state.kmeans)
             centers = sketch_mod.unmix_dense(centers_pre, self.spec, impl=self.impl)
-        return StreamResult(mean=mean, cov=cov, count=state.moments.count,
-                            centers=centers, centers_pre=centers_pre, kmeans_obj=obj)
+        return StreamResult(mean=mean, cov=cov, count=count, centers=centers,
+                            centers_pre=centers_pre, kmeans_obj=obj, cov_lowrank=cov_lowrank)
 
     def assign(self, batch: SparseRows, state: EngineState | None = None) -> torch.Tensor:
         """Labels for already-sketched rows under the best hypothesis' centers."""

@@ -2,9 +2,10 @@
 
 ``to_arrays`` / ``from_arrays`` write and read ``{"<prefix><kind>.<field>":
 np.ndarray}`` dicts — the wire format of ``repro.stream.state`` — for the
-``moment`` and ``km`` kinds; ``engine_to_arrays`` / ``engine_from_arrays`` do
-the same for a whole :class:`~repro_torch.stream.engine.EngineState` under its
-``moments/`` and ``kmeans/`` slots. A state written by either
+``moment``, ``km`` and ``range`` kinds; ``engine_to_arrays`` /
+``engine_from_arrays`` do the same for a whole
+:class:`~repro_torch.stream.engine.EngineState` under its ``moments/``,
+``kmeans/`` and ``lowrank/`` slots. A state written by either
 package is read by the other, so a run can move between them mid-stream.
 """
 from __future__ import annotations
@@ -12,15 +13,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import lowrank as lowrank_mod
 from repro_torch.stream import accumulators as acc
 
 # kind name → (class, fields in order, optional fields)
 KINDS = {
     "moment": (acc.MomentState, ("sum_w", "sum_wwt", "count"), ("sum_wwt",)),
     "km": (acc.KMeansState, ("centers", "counts", "obj", "count"), ()),
+    "range": (lowrank_mod.RangeState, ("y", "diag", "sum_w", "count"), ()),
 }
 _CLS_TO_KIND = {cls: name for name, (cls, _, _) in KINDS.items()}
-_ENGINE_SLOTS = ("moments", "kmeans")
+_ENGINE_SLOTS = ("moments", "kmeans", "lowrank")
 
 
 def to_arrays(state, prefix: str = "") -> dict[str, np.ndarray]:
@@ -76,7 +79,7 @@ def engine_from_arrays(arrs: dict, device="cuda"):
     unsupported = sorted({k.split("/")[0] for k in arrs} - set(_ENGINE_SLOTS))
     if unsupported:
         raise not_ported(f"engine state slots {unsupported}",
-                         "Low-rank PCA and refinement / Engine replay, scan and checkpoints")
+                         "Engine replay, scan and checkpoints")
     return EngineState(**{slot: from_arrays(arrs, prefix=f"{slot}/", device=device)
                           for slot in _ENGINE_SLOTS})
 

@@ -86,8 +86,14 @@ def test_wrappers_use_plain_versions_for_cpu_tensors():
     assert torch.equal(d, torch.full((4, 2), 8.0)) and torch.equal(a, torch.zeros(4, dtype=torch.int32))
     ops.sketch_fused(x, s, idx)
     ops.sparse_assign(vals, idx, c, mode="ref")
-    assert ops.launch_counts() == {"sketch_fused": 0, "hd_precondition": 0, "sparse_assign": 0}
-    assert ops.DISPATCH == {("sketch_fused", "ref"): 1, ("sparse_assign", "ref"): 1}
+    big = torch.ones((2, 1 << 16))
+    ops.hd_precondition(big, torch.ones(1 << 16))
+    ops.spmm(vals, idx, torch.ones((64, 3)))
+    assert ops.launch_counts() == {"sketch_fused": 0, "hd_precondition": 0,
+                                   "hd_precondition_chunked": 0, "sparse_assign": 0,
+                                   "spmm": 0, "spmm_t": 0}
+    assert ops.DISPATCH == {("sketch_fused", "ref"): 1, ("sparse_assign", "ref"): 1,
+                            ("hd_precondition", "ref"): 1, ("spmm", "ref"): 1}
     with pytest.raises(ValueError, match="mode"):
         ops.hd_precondition(x, s, mode="interpret")
 

@@ -98,9 +98,13 @@ def test_options_not_ported_raise():
     src = VectorStreamSource(p=64, batch=8)
     plan = api.Plan(backend="stream", gamma=0.25, batch_size=8)
     for bad in (plan.replace(backend="batch"), plan.replace(backend="sharded"),
-                plan.replace(cov_path="lowrank", rank=4), plan.replace(refine_passes=1)):
+                plan.replace(refine_passes=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.make_engine(bad, 64, 0, src, device="cpu")
+    # the engine's low-rank path is the range-finder only, as the reference's
+    with pytest.raises(ValueError, match="lowrank_method='fd'"):
+        api.make_engine(plan.replace(cov_path="lowrank", rank=4, lowrank_method="fd"), 64, 0,
+                        src, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.make_engine(plan, 64, 0, src, device="cpu",
                         kmeans=StreamKMeansConfig(k=2, track_reassignments=True))
