@@ -25,9 +25,10 @@ Phases, in order; any failure exits non-zero:
               rank=128), p = 65536, 8 steps of 4096 rows, streaming K-means
               (K = 10, r = 3), then cov_lowrank.top(8) unmixed; every kernel of
               the path (K3, K4, K5, K6) must have launched, the outputs must be
-              finite, the state O(l·p), and the subspace and eigenvalues of the
-              planted directions that the range-finder resolves at this n
-              must match the planted ones.
+              finite, the state O(l·p); read after 2, 4 and 8 steps of the one
+              stream, the subspace of the planted directions that the
+              range-finder resolves at each n must match the planted one, and
+              after 8 steps their eigenvalues too.
 
 Then one JSON line listing every kernel, the card's line again, and the result
 line ``{"ok": true, "device": {...}}`` last.
@@ -52,8 +53,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
 P, BATCH, STEPS, GAMMA, K, N_INIT, PCA_K = 16384, 4096, 16, 0.05, 10, 3, 8
-# the low-rank path: p, sketch width l, steps
+# the low-rank path: p, sketch width l, steps, and the steps after which its gates are read
 P_LR, ELL, STEPS_LR = 65536, 128, 8
+READ_LR = (2, 4, STEPS_LR)
 PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
 PATH2 = ("hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t")
 
@@ -114,7 +116,8 @@ def main() -> None:
     from repro_torch import api
     from repro_torch.core import pca as pca_mod
     from repro_torch.core import estimators
-    from repro_torch.core.sampling import sample_indices
+    from repro_torch import lowrank
+    from repro_torch.core.sampling import SparseRows, sample_indices
     from repro_torch.data.pipeline import VectorStreamSource
     from repro_torch.core import sketch as sketch_mod
     from repro_torch.kernels import _build, ops, ref
@@ -193,35 +196,47 @@ def main() -> None:
                                                   bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
     del x, s, got, hmat
 
-    # K4 sparse_assign: the stream's batch against r sets of K centers, then planted ties
-    x, _, idx = sketch_case(BATCH, P, m, seed=11)
-    vals = torch.from_numpy(rng.normal(size=(BATCH, m)).astype(np.float32)).to(dev)
-    centers = torch.from_numpy(rng.normal(size=(N_INIT, K, P)).astype(np.float32)).to(dev)
-    centers[:, 7] = centers[:, 3]
-    vals[:256] = centers[0, 3][idx[:256].long()]     # distance 0 to centers 3 and 7
-    d, a = ops.sparse_assign(vals, idx, centers)
-    torch.cuda.synchronize()
-    d_ref, a_ref = ref.ref_sparse_assign(vals, idx, centers)
-    rel = ((d - d_ref).abs() / d_ref.abs().clamp(min=1e-30)).max().item()
-    err = (d - d_ref).abs().max().item()
-    top2 = torch.topk(d_ref, 2, dim=-1, largest=False).values
-    clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 0].abs()
-    check(torch.equal(a[clear], a_ref[clear]), "K4: argmin differs from the plain version")
-    check(bool(torch.all(a[0, :256] == 3)), "K4: a tie did not go to the first index")
-    ms = time_ms(lambda: ops.sparse_assign(vals, idx, centers), 20)
-    plain_ms = time_ms(lambda: ref.ref_sparse_assign(vals, idx, centers), 3)
-    b = bound(4 * (2 * BATCH * m + N_INIT * K * P + N_INIT * BATCH * (K + 1)),
-              3 * BATCH * m * K * N_INIT)
-    report(f"K4 sparse_assign (n={BATCH}, m={m}, r={N_INIT}, K={K}, p={P}), ties planted, "
-           f"relative distance", rel, 1e-5, ms, plain_ms, b)
-    entries["sparse_assign"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=b[0], bound_by=b[1], library_ms=None)
-    del x, idx, vals, centers, d, a, d_ref, a_ref
-    torch.cuda.empty_cache()
+    # K4 sparse_assign: the batch of each path (the dense one's p and m, then the
+    # low-rank one's) against r sets of K centers, with planted ties
+    m_lr = round(GAMMA * P_LR)
+    for p, mm in [(P, m), (P_LR, m_lr)]:
+        idx = sample_indices(prng.fold_in(key, 12 + p), BATCH, p, mm, device=dev)
+        vals = torch.from_numpy(rng.normal(size=(BATCH, mm)).astype(np.float32)).to(dev)
+        centers = torch.from_numpy(rng.normal(size=(N_INIT, K, p)).astype(np.float32)).to(dev)
+        centers[:, 7] = centers[:, 3]
+        vals[:256] = centers[0, 3][idx[:256].long()]     # distance 0 to centers 3 and 7
+        d, a = ops.sparse_assign(vals, idx, centers)
+        torch.cuda.synchronize()
+        d_ref, a_ref = ref.ref_sparse_assign(vals, idx, centers)
+        rel = ((d - d_ref).abs() / d_ref.abs().clamp(min=1e-30)).max().item()
+        err = (d - d_ref).abs().max().item()
+        top2 = torch.topk(d_ref, 2, dim=-1, largest=False).values
+        clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 0].abs()
+        check(torch.equal(a[clear], a_ref[clear]), f"K4 at p={p}: argmin differs from the plain version")
+        check(bool(torch.all(a[0, :256] == 3)), f"K4 at p={p}: a tie did not go to the first index")
+        ms = time_ms(lambda: ops.sparse_assign(vals, idx, centers), 20)
+        plain_ms = time_ms(lambda: ref.ref_sparse_assign(vals, idx, centers), 3)
+        b = bound(4 * (2 * BATCH * mm + N_INIT * K * p + N_INIT * BATCH * (K + 1)),
+                  3 * BATCH * mm * K * N_INIT)
+        report(f"K4 sparse_assign (n={BATCH}, m={mm}, r={N_INIT}, K={K}, p={p}), ties planted, "
+               f"relative distance", rel, 1e-5, ms, plain_ms, b)
+        if p == P:
+            entries["sparse_assign"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                            bound_ms=b[0], bound_by=b[1], library_ms=None)
+        del idx, vals, centers, d, a, d_ref, a_ref
+        torch.cuda.empty_cache()
 
     # K3 hd_precondition above 2^15: a batch of the low-rank path in both sign
-    # modes, the unmix shapes of its finalize, and K3's outer passes at 2^17, 2^19
-    m_lr = round(GAMMA * P_LR)
+    # modes, the unmix shapes of its finalize, and K3's outer passes at 2^17, 2^19.
+    # One PyTorch call for the same function at p = 2^16 is x @ (D·H) or x @ (H·D):
+    # H (16 GiB) is built once, from the plain transform of the identity's rows
+    hmat = torch.empty((P_LR, P_LR), device=dev)
+    ones = torch.ones(P_LR, device=dev)
+    for r0 in range(0, P_LR, BATCH):
+        rows = torch.zeros((BATCH, P_LR), device=dev)
+        rows[:, r0:r0 + BATCH] = torch.eye(BATCH, device=dev)
+        hmat[r0:r0 + BATCH] = ref.ref_hd_precondition(rows, ones)
+    del rows, ones
     for n, p, modes in [(BATCH, P_LR, (False, True)), (PCA_K, P_LR, (True,)), (K, P_LR, (True,)),
                         (256, 1 << 17, (False, True)), (64, 1 << 19, (False, True))]:
         gen = torch.Generator(device=dev).manual_seed(n + p)
@@ -234,14 +249,23 @@ def main() -> None:
             ms = time_ms(lambda: ops.hd_precondition(x, s, signs_after=after), 20)
             plain_ms = time_ms(lambda: ref.ref_hd_precondition(x, s, after), 3)
             b = bound(4 * (2 * n * p + p), n * p * (math.log2(p) + 2))
-            # one PyTorch call would be x @ (H·D): H alone is p² floats (16 GiB at 2^16)
+            lib_ms = None
+            if p == P_LR:     # H·D or D·H in place, exactly (signs ±1), and back after
+                signs = s[None, :] if after else s[:, None]
+                hmat.mul_(signs)
+                lib_ms = time_ms(lambda: torch.matmul(x, hmat), 3 if n == BATCH else 10, warmup=1)
+                lib_err = (torch.matmul(x, hmat) - got).abs().max().item()
+                hmat.mul_(signs)
+                print(f"  x @ (H·D) at ({n}, {p}): max |library - kernel| {lib_err:.3g}")
+                check(lib_err <= 1e-2 * got.abs().max().item(), "K3: the library call is not its function")
             report(f"K3 hd_precondition ({n}, {p}) signs_after={after}, bit-equal expected",
-                   err, 1e-5, ms, plain_ms, b)
+                   err, 1e-5, ms, plain_ms, b, lib_ms)
             if (n, p, after) == (BATCH, P_LR, False):
                 entries["hd_precondition_chunked"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                    library_ms=None)
+                    library_ms=lib_ms)
         del x, s, got
+    del hmat
     torch.cuda.empty_cache()
 
     # K5 spmm and K6 spmm_t at the low-rank path's shapes, at a ragged n, and at
@@ -258,10 +282,17 @@ def main() -> None:
         om = prng.normal(prng.fold_in(key, ell), (P_LR, ell), device=dev)
         t = ops.spmm(vals, idx, om)
         y = ops.spmm_t(vals, idx, t, P_LR)
+        ys = ops.spmm_t(vals, idx, t, P_LR, col_sums=True)       # as the range-finder calls it
         torch.cuda.synchronize()
         t_ref, y_ref = ref.ref_spmm(vals, idx, om), ref.ref_spmm_t(vals, idx, t, P_LR)
         err_t = (t - t_ref).abs().max().item()
         err_y = (y - y_ref).abs().max().item()
+        check(torch.equal(ys[0], y), "K6: Y with the column sums differs from Y alone")
+        for what, got, want in zip(("Σv", "Σv²"), ys[1:],
+                                   ref.ref_spmm_t(vals, idx, t, P_LR, col_sums=True)[1:]):
+            err_s, tol_s = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
+            print(f"  K6 column sums {what} (n={n}): err {err_s:.3g} (tol {tol_s:.3g}, 1e-5 of max |plain|)")
+            check(err_s <= tol_s, f"K6: column sums {what} off the plain version")
         flops = 2 * n * m_lr * ell
         main = (n, ell) == (BATCH, ELL)
         reps = 10 if main else 3
@@ -276,11 +307,21 @@ def main() -> None:
             lib_y = time_ms(lambda: torch.sparse.mm(wt, t), reps)
             del w, wt
             prep = time_ms(lambda: spmm_mod.column_buckets(idx, P_LR), reps)
-            again = [ops.spmm_t(vals, idx, t, P_LR) for _ in range(2)]
-            check(torch.equal(again[0], y) and torch.equal(again[1], y),
+            ms_ys = time_ms(lambda: ops.spmm_t(vals, idx, t, P_LR, col_sums=True), reps)
+            b_ys = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell + 2 * P_LR),
+                         flops + 3 * n * m_lr)
+            again = [ops.spmm_t(vals, idx, t, P_LR, col_sums=True) for _ in range(2)]
+            check(all(torch.equal(a, b_) for a2 in again for a, b_ in zip(a2, ys)),
                   "K6: repeated launches are not bit-identical")
+            rows = SparseRows(vals, idx, P_LR)
+            d1, d2 = lowrank.range_delta(rows, om), lowrank.range_delta(rows, om)
+            check(all(torch.equal(getattr(d1, f), getattr(d2, f)) for f in ("y", "diag", "sum_w")),
+                  "range_delta is not bit-reproducible on the card")
             print(f"  K6 bucketing (stable sort + searchsorted) alone {prep:.4f} ms of the "
-                  f"{ms_y:.4f} ms; repeated launches bit-identical")
+                  f"{ms_y:.4f} ms; with the column sums, as the range-finder calls it, "
+                  f"{ms_ys:.4f} ms (bound {b_ys[0]:.4f} ms, {b_ys[1]}); repeated launches, "
+                  f"and the whole range_delta, bit-identical")
+            del rows, d1, d2, again
         b_t = bound(4 * (2 * n * m_lr + P_LR * ell + n * ell), flops)
         b_y = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell), flops)
         tol_t, tol_y = 1e-5 * t_ref.abs().max().item(), 1e-5 * y_ref.abs().max().item()
@@ -293,7 +334,7 @@ def main() -> None:
                                    bound_by=b_t[1], library_ms=lib_t)
             entries["spmm_t"] = dict(max_abs_err=err_y, ms=ms_y, plain_ms=plain_y,
                                      bound_ms=b_y[0], bound_by=b_y[1], library_ms=lib_y)
-        del idx, vals, om, t, y, t_ref, y_ref
+        del idx, vals, om, t, y, ys, t_ref, y_ref
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4 parity
@@ -333,8 +374,8 @@ def main() -> None:
     check(torch.equal(eng_card._omega.cpu(), eng_cpu._omega), "the card and the CPU drew another Ω")
     check(int(lr_card.count) == int(lr_cpu.count) == 192, "low-rank row counts differ")
     st_card, st_cpu = eng_card.state.lowrank, eng_cpu.state.lowrank
-    # sums in another order (K5/K6 and atomics against the CPU's sequential
-    # sums): relative to the largest entry; centers as on the dense path
+    # sums in another order (K5/K6 against the CPU's sequential sums):
+    # relative to the largest entry; centers as on the dense path
     for name, a, b_, tol in [("mean", lr_card.mean, lr_cpu.mean, 1e-5),
                              ("RangeState.y", st_card.y, st_cpu.y, 1e-5),
                              ("RangeState.diag", st_card.diag, st_cpu.diag, 1e-5),
@@ -450,9 +491,13 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
-    res = eng.run(STEPS_LR)
-    comps_pre, evals = res.cov_lowrank.top(PCA_K)
-    comps = sketch_mod.unmix_dense(comps_pre, eng.spec)
+    readings, done = [], 0     # the estimates after 2, 4 and 8 steps of the one stream
+    for steps in READ_LR:
+        res = eng.run(steps, state=eng.state if done else None, start_step=done)
+        comps_pre, evals = res.cov_lowrank.top(PCA_K)
+        readings.append((int(res.count), sketch_mod.unmix_dense(comps_pre, eng.spec), evals))
+        done = steps
+    comps = readings[-1][1]
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches_lr = ops.launch_counts()
@@ -464,7 +509,8 @@ def main() -> None:
     rows = int(res.count)
     state_bytes = eng.state.lowrank.nbytes()
     print(f"  make_engine (Ω drawn on the host) {t_make:.2f} s; streamed {rows} rows in {t_run:.2f} s "
-          f"({rows / t_run:.0f} rows/s, K-means++ seeding, finalize and unmix included); "
+          f"({rows / t_run:.0f} rows/s, K-means++ seeding, {len(READ_LR)} finalizes and unmixes "
+          f"included); "
           f"finalize alone {t_fin:.2f} s; peak memory {peak / 2**30:.2f} GiB")
     print(f"  low-rank state {state_bytes} bytes (the (p, p) accumulator would be {4 * P_LR**2} bytes)")
     print(f"  launches on the low-rank path: {launches_lr}")
@@ -481,34 +527,41 @@ def main() -> None:
           "low-rank PCA output is not finite")
     check(tuple(comps.shape) == (PCA_K, P_LR) and tuple(res.centers.shape) == (K, P_LR),
           f"shapes {tuple(comps.shape)}, {tuple(res.centers.shape)}")
-    # Which planted directions the range-finder can resolve at this n: one
+    # Which planted directions the range-finder can resolve after n rows: one
     # entry of the Thm-6 estimate has std σ = v/(γ√n), v = tr(C)/p; the sketch
     # Y' = S'·Ω then carries a noise bulk with singular values near
-    # σ√p(√p + √l), against λ²√l for a planted direction. Gate on the
-    # directions whose λ² is at least 5× that edge (PERF.md, PR 12).
+    # σ√p(√p + √l), against λ²√l for a planted direction, so the edge in λ²
+    # units falls as 1/√n. At each reading, gate the subspace of the directions
+    # whose λ² is at least 5× that edge. Their eigenvalues' errors are of the
+    # edge's own size, not a fraction of λ², so the 10 % eigenvalue gate is
+    # read at the full n only (PERF.md, §6).
     planted = src._lam.astype(np.float64) ** 2
     u = src._u.astype(np.float64)
     v = (planted.sum() + 0.05 ** 2 * P_LR) / P_LR
-    sigma = v / (GAMMA * math.sqrt(rows))
-    edge = sigma * math.sqrt(P_LR) * (math.sqrt(P_LR) + math.sqrt(ELL)) / math.sqrt(ELL)
-    k_res = int(np.sum(planted >= 5 * edge))
-    comps_np = comps.double().cpu().numpy()
-    comps_np /= np.linalg.norm(comps_np, axis=1, keepdims=True)
-    best = np.abs(comps_np @ u).max(axis=0)
-    q, _ = np.linalg.qr(comps_np[:k_res].T)
-    cosines = np.linalg.svd(q.T @ u[:, :k_res], compute_uv=False)
-    sine = float(np.sqrt(max(0.0, 1.0 - cosines.min() ** 2)))
-    ev = evals.cpu().numpy()
-    print(f"  range-finder noise edge at n={rows}: λ² ≈ {edge:.2f}; gating on the {k_res} planted "
-          f"directions with λ² ≥ {5 * edge:.1f}")
-    print(f"  best |cos| of each planted direction with the top-{PCA_K} components: "
-          f"{np.round(best, 4).tolist()}")
-    print(f"  top-{k_res} subspace vs planted: sine of largest principal angle {sine:.4f} (< 0.35)")
-    print(f"  eigenvalues {np.round(ev, 2).tolist()} vs planted {np.round(planted, 2).tolist()}")
-    check(k_res >= 4, f"only {k_res} planted directions are resolvable: the run is too short")
-    check(sine < 0.35, f"low-rank top-{k_res} subspace is off the planted one: sine {sine:.3f}")
+    for n_rows, comps_n, evals_n in readings:
+        sigma = v / (GAMMA * math.sqrt(n_rows))
+        edge = sigma * math.sqrt(P_LR) * (math.sqrt(P_LR) + math.sqrt(ELL)) / math.sqrt(ELL)
+        k_res = int(np.sum(planted >= 5 * edge))
+        comps_np = comps_n.double().cpu().numpy()
+        comps_np /= np.linalg.norm(comps_np, axis=1, keepdims=True)
+        best = np.abs(comps_np @ u).max(axis=0)
+        q, _ = np.linalg.qr(comps_np[:k_res].T)
+        cosines = np.linalg.svd(q.T @ u[:, :k_res], compute_uv=False)
+        sine = float(np.sqrt(max(0.0, 1.0 - cosines.min() ** 2)))
+        ev = evals_n.cpu().numpy()
+        print(f"  n={n_rows}: range-finder noise edge λ² ≈ {edge:.2f}; gating on the {k_res} "
+              f"planted directions with λ² ≥ {5 * edge:.1f}")
+        print(f"    λ²/edge of each planted direction {np.round(planted / edge, 2).tolist()}; its best "
+              f"|cos| with the top-{PCA_K} components {np.round(best, 4).tolist()}")
+        print(f"    top-{k_res} subspace vs planted: sine of largest principal angle {sine:.4f} (< 0.35)")
+        print(f"    eigenvalues {np.round(ev, 2).tolist()} vs planted {np.round(planted, 2).tolist()}; "
+              f"|error|/edge of the gated ones {np.round(np.abs(ev - planted)[:k_res] / edge, 2).tolist()}")
+        check(k_res >= 3, f"only {k_res} planted directions are resolvable at n={n_rows}")
+        check(sine < 0.35, f"low-rank top-{k_res} subspace at n={n_rows} is off the planted one: "
+                           f"sine {sine:.3f}")
+    # ev and k_res are the last reading's, after all STEPS_LR steps
     check(bool(np.all(np.abs(ev[:k_res] - planted[:k_res]) <= 0.1 * planted[:k_res])),
-          "a resolvable low-rank eigenvalue is more than 10% off its planted value")
+          f"a resolvable low-rank eigenvalue at n={rows} is more than 10% off its planted value")
     state, t_src, t_dev = eng.state, 0.0, 0.0
     for step in range(STEPS_LR, STEPS_LR + 2):
         t0 = time.perf_counter()

@@ -31,7 +31,9 @@
 // does not compute) gives each column its entries in row order. Then one warp
 // per column sums v·T[i] over them in registers, in that order, and writes
 // Y[c] once — no atomics, so repeated launches are bit-identical, as the TPU
-// kernel's reduction grid is.
+// kernel's reduction grid is. On request the same walk also gives each
+// column's Σv and Σv² (the range-finder's sum_w and diag): lane partials in
+// a fixed order, then a butterfly of shuffles, so they too are bit-identical.
 #include <cuda_runtime.h>
 
 namespace {
@@ -98,17 +100,20 @@ spmm_rows(const float* __restrict__ values, const int* __restrict__ idx,
   }
 }
 
-// K6: warp w computes Y[w, :] from its column's entries order[starts[w] .. starts[w+1])
+// K6: warp w computes Y[w, :] from its column's entries order[starts[w] .. starts[w+1]),
+// and, when sum_v is not null, sum_v[w] = Σv and sum_v2[w] = Σv² over them
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 spmm_t_cols(const float* __restrict__ values, const int* __restrict__ order,
             const int* __restrict__ starts, const float* __restrict__ t,
-            float* __restrict__ out, int p, int m, int ell) {
+            float* __restrict__ out, float* __restrict__ sum_v, float* __restrict__ sum_v2,
+            int p, int m, int ell) {
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= p) return;
   const int s = starts[c], e = starts[c + 1];
-  for (int c0 = 0; c0 < ell; c0 += 32 * VEC) {
+  float sv = 0.f, sv2 = 0.f;   // this lane's share of Σv and Σv², taken on the first chunk
+  for (int c0 = 0; c0 == 0 || c0 < ell; c0 += 32 * VEC) {   // one chunk at least, for the sums
     const int col = c0 + lane * VEC;
     const bool active = col < ell;
     Acc<VEC> acc;
@@ -118,6 +123,10 @@ spmm_t_cols(const float* __restrict__ values, const int* __restrict__ order,
       const int pos = k < e ? order[k] : 0;
       const float vk = k < e ? values[pos] : 0.f;
       const int rk = pos / m;
+      if (c0 == 0) {
+        sv += vk;
+        sv2 = fmaf(vk, vk, sv2);
+      }
       const int cnt = e - k0 < 32 ? e - k0 : 32;
 #pragma unroll 8
       for (int u = 0; u < cnt; ++u) {
@@ -127,6 +136,17 @@ spmm_t_cols(const float* __restrict__ values, const int* __restrict__ order,
       }
     }
     if (active) acc.store(out + (long long)c * ell + col);
+  }
+  if (sum_v != nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sv += __shfl_xor_sync(0xffffffffu, sv, o);
+      sv2 += __shfl_xor_sync(0xffffffffu, sv2, o);
+    }
+    if (lane == 0) {
+      sum_v[c] = sv;
+      sum_v2[c] = sv2;
+    }
   }
 }
 
@@ -146,14 +166,17 @@ extern "C" int spmm_f32(const float* values, const int* idx, const float* dense,
   return (int)cudaGetLastError();
 }
 
+// sum_v and sum_v2 (p,) may both be null: then only Y is written.
 extern "C" int spmm_t_f32(const float* values, const int* order, const int* starts,
-                          const float* t, float* out, int p, int m, int ell, int vec4,
-                          void* stream) {
+                          const float* t, float* out, float* sum_v, float* sum_v2,
+                          int p, int m, int ell, int vec4, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec4) {
-    spmm_t_cols<4><<<blocks_for(p), kThreads, 0, s>>>(values, order, starts, t, out, p, m, ell);
+    spmm_t_cols<4><<<blocks_for(p), kThreads, 0, s>>>(values, order, starts, t, out, sum_v,
+                                                      sum_v2, p, m, ell);
   } else {
-    spmm_t_cols<1><<<blocks_for(p), kThreads, 0, s>>>(values, order, starts, t, out, p, m, ell);
+    spmm_t_cols<1><<<blocks_for(p), kThreads, 0, s>>>(values, order, starts, t, out, sum_v,
+                                                      sum_v2, p, m, ell);
   }
   return (int)cudaGetLastError();
 }

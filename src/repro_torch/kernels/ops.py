@@ -102,8 +102,10 @@ def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor,
 
 
 def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor, p: int,
-           mode: str = "auto") -> torch.Tensor:
-    """Y (p, l) = Wᵀ @ t — scatter sparse rows into the l-dim sketch."""
+           mode: str = "auto", col_sums: bool = False):
+    """Y (p, l) = Wᵀ @ t — scatter sparse rows into the l-dim sketch; with
+    ``col_sums``, (Y, Σv, Σv²) per column from the same pass."""
     if _use_kernel("spmm_t", mode, values):
-        return _spmm.spmm_t(values.contiguous(), indices.contiguous(), t.contiguous(), p)
-    return _ref.ref_spmm_t(values, indices, t, p)
+        return _spmm.spmm_t(values.contiguous(), indices.contiguous(), t.contiguous(), p,
+                            col_sums)
+    return _ref.ref_spmm_t(values, indices, t, p, col_sums)

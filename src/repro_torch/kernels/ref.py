@@ -62,10 +62,20 @@ def ref_spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor) -
 
 
 def ref_spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
-               p: int) -> torch.Tensor:
+               p: int, col_sums: bool = False):
     """Y (p, l) = Wᵀ @ t — oracle for ``kernels.spmm.spmm_t`` (K6): a
-    scatter-add of the rows v_ij·t_i into column idx_ij."""
+    scatter-add of the rows v_ij·t_i into column idx_ij.
+
+    With ``col_sums``, (Y, Σv, Σv²): each column's sum of its entries and of
+    their squares, (p,) float32 (the range-finder's ``sum_w`` and ``diag``).
+    """
     out = spmm_out_dtype(values.dtype, t.dtype)
     contrib = values.to(out)[..., None] * t.to(out)[:, None, :]
+    flat_idx = indices.reshape(-1).long()
     y = torch.zeros((p, t.shape[1]), dtype=out, device=t.device)
-    return y.index_add_(0, indices.reshape(-1).long(), contrib.reshape(-1, t.shape[1]))
+    y.index_add_(0, flat_idx, contrib.reshape(-1, t.shape[1]))
+    if not col_sums:
+        return y
+    v32 = values.to(torch.float32).reshape(-1)
+    zeros = torch.zeros((p,), dtype=torch.float32, device=t.device)
+    return y, zeros.index_add(0, flat_idx, v32), zeros.index_add(0, flat_idx, v32 * v32)

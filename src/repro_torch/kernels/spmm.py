@@ -16,7 +16,9 @@ Indices must lie in [0, p): the kernels do not check them.
 
 ``spmm_t`` first buckets the entries by column with a stable sort
 (:func:`column_buckets`, PyTorch ops), so its kernel sums each column in row
-order without atomics and repeated calls are bit-identical.
+order without atomics and repeated calls are bit-identical. With
+``col_sums=True`` the same launch also returns each column's Σv and Σv² (the
+range-finder's ``sum_w`` and ``diag``), just as reproducible.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernel or raise.
@@ -79,29 +81,37 @@ def column_buckets(indices: torch.Tensor, p: int):
 
 
 def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
-           p: int) -> torch.Tensor:
-    """Y (p, l) = Wᵀ @ t for compact sparse rows W (n over p columns), t (n, l)."""
+           p: int, col_sums: bool = False):
+    """Y (p, l) = Wᵀ @ t for compact sparse rows W (n over p columns), t (n, l);
+    with ``col_sums``, (Y, Σ_i W[i, c], Σ_i W[i, c]²), the sums (p,) float32."""
     if values.device.type == "cpu":
-        return _ref.ref_spmm_t(values, indices, t, p)
+        return _ref.ref_spmm_t(values, indices, t, p, col_sums)
     _check(values, indices, t, "t")
     n, m = values.shape
     ell = t.shape[1]
     if t.shape[0] != n:
         raise ValueError(f"t has {t.shape[0]} rows, values {n}")
     out = torch.empty((p, ell), dtype=torch.float32, device=values.device)
-    if not (p and ell):
-        return out
+    sums = torch.empty((2, p), dtype=torch.float32, device=values.device) if col_sums else None
+    result = (out, sums[0], sums[1]) if col_sums else out
+    if not p or not (ell or col_sums):
+        return result
     if n * m == 0:
-        return out.zero_()
+        out.zero_()
+        if col_sums:
+            sums.zero_()
+        return result
     order, starts = column_buckets(indices, p)
     lib = _build.library("spmm")
     with torch.cuda.device(values.device):
         err = lib.spmm_t_f32(values.data_ptr(), order.data_ptr(), starts.data_ptr(),
-                             t.data_ptr(), out.data_ptr(), p, m, ell, _vec4(t, out),
-                             _build.stream_of(values))
+                             t.data_ptr(), out.data_ptr(),
+                             sums[0].data_ptr() if col_sums else None,
+                             sums[1].data_ptr() if col_sums else None,
+                             p, m, ell, _vec4(t, out), _build.stream_of(values))
     _build.check(err, "spmm_t")
     spmm_t.launches += 1
-    return out
+    return result
 
 
 spmm.launches = 0

@@ -9,8 +9,10 @@ action on a fixed (p, l) Gaussian test matrix Ω (:func:`repro_torch.lowrank.mod
 
 Each batch's delta is Wᵀ(W·Ω) — the two sparse-times-dense kernels K5
 ``spmm`` and K6 ``spmm_t`` (``kernels.ops``), which never densify the (b, p)
-batch. The delta is fixed-size and additive, so it follows the
-``init / delta / apply / finalize`` algebra of ``stream.accumulators``.
+batch. K6 also gives diag and sum_w from the same column walk, so on the card
+the whole delta is bit-reproducible (no atomics). The delta is fixed-size and
+additive, so it follows the ``init / delta / apply / finalize`` algebra of
+``stream.accumulators``.
 
 Finalize (single-pass randomized eigendecomposition, as the reference):
 
@@ -70,12 +72,8 @@ def range_delta(batch: SparseRows, omega_mat: torch.Tensor, impl: str = "auto") 
     """
     values, indices = batch.values, batch.indices
     t = ops.spmm(values, indices, omega_mat, mode=impl)              # (b, l)
-    y = ops.spmm_t(values, indices, t, batch.p, mode=impl)           # (p, l)
-    flat_idx = indices.reshape(-1).long()
-    v32 = values.to(torch.float32).reshape(-1)
-    zeros = torch.zeros((batch.p,), dtype=torch.float32, device=values.device)
-    diag = zeros.index_add(0, flat_idx, v32 * v32)
-    sum_w = zeros.index_add(0, flat_idx, v32)
+    y, sum_w, diag = ops.spmm_t(values, indices, t, batch.p, mode=impl,
+                                col_sums=True)                       # (p, l), (p,), (p,)
     count = torch.tensor(values.shape[0], dtype=torch.int32, device=values.device)
     return RangeState(y, diag, sum_w, count)
 

@@ -112,14 +112,20 @@ def test_spmm_and_spmm_t_match_plain(dev, n, p, m, ell):
     assert (spmm.spmm.launches, spmm.spmm_t.launches) == (before[0] + 1, before[1] + 1)
     _close_rel(t, ref.ref_spmm(vals, idx, dense))
     _close_rel(y, ref.ref_spmm_t(vals, idx, t, p))
+    got = spmm.spmm_t(vals, idx, t, p, col_sums=True)
+    want = ref.ref_spmm_t(vals, idx, t, p, col_sums=True)
+    assert torch.equal(got[0], y)
+    for g, w in zip(got[1:], want[1:]):
+        _close_rel(g, w)
 
 
 def test_spmm_t_is_deterministic(dev):
     vals, idx, dense = _spmm_case(dev, 4096, 65536, 3277, 128, seed=3)
     t = spmm.spmm(vals, idx, dense)
-    first = spmm.spmm_t(vals, idx, t, 65536)
+    first = spmm.spmm_t(vals, idx, t, 65536, col_sums=True)
     for _ in range(3):
-        assert torch.equal(spmm.spmm_t(vals, idx, t, 65536), first)
+        again = spmm.spmm_t(vals, idx, t, 65536, col_sums=True)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
     assert torch.equal(spmm.spmm(vals, idx, dense), t)
 
 

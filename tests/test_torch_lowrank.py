@@ -132,6 +132,14 @@ def test_spmm_plain_matches_reference(n, p, m, ell):
     # the wrappers and the dispatch layer take the plain versions on the CPU
     assert torch.equal(ops.spmm(tv, ti, td), t)
     assert torch.equal(ops.spmm_t(tv, ti, t, p), ref.ref_spmm_t(tv, ti, t, p))
+    # the column sums K6 gives beside Y: the range-finder's sum_w and diag
+    y, sv, sv2 = ops.spmm_t(tv, ti, t, p, col_sums=True)
+    assert torch.equal(y, ref.ref_spmm_t(tv, ti, t, p))
+    want_sv, want_sv2 = np.zeros(p), np.zeros(p)
+    np.add.at(want_sv, idx.reshape(-1), vals.reshape(-1).astype(np.float64))
+    np.add.at(want_sv2, idx.reshape(-1), vals.reshape(-1).astype(np.float64) ** 2)
+    _rel_close(sv, want_sv.astype(np.float32))
+    _rel_close(sv2, want_sv2.astype(np.float32))
 
 
 def test_spmm_promotion_rule():
