@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero:
               memory and spills from ptxas.
 3. kernels  — each kernel against its plain PyTorch version on the card, at the
               shapes the two streaming paths give it (and at its edges), with
-              its time over repeated launches beside its bound.
+              its time over repeated launches beside its bound: K4 at every
+              (r, K) the paths launch and one with r·K > 32, at both paths' m;
+              K6's transposition bit-equal to column_buckets' stable sort and
+              timed alone, K6 bit-equal to its walk fed by column_buckets, and
+              no slower than torch.sparse.mm(Wᵀ, T) (whose CSR build is timed
+              beside it).
 4. parity   — small runs on the card with the kernels against the same runs on
               the CPU with the plain versions (same seed, same masks): the
               dense path at p = 1000 and the low-rank path at p = 40000.
@@ -57,7 +62,7 @@ P, BATCH, STEPS, GAMMA, K, N_INIT, PCA_K = 16384, 4096, 16, 0.05, 10, 3, 8
 P_LR, ELL, STEPS_LR = 65536, 128, 8
 READ_LR = (2, 4, STEPS_LR)
 PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
-PATH2 = ("hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t")
+PATH2 = ("hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t", "transpose_columns")
 
 
 def fail(msg: str) -> None:
@@ -100,6 +105,8 @@ def card_line() -> str:
 
 def main() -> None:
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     # ---------------------------------------------------------------- 1 device
     print("== 1 device", flush=True)
@@ -121,6 +128,7 @@ def main() -> None:
     from repro_torch.data.pipeline import VectorStreamSource
     from repro_torch.core import sketch as sketch_mod
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import sparse_assign as sa_mod
     from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.stream import StreamKMeansConfig
     from repro_torch.utils import prng
@@ -137,7 +145,9 @@ def main() -> None:
         print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
               f"{spills} bytes of spill stores in all")
     print(f"  hadamard: dynamic shared memory a block {4 * (P + P // 32 + 1)} bytes at p={P}, "
-          f"{4 * (2 * P + P // 16 + 1)} at p={2 * P}; sparse_assign: none")
+          f"{4 * (2 * P + P // 16 + 1)} at p={2 * P}; sparse_assign: a 4224-byte tile for the "
+          f"centers' layout; spmm's transposition: 64 KB of staged pairs a placement block, "
+          f"128 KB of cursors a block of its general passes")
 
     # --------------------------------------------------------------- 3 kernels
     print("== 3 kernels against their plain versions", flush=True)
@@ -196,34 +206,49 @@ def main() -> None:
                                                   bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
     del x, s, got, hmat
 
-    # K4 sparse_assign: the batch of each path (the dense one's p and m, then the
-    # low-rank one's) against r sets of K centers, with planted ties
+    # K4 sparse_assign at every launch shape of both paths (each path's p and
+    # m): a step's r = 3 sets of K = 10; K-means++'s candidates (r = 1,
+    # K = 2 + ⌈ln 10⌉ = 5) and first center (r = 1, K = 1); and r·K = 48 > 32
+    # slots. Ties planted where K > 1: two equal centers, rows on them
     m_lr = round(GAMMA * P_LR)
     for p, mm in [(P, m), (P_LR, m_lr)]:
         idx = sample_indices(prng.fold_in(key, 12 + p), BATCH, p, mm, device=dev)
-        vals = torch.from_numpy(rng.normal(size=(BATCH, mm)).astype(np.float32)).to(dev)
-        centers = torch.from_numpy(rng.normal(size=(N_INIT, K, p)).astype(np.float32)).to(dev)
-        centers[:, 7] = centers[:, 3]
-        vals[:256] = centers[0, 3][idx[:256].long()]     # distance 0 to centers 3 and 7
-        d, a = ops.sparse_assign(vals, idx, centers)
-        torch.cuda.synchronize()
-        d_ref, a_ref = ref.ref_sparse_assign(vals, idx, centers)
-        rel = ((d - d_ref).abs() / d_ref.abs().clamp(min=1e-30)).max().item()
-        err = (d - d_ref).abs().max().item()
-        top2 = torch.topk(d_ref, 2, dim=-1, largest=False).values
-        clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 0].abs()
-        check(torch.equal(a[clear], a_ref[clear]), f"K4 at p={p}: argmin differs from the plain version")
-        check(bool(torch.all(a[0, :256] == 3)), f"K4 at p={p}: a tie did not go to the first index")
-        ms = time_ms(lambda: ops.sparse_assign(vals, idx, centers), 20)
-        plain_ms = time_ms(lambda: ref.ref_sparse_assign(vals, idx, centers), 3)
-        b = bound(4 * (2 * BATCH * mm + N_INIT * K * p + N_INIT * BATCH * (K + 1)),
-                  3 * BATCH * mm * K * N_INIT)
-        report(f"K4 sparse_assign (n={BATCH}, m={mm}, r={N_INIT}, K={K}, p={p}), ties planted, "
-               f"relative distance", rel, 1e-5, ms, plain_ms, b)
-        if p == P:
-            entries["sparse_assign"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=b[0], bound_by=b[1], library_ms=None)
-        del idx, vals, centers, d, a, d_ref, a_ref
+        vals0 = torch.from_numpy(rng.normal(size=(BATCH, mm)).astype(np.float32)).to(dev)
+        for r, kk in [(N_INIT, K), (1, 5), (1, 1), (3, 16)]:
+            vals = vals0.clone()
+            centers = torch.from_numpy(rng.normal(size=(r, kk, p)).astype(np.float32)).to(dev)
+            tie = (3, 7) if kk >= 8 else (1, kk - 1)
+            if kk > 1:
+                centers[:, tie[1]] = centers[:, tie[0]]
+                vals[:256] = centers[0, tie[0]][idx[:256].long()]     # distance 0 to both
+            d, a = ops.sparse_assign(vals, idx, centers)
+            torch.cuda.synchronize()
+            d_ref, a_ref = ref.ref_sparse_assign(vals, idx, centers)
+            rel = ((d - d_ref).abs() / d_ref.abs().clamp(min=1e-30)).max().item()
+            err = (d - d_ref).abs().max().item()
+            if kk > 1:
+                top2 = torch.topk(d_ref, 2, dim=-1, largest=False).values
+                clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 0].abs()
+                check(bool(torch.all(a[0, :256] == tie[0])),
+                      f"K4 at p={p}, r={r}, K={kk}: a tie did not go to the first index")
+            else:
+                clear = torch.ones_like(a, dtype=torch.bool)
+            check(torch.equal(a[clear], a_ref[clear]),
+                  f"K4 at p={p}, r={r}, K={kk}: argmin differs from the plain version")
+            again = ops.sparse_assign(vals, idx, centers)
+            check(torch.equal(again[0], d) and torch.equal(again[1], a),
+                  f"K4 at p={p}, r={r}, K={kk}: repeated launches differ")
+            ms = time_ms(lambda: ops.sparse_assign(vals, idx, centers), 20)
+            plain_ms = time_ms(lambda: ref.ref_sparse_assign(vals, idx, centers), 3)
+            b = bound(4 * (2 * BATCH * mm + r * kk * p + r * BATCH * (kk + 1)),
+                      3 * BATCH * mm * kk * r)
+            report(f"K4 sparse_assign (n={BATCH}, m={mm}, r={r}, K={kk}, p={p}), ties planted, "
+                   f"relative distance", rel, 1e-5, ms, plain_ms, b)
+            if (p, r, kk) == (P, N_INIT, K):
+                entries["sparse_assign"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                bound_ms=b[0], bound_by=b[1], library_ms=None)
+            del vals, centers, d, a, d_ref, a_ref, again
+        del idx, vals0
         torch.cuda.empty_cache()
 
     # K3 hd_precondition above 2^15: a batch of the low-rank path in both sign
@@ -306,8 +331,34 @@ def main() -> None:
             lib_t = time_ms(lambda: torch.sparse.mm(w, om), reps)
             lib_y = time_ms(lambda: torch.sparse.mm(wt, t), reps)
             del w, wt
+            csr_ms = time_ms(lambda: csr(vals, idx, P_LR, n, transpose=True), reps)
+            # the transposition against its plain version, the stable sort of column_buckets
+            pairs, starts, order = spmm_mod.transpose_columns(vals, idx, P_LR, with_order=True)
+            want_order, want_starts = spmm_mod.column_buckets(idx, P_LR)
+            check(torch.equal(order, want_order) and torch.equal(starts, want_starts)
+                  and torch.equal(pairs[:, 0], want_order // m_lr)
+                  and torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[want_order.long()]),
+                  "K6: the transposition is not the stable sort of column_buckets")
+            del pairs, starts, order, want_order, want_starts
+            trans = time_ms(lambda: spmm_mod.transpose_columns(vals, idx, P_LR), reps)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    spmm_mod.transpose_columns(vals, idx, P_LR)
+                torch.cuda.synchronize()
+            passes = {}
+            for e in prof.key_averages():
+                name = re.search(r"::(\w+)[(<]", e.key)
+                if e.device_type == DeviceType.CUDA and name:
+                    passes[name.group(1)] = e.self_device_time_total / reps / 1e3
+            print("  K6 transposition by pass (torch.profiler, ms a call): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(passes.items(), key=lambda kv: -kv[1])))
             prep = time_ms(lambda: spmm_mod.column_buckets(idx, P_LR), reps)
             ms_ys = time_ms(lambda: ops.spmm_t(vals, idx, t, P_LR, col_sums=True), reps)
+            old = spmm_mod.spmm_t_from_buckets(vals, idx, t, P_LR, col_sums=True)
+            check(all(torch.equal(a, b_) for a, b_ in zip(ys, old)),
+                  "K6: Y and the column sums differ from the walk fed by column_buckets")
+            old_ms = time_ms(lambda: spmm_mod.spmm_t_from_buckets(vals, idx, t, P_LR, col_sums=True),
+                             reps)
             b_ys = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell + 2 * P_LR),
                          flops + 3 * n * m_lr)
             again = [ops.spmm_t(vals, idx, t, P_LR, col_sums=True) for _ in range(2)]
@@ -317,11 +368,17 @@ def main() -> None:
             d1, d2 = lowrank.range_delta(rows, om), lowrank.range_delta(rows, om)
             check(all(torch.equal(getattr(d1, f), getattr(d2, f)) for f in ("y", "diag", "sum_w")),
                   "range_delta is not bit-reproducible on the card")
-            print(f"  K6 bucketing (stable sort + searchsorted) alone {prep:.4f} ms of the "
-                  f"{ms_y:.4f} ms; with the column sums, as the range-finder calls it, "
-                  f"{ms_ys:.4f} ms (bound {b_ys[0]:.4f} ms, {b_ys[1]}); repeated launches, "
-                  f"and the whole range_delta, bit-identical")
-            del rows, d1, d2, again
+            print(f"  K6 transposition alone {trans:.4f} ms of the {ms_y:.4f} ms (the stable sort + "
+                  f"searchsorted of column_buckets: {prep:.4f} ms), bit-equal to column_buckets; "
+                  f"with the column sums, as the range-finder calls it, {ms_ys:.4f} ms (bound "
+                  f"{b_ys[0]:.4f} ms, {b_ys[1]}); the walk fed by column_buckets {old_ms:.4f} ms, "
+                  f"bit-equal in Y and the sums; repeated launches, and the whole range_delta, "
+                  f"bit-identical")
+            print(f"  K6's library yardstick torch.sparse.mm(Wᵀ, T) {lib_y:.4f} ms leaves out building "
+                  f"Wᵀ's CSR from the compact rows: {csr_ms:.4f} ms")
+            print(f"  K6 with the column sums against torch.sparse.mm(Wᵀ, T): {ms_ys:.4f} against "
+                  f"{lib_y:.4f} ms ({'not ' if ms_ys > lib_y else ''}within it)")
+            del rows, d1, d2, again, old
         b_t = bound(4 * (2 * n * m_lr + P_LR * ell + n * ell), flops)
         b_y = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell), flops)
         tol_t, tol_y = 1e-5 * t_ref.abs().max().item(), 1e-5 * y_ref.abs().max().item()
@@ -417,7 +474,7 @@ def main() -> None:
     rows = int(res.count)
     print(f"  streamed {rows} rows in {t_run:.2f} s ({rows / t_run:.0f} rows/s, K-means++ "
           f"seeding included); pca_from_stream {t_pca:.2f} s; peak memory {peak / 2**30:.2f} GiB")
-    print(f"  launches on the main path: {launches}")
+    print(f"  launches on the main path: {launches}; K4's by (r, K, m): {dict(sa_mod.sparse_assign.by_shape)}")
     check(rows == STEPS * BATCH, f"count {rows} != {STEPS * BATCH}")
     check(all(launches[name] > 0 for name in PATH1), f"a kernel of the path never launched: {launches}")
     for name in ("mean", "cov", "centers", "centers_pre", "kmeans_obj"):
@@ -501,6 +558,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches_lr = ops.launch_counts()
+    k4_shapes_lr = dict(sa_mod.sparse_assign.by_shape)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     eng.finalize()
@@ -513,7 +571,7 @@ def main() -> None:
           f"included); "
           f"finalize alone {t_fin:.2f} s; peak memory {peak / 2**30:.2f} GiB")
     print(f"  low-rank state {state_bytes} bytes (the (p, p) accumulator would be {4 * P_LR**2} bytes)")
-    print(f"  launches on the low-rank path: {launches_lr}")
+    print(f"  launches on the low-rank path: {launches_lr}; K4's by (r, K, m): {k4_shapes_lr}")
     check(rows == STEPS_LR * BATCH, f"count {rows} != {STEPS_LR * BATCH}")
     check(all(launches_lr[name] > 0 for name in PATH2),
           f"a kernel of the low-rank path never launched: {launches_lr}")
@@ -577,9 +635,6 @@ def main() -> None:
           f"{time_ms(lambda: sample_indices(key, BATCH, P_LR, m_lr, device=dev), 2, 1):.2f} ms")
     # one device update under the profiler: device time by kernel (the
     # kernels' own entries, not the host ops that launched them)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.update(state, x, STEPS_LR + 2)
         torch.cuda.synchronize()

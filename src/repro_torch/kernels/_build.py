@@ -31,11 +31,12 @@ SIGNATURES = {
         "hd_precondition_chunked_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
     },
     "sparse_assign": {
-        "sparse_assign_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "sparse_assign_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "spmm": {
         "spmm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "spmm_t_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "spmm_t_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "transpose_columns_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

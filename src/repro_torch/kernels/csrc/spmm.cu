@@ -26,20 +26,50 @@
 // l = 128) stays in the 50 MB L2. The j order is fixed, so the result is the
 // same on every launch.
 //
-// K6 design. A stable sort of the flat indices by column (done by the wrapper
-// with torch.sort and searchsorted: index preparation the TPU kernel's body
-// does not compute) gives each column its entries in row order. Then one warp
-// per column sums v·T[i] over them in registers, in that order, and writes
-// Y[c] once — no atomics, so repeated launches are bit-identical, as the TPU
-// kernel's reduction grid is. On request the same walk also gives each
-// column's Σv and Σv² (the range-finder's sum_w and diag): lane partials in
-// a fixed order, then a butterfly of shuffles, so they too are bit-identical.
+// K6 design. First a transposition (index preparation the TPU kernel's body
+// does not compute) turns the compact rows into columns: each column's
+// (row, value) pairs, contiguous, in row order and within a row in j order,
+// exactly the order of a stable sort of the flat indices by column. It is a
+// counting sort over tiles of 64 rows: per (tile, column) counts, a scan to
+// column starts and to each tile's offset within each column, then the
+// placement. Where every row's indices increase strictly (every sketch's), a
+// row holds a column at most once: pass 0 finds each row's boundaries at
+// every 512 columns, pass 1 stores for each (tile, column) the 64-bit mask of
+// the tile's rows that hold it (its popcount is the count), and an entry's
+// rank in its column is the number of earlier rows in those masks, so a block
+// places all its entries at once. Scattered 8-byte writes of pairs cost most
+// (partial sectors), so the placement goes piece by piece of 512 columns, and
+// each block stages its pairs column by column in shared memory and writes
+// them run by run. Otherwise (pass 0 sets a flag on the device, and the fast
+// passes return at once) general passes walk each tile's rows in order with
+// a cursor per column in shared memory, repeats of a column in a row ranked in
+// j order with __match_any_sync.
+// Then one warp per column sums v·T[i] over its pairs in registers, in that
+// order, and writes Y[c] once — no atomics, so repeated launches are
+// bit-identical, as the TPU kernel's reduction grid is. On request the same
+// walk also gives each column's Σv and Σv² (the range-finder's sum_w and
+// diag): lane partials in a fixed order, then a butterfly of shuffles, so
+// they too are bit-identical. The walk can also read the entries through a
+// flat-position order (values[order[k]], row order[k] / m): the same
+// arithmetic in the same order, kept to check the pair walk bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;            // 8 warps a block
 constexpr int kWarps = kThreads / 32;
+// the transposition's (python spmm.py mirrors kTileRows, kPiece and kScanBlock)
+constexpr int kTileRows = 64;            // rows a tile: one bit each of a 64-bit mask
+constexpr int kPiece = 512;              // columns a placement block holds
+constexpr int kGroupTiles = 4;           // tiles a placement block places
+constexpr int kGroupRows = kGroupTiles * kTileRows;
+constexpr int kStage = 8192;             // pairs a placement block stages: 64 KB
+constexpr int kMaskCols = 2048;          // columns a mask block holds, a multiple of kPiece
+constexpr int kFastThreads = 512;        // threads of a placement or mask block
+constexpr int kScanBlock = 256;          // columns a scan block sums
+constexpr int kPlaceThreads = 1024;      // threads of a general block
+constexpr int kSlab = 32768;             // columns a general block holds: 128 KB
+constexpr int kPer = 4;                  // loads a thread has in flight
 
 template <int VEC>
 struct Acc {
@@ -100,14 +130,16 @@ spmm_rows(const float* __restrict__ values, const int* __restrict__ idx,
   }
 }
 
-// K6: warp w computes Y[w, :] from its column's entries order[starts[w] .. starts[w+1]),
-// and, when sum_v is not null, sum_v[w] = Σv and sum_v2[w] = Σv² over them
-template <int VEC>
+// K6 walk: warp w computes Y[w, :] from its column's entries k in
+// [starts[w], starts[w+1]) — pairs[k] = (row, value bits), or with PAIRS false
+// values[order[k]] in row order[k] / m — and, when sum_v is not null,
+// sum_v[w] = Σv and sum_v2[w] = Σv² over them
+template <int VEC, bool PAIRS>
 __global__ void __launch_bounds__(kThreads)
-spmm_t_cols(const float* __restrict__ values, const int* __restrict__ order,
-            const int* __restrict__ starts, const float* __restrict__ t,
-            float* __restrict__ out, float* __restrict__ sum_v, float* __restrict__ sum_v2,
-            int p, int m, int ell) {
+spmm_t_cols(const int2* __restrict__ pairs, const float* __restrict__ values,
+            const int* __restrict__ order, const int* __restrict__ starts,
+            const float* __restrict__ t, float* __restrict__ out, float* __restrict__ sum_v,
+            float* __restrict__ sum_v2, int p, int m, int ell) {
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (c >= p) return;
@@ -120,15 +152,23 @@ spmm_t_cols(const float* __restrict__ values, const int* __restrict__ order,
     acc.zero();
     for (int k0 = s; k0 < e; k0 += 32) {
       const int k = k0 + lane;
-      const int pos = k < e ? order[k] : 0;
-      const float vk = k < e ? values[pos] : 0.f;
-      const int rk = pos / m;
+      float vk;
+      int rk;
+      if constexpr (PAIRS) {
+        const int2 pr = k < e ? pairs[k] : make_int2(0, 0);
+        rk = pr.x;
+        vk = __int_as_float(pr.y);
+      } else {
+        const int pos = k < e ? order[k] : 0;
+        vk = k < e ? values[pos] : 0.f;
+        rk = pos / m;
+      }
       if (c0 == 0) {
         sv += vk;
         sv2 = fmaf(vk, vk, sv2);
       }
       const int cnt = e - k0 < 32 ? e - k0 : 32;
-#pragma unroll 8
+#pragma unroll 4   // measured faster than 8, 3, 2 or 1 at the range-finder's shape
       for (int u = 0; u < cnt; ++u) {
         const float v = __shfl_sync(0xffffffffu, vk, u);
         const int r = __shfl_sync(0xffffffffu, rk, u);
@@ -150,6 +190,352 @@ spmm_t_cols(const float* __restrict__ values, const int* __restrict__ order,
   }
 }
 
+// ---- K6 transposition. Tiles of kTileRows rows; counts (tiles, p) holds each
+// tile's count in each column, then its offset within the column.
+
+// pass 0, a block a row: rs[i, s] = the first j of row i with idx ≥ s·kPiece
+// (rs[i, pieces] = m), and *general = 1 if the row's indices do not increase
+// strictly; then the columns may repeat and the general passes run instead
+__global__ void __launch_bounds__(256)
+row_pieces(const int* __restrict__ idx, int* __restrict__ rs, int* __restrict__ general, int m,
+           int pieces) {
+  const long long i = blockIdx.x;
+  const int* ix = idx + i * m;
+  int* r = rs + i * (pieces + 1);
+  auto piece = [&](int c) { return c < 0 ? 0 : (c / kPiece < pieces ? c / kPiece : pieces); };
+#pragma unroll 4
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    const int c = ix[j], sc = piece(c);
+    if (j == 0) {
+      for (int s = 0; s <= sc; ++s) r[s] = 0;
+    } else {
+      const int prev = ix[j - 1];
+      if (c <= prev) *general = 1;
+      for (int s = piece(prev) + 1; s <= sc; ++s) r[s] = j;
+    }
+    if (j == m - 1)
+      for (int s = sc + 1; s <= pieces; ++s) r[s] = m;
+  }
+}
+
+// The entries of ROWS consecutive rows in pieces [s0, s1) as one flat range
+// [0, first[ROWS]): each row's first j there (j0) and the flat index of its
+// first entry (first), in shared memory; entry e is in row r = the last with
+// first[r] ≤ e. blockDim.x ≥ ROWS.
+template <int ROWS>
+struct RowRanges {
+  int first[ROWS + 1];
+  int j0[ROWS];
+  int warp_sum[ROWS / 32];
+
+  // by every thread of the block
+  __device__ void load(const int* __restrict__ rs, long long r0, long long r1, int pieces,
+                       int s0, int s1) {
+    const int t = threadIdx.x, lane = t & 31;
+    int len = 0, incl = 0;
+    if (t < ROWS) {
+      const long long i = r0 + t;
+      const int* r = rs + i * (pieces + 1);
+      j0[t] = i < r1 ? r[s0] : 0;
+      len = i < r1 ? r[s1] - r[s0] : 0;
+      incl = len;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += x;
+      }
+      if (lane == 31) warp_sum[t >> 5] = incl;
+    }
+    __syncthreads();
+    if (t < ROWS) {
+      for (int w = 0; w < (t >> 5); ++w) incl += warp_sum[w];
+      first[t] = incl - len;
+      if (t == ROWS - 1) first[ROWS] = incl;
+    }
+    __syncthreads();
+  }
+  __device__ int row_of(int e) const {
+    int lo = 0, hi = ROWS;   // first[lo] ≤ e < first[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (first[mid] <= e) lo = mid; else hi = mid;
+    }
+    return lo;
+  }
+  // flat position in the rows of entry e, in row r0 + r
+  __device__ long long pos(int e, int r, long long r0, int m) const {
+    return (r0 + r) * m + j0[r] + e - first[r];
+  }
+};
+
+// pass 1, block (t, s): tile t's row masks in the kMaskCols columns of
+// block s (kMaskCols / kPiece pieces): bit r of masks[t, c] says whether row
+// t·64 + r holds column c
+__global__ void __launch_bounds__(kFastThreads)
+piece_masks(const int* __restrict__ idx, const int* __restrict__ rs,
+            const int* __restrict__ general, unsigned long long* __restrict__ masks, int n,
+            int m, int p, int pieces) {
+  __shared__ unsigned rows_of[2][kMaskCols];   // rows 0–31 and 32–63 (native 32-bit atomics)
+  __shared__ RowRanges<kTileRows> rr;
+  if (*general) return;
+  const int lo = blockIdx.y * kMaskCols;
+  const int w = p - lo < kMaskCols ? p - lo : kMaskCols;
+  for (int c = threadIdx.x; c < w; c += blockDim.x) rows_of[0][c] = rows_of[1][c] = 0;
+  const long long r0 = (long long)blockIdx.x * kTileRows;
+  const long long r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
+  const int s0 = blockIdx.y * (kMaskCols / kPiece);
+  rr.load(rs, r0, r1, pieces, s0, min(s0 + kMaskCols / kPiece, pieces));
+  const int total = rr.first[kTileRows];
+  for (int e0 = threadIdx.x; e0 < total; e0 += kPer * kFastThreads) {
+    int c[kPer], r[kPer];   // the loads first, all in flight
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = e0 + u * kFastThreads;
+      r[u] = e < total ? rr.row_of(e) : 0;
+      c[u] = e < total ? idx[rr.pos(e, r[u], r0, m)] - lo : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if ((unsigned)c[u] < (unsigned)w) atomicOr(&rows_of[r[u] >> 5][c[u]], 1u << (r[u] & 31));
+  }
+  __syncthreads();
+  unsigned long long* out = masks + (long long)blockIdx.x * p + lo;
+  for (int c = threadIdx.x; c < w; c += blockDim.x)
+    out[c] = rows_of[0][c] | (unsigned long long)rows_of[1][c] << 32;
+}
+
+// pass 1, general (any rows), block (t, s): tile t's counts in the kSlab
+// columns of slab s
+__global__ void __launch_bounds__(kPlaceThreads)
+tile_counts(const int* __restrict__ idx, const int* __restrict__ general,
+            int* __restrict__ counts, int n, int m, int p) {
+  if (!*general) return;
+  extern __shared__ int cnt_slab[];
+  const int lo = blockIdx.y * kSlab;
+  const int w = p - lo < kSlab ? p - lo : kSlab;
+  for (int c = threadIdx.x; c < w; c += blockDim.x) cnt_slab[c] = 0;
+  __syncthreads();
+  const long long r0 = (long long)blockIdx.x * kTileRows;
+  const long long r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
+  const int* ix = idx + r0 * m;
+  for (long long e = threadIdx.x; e < (r1 - r0) * m; e += blockDim.x) {
+    const int c = ix[e] - lo;
+    if ((unsigned)c < (unsigned)w) atomicAdd(&cnt_slab[c], 1);
+  }
+  __syncthreads();
+  int* out = counts + (long long)blockIdx.x * p + lo;
+  for (int c = threadIdx.x; c < w; c += blockDim.x) out[c] = cnt_slab[c];
+}
+
+// pass 2, a thread a column: each tile's count in the column (the popcount of
+// its mask, or the general count) becomes the tile's offset within the column,
+// in counts; the block's column totals are scanned into starts[c] (exclusive,
+// within the block) and the block's total goes to block_sums
+__global__ void __launch_bounds__(kScanBlock)
+tile_offsets(const unsigned long long* __restrict__ masks, const int* __restrict__ general,
+             int* __restrict__ counts, int* __restrict__ starts, int* __restrict__ block_sums,
+             int p, int tiles) {
+  __shared__ int part[kScanBlock];
+  const int tid = threadIdx.x;
+  const long long c = (long long)blockIdx.x * kScanBlock + tid;
+  const int gen = *general;
+  int run = 0;
+  if (c < p) {
+    for (int t0 = 0; t0 < tiles; t0 += 4 * kPer) {
+      int k[4 * kPer];   // the loads first, all in flight
+#pragma unroll
+      for (int u = 0; u < 4 * kPer; ++u) {
+        const long long at = (long long)(t0 + u) * p + c;
+        k[u] = t0 + u >= tiles ? 0 : gen ? counts[at] : __popcll(masks[at]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4 * kPer; ++u) {
+        if (t0 + u < tiles) counts[(long long)(t0 + u) * p + c] = run;
+        run += k[u];
+      }
+    }
+  }
+  part[tid] = run;
+  __syncthreads();
+  for (int off = 1; off < kScanBlock; off <<= 1) {
+    const int add = tid >= off ? part[tid - off] : 0;
+    __syncthreads();
+    part[tid] += add;
+    __syncthreads();
+  }
+  if (c < p) starts[c] = part[tid] - run;
+  if (tid == kScanBlock - 1) block_sums[blockIdx.x] = part[tid];
+}
+
+// pass 3, one block: the block sums' exclusive prefix added to starts;
+// starts[p] = the total
+__global__ void __launch_bounds__(kPlaceThreads)
+scan_blocks(int* __restrict__ starts, int* __restrict__ block_sums, int p, int blocks) {
+  __shared__ int part[kPlaceThreads];
+  const int tid = threadIdx.x;
+  int base = 0;
+  for (int b0 = 0; b0 < blocks; b0 += kPlaceThreads) {
+    const int x = b0 + tid < blocks ? block_sums[b0 + tid] : 0;
+    part[tid] = x;
+    __syncthreads();
+    for (int off = 1; off < kPlaceThreads; off <<= 1) {
+      const int add = tid >= off ? part[tid - off] : 0;
+      __syncthreads();
+      part[tid] += add;
+      __syncthreads();
+    }
+    if (b0 + tid < blocks) block_sums[b0 + tid] = base + part[tid] - x;
+    base += part[kPlaceThreads - 1];
+    __syncthreads();
+  }
+  for (long long c = tid; c < p; c += kPlaceThreads) starts[c] += block_sums[c / kScanBlock];
+  if (tid == 0) starts[p] = base;
+}
+
+// pass 4, block (g, s): places the entries of tile group g (kGroupTiles tiles,
+// kGroupRows rows) in the kPiece columns of piece s. Rows increase strictly,
+// so a column holds at most one entry of a row, and an entry's rank in its
+// column within the group is the number of earlier rows in the column's masks.
+// The group's entries of a column are one run of the column's pairs (its
+// tiles are consecutive); they are staged in shared memory column by column
+// and written run by run, so consecutive threads write consecutive pairs. A
+// block of more than kStage entries writes each entry where it goes. order,
+// if not null, gets each entry's flat position.
+__global__ void __launch_bounds__(kFastThreads)
+mask_place(const float* __restrict__ values, const int* __restrict__ idx,
+           const int* __restrict__ rs, const int* __restrict__ general,
+           const unsigned long long* __restrict__ masks, const int* __restrict__ offsets,
+           const int* __restrict__ starts, int2* __restrict__ pairs, int* __restrict__ order,
+           int n, int m, int p, int tiles, int pieces) {
+  static_assert(kFastThreads == kPiece, "one thread a column of the piece");
+  extern __shared__ int2 stage[];   // kStage
+  __shared__ unsigned long long rows_of[kGroupTiles][kPiece];
+  __shared__ int gbase[kPiece];
+  __shared__ int col_first[kPiece + 1];
+  __shared__ int warp_sum[kPiece / 32];
+  __shared__ RowRanges<kGroupRows> rr;
+  if (*general) return;
+  const int t0 = blockIdx.x * kGroupTiles;
+  const int lo = blockIdx.y * kPiece;
+  const int w = p - lo < kPiece ? p - lo : kPiece;
+  const long long r0 = (long long)t0 * kTileRows;
+  const long long r1 = r0 + kGroupRows < n ? r0 + kGroupRows : n;
+  // each column's masks, the group's first pair in it, and its count in the group
+  const int col = threadIdx.x, lane = col & 31;
+  int cnt = 0;
+#pragma unroll
+  for (int g = 0; g < kGroupTiles; ++g) {
+    const unsigned long long mk =
+        col < w && t0 + g < tiles ? masks[(long long)(t0 + g) * p + lo + col] : 0ull;
+    rows_of[g][col] = mk;
+    cnt += __popcll(mk);
+  }
+  if (col < w) gbase[col] = starts[lo + col] + offsets[(long long)t0 * p + lo + col];
+  int incl = cnt;   // the counts' exclusive scan over the piece: each column's first slot
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (lane == 31) warp_sum[col >> 5] = incl;
+  __syncthreads();
+  for (int v = 0; v < (col >> 5); ++v) incl += warp_sum[v];
+  col_first[col] = incl - cnt;
+  if (col == kPiece - 1) col_first[kPiece] = incl;
+  rr.load(rs, r0, r1, pieces, blockIdx.y, blockIdx.y + 1);   // ends with __syncthreads
+  const int total = rr.first[kGroupRows];
+  const bool staged = total <= kStage;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kPer * kFastThreads) {
+    int c[kPer], r[kPer];
+    long long pos[kPer];
+    float v[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = e0 + u * kFastThreads;
+      r[u] = e < total ? rr.row_of(e) : 0;
+      pos[u] = rr.pos(e, r[u], r0, m);
+      c[u] = e < total ? idx[pos[u]] - lo : -1;
+      v[u] = e < total ? values[pos[u]] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      if ((unsigned)c[u] >= (unsigned)w) continue;
+      const int g = r[u] / kTileRows, rt = r[u] % kTileRows;
+      int rank = __popcll(rows_of[g][c[u]] & ((1ull << rt) - 1ull));
+      for (int h = 0; h < g; ++h) rank += __popcll(rows_of[h][c[u]]);
+      const int2 pr = make_int2((int)(r0 + r[u]), __float_as_int(v[u]));
+      if (staged) stage[col_first[c[u]] + rank] = pr;
+      else pairs[gbase[c[u]] + rank] = pr;
+      if (order != nullptr) order[gbase[c[u]] + rank] = (int)pos[u];
+    }
+  }
+  if (!staged) return;
+  __syncthreads();
+  for (int k = threadIdx.x; k < total; k += kFastThreads) {
+    int a = 0, b = kPiece;   // the column of slot k: col_first[a] ≤ k < col_first[b]
+    while (b - a > 1) {
+      const int mid = (a + b) >> 1;
+      if (col_first[mid] <= k) a = mid; else b = mid;
+    }
+    pairs[gbase[a] + k - col_first[a]] = stage[k];
+  }
+}
+
+// pass 4, general (any rows), block (t, s): places tile t's entries of slab s
+// at their columns' cursors, its rows in order. A row whose indices increase
+// strictly is placed by all threads at once; any other row 32 entries at a
+// time by one warp, a column's repeats ranked in j order with
+// __match_any_sync.
+__global__ void __launch_bounds__(kPlaceThreads)
+tile_place(const float* __restrict__ values, const int* __restrict__ idx,
+           const int* __restrict__ general, const int* __restrict__ offsets,
+           const int* __restrict__ starts, int2* __restrict__ pairs, int* __restrict__ order,
+           int n, int m, int p) {
+  if (!*general) return;
+  extern __shared__ int cur[];
+  const int lo = blockIdx.y * kSlab;
+  const int w = p - lo < kSlab ? p - lo : kSlab;
+  const int* off = offsets + (long long)blockIdx.x * p + lo;
+  for (int c = threadIdx.x; c < w; c += blockDim.x) cur[c] = starts[lo + c] + off[c];
+  const long long r0 = (long long)blockIdx.x * kTileRows;
+  const long long r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
+  for (long long i = r0; i < r1; ++i) {
+    const int* ix = idx + i * m;
+    const float* v = values + i * m;
+    int unordered = 0;   // is any index at or below its left neighbour?
+    for (int j = threadIdx.x + 1; j < m; j += blockDim.x) unordered |= ix[j] <= ix[j - 1];
+    if (!__syncthreads_or(unordered)) {
+      for (int j = threadIdx.x; j < m; j += blockDim.x) {
+        const int c = ix[j] - lo;
+        if ((unsigned)c < (unsigned)w) {
+          const int dst = cur[c];
+          cur[c] = dst + 1;
+          pairs[dst] = make_int2((int)i, __float_as_int(v[j]));
+          if (order != nullptr) order[dst] = (int)(i * m + j);
+        }
+      }
+    } else if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      for (int j0 = 0; j0 < m; j0 += 32) {
+        const int j = j0 + lane;
+        const int c = j < m ? ix[j] - lo : -1;
+        const bool mine = j < m && (unsigned)c < (unsigned)w;
+        const unsigned peers = __match_any_sync(0xffffffffu, mine ? c : -1);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        const int dst = mine ? cur[c] + rank : 0;
+        __syncwarp();
+        if (mine && rank == __popc(peers) - 1) cur[c] = dst + 1;   // the last repeat moves it
+        __syncwarp();
+        if (mine) {
+          pairs[dst] = make_int2((int)i, __float_as_int(v[j]));
+          if (order != nullptr) order[dst] = (int)(i * m + j);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 unsigned blocks_for(int rows) { return (unsigned)((rows + kWarps - 1) / kWarps); }
 
 }  // namespace
@@ -166,17 +552,66 @@ extern "C" int spmm_f32(const float* values, const int* idx, const float* dense,
   return (int)cudaGetLastError();
 }
 
-// sum_v and sum_v2 (p,) may both be null: then only Y is written.
-extern "C" int spmm_t_f32(const float* values, const int* order, const int* starts,
-                          const float* t, float* out, float* sum_v, float* sum_v2,
-                          int p, int m, int ell, int vec4, void* stream) {
+// The transposition: pairs (n·m) and starts (p + 1) from compact rows; order
+// (n·m) may be null. scratch: int32 words, 3·tiles·p for the masks (64-bit)
+// and the counts, n·(pieces + 1) for the rows' pieces, ceil(p / kScanBlock)
+// block sums and a flag (tiles = ceil(n / kTileRows), pieces = ceil(p / kPiece)).
+extern "C" int transpose_columns_f32(const float* values, const int* idx, int* scratch,
+                                     int* starts, int2* pairs, int* order, int n, int m, int p,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    spmm_t_cols<4><<<blocks_for(p), kThreads, 0, s>>>(values, order, starts, t, out, sum_v,
-                                                      sum_v2, p, m, ell);
+  const int tiles = (n + kTileRows - 1) / kTileRows, pieces = (p + kPiece - 1) / kPiece;
+  const int scan_blocks_n = (p + kScanBlock - 1) / kScanBlock;
+  auto* masks = reinterpret_cast<unsigned long long*>(scratch);
+  int* counts = scratch + 2LL * tiles * p;
+  int* rs = counts + (long long)tiles * p;
+  int* block_sums = rs + (long long)n * (pieces + 1);
+  int* general = block_sums + scan_blocks_n;
+  const int smem = 4 * (p < kSlab ? p : kSlab);
+  cudaError_t err = cudaFuncSetAttribute(tile_counts, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tile_place, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mask_place, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kStage * sizeof(int2));
+  if (err == cudaSuccess) err = cudaMemsetAsync(general, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 by_slab(tiles, (p + kSlab - 1) / kSlab);
+  row_pieces<<<n, 256, 0, s>>>(idx, rs, general, m, pieces);
+  piece_masks<<<dim3(tiles, (p + kMaskCols - 1) / kMaskCols), kFastThreads, 0, s>>>(
+      idx, rs, general, masks, n, m, p, pieces);
+  tile_counts<<<by_slab, kPlaceThreads, smem, s>>>(idx, general, counts, n, m, p);
+  tile_offsets<<<scan_blocks_n, kScanBlock, 0, s>>>(masks, general, counts, starts, block_sums,
+                                                    p, tiles);
+  scan_blocks<<<1, kPlaceThreads, 0, s>>>(starts, block_sums, p, scan_blocks_n);
+  mask_place<<<dim3((tiles + kGroupTiles - 1) / kGroupTiles, pieces), kFastThreads,
+               kStage * sizeof(int2), s>>>(values, idx, rs, general, masks, counts, starts, pairs,
+                                           order, n, m, p, tiles, pieces);
+  tile_place<<<by_slab, kPlaceThreads, smem, s>>>(values, idx, general, counts, starts, pairs,
+                                                  order, n, m, p);
+  return (int)cudaGetLastError();
+}
+
+// The walk over the transposition's pairs (or, with pairs null, over the flat
+// positions of a stable sort by column: values[order[k]], row order[k] / m).
+// sum_v and sum_v2 (p,) may both be null: then only Y is written.
+extern "C" int spmm_t_f32(const int* pairs, const float* values, const int* order,
+                          const int* starts, const float* t, float* out, float* sum_v,
+                          float* sum_v2, int p, int m, int ell, int vec4, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int2* pr = reinterpret_cast<const int2*>(pairs);
+  if (pr != nullptr && vec4) {
+    spmm_t_cols<4, true><<<blocks_for(p), kThreads, 0, s>>>(pr, values, order, starts, t, out,
+                                                            sum_v, sum_v2, p, m, ell);
+  } else if (pr != nullptr) {
+    spmm_t_cols<1, true><<<blocks_for(p), kThreads, 0, s>>>(pr, values, order, starts, t, out,
+                                                            sum_v, sum_v2, p, m, ell);
+  } else if (vec4) {
+    spmm_t_cols<4, false><<<blocks_for(p), kThreads, 0, s>>>(pr, values, order, starts, t, out,
+                                                             sum_v, sum_v2, p, m, ell);
   } else {
-    spmm_t_cols<1><<<blocks_for(p), kThreads, 0, s>>>(values, order, starts, t, out, sum_v,
-                                                      sum_v2, p, m, ell);
+    spmm_t_cols<1, false><<<blocks_for(p), kThreads, 0, s>>>(pr, values, order, starts, t, out,
+                                                             sum_v, sum_v2, p, m, ell);
   }
   return (int)cudaGetLastError();
 }

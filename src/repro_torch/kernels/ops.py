@@ -30,6 +30,7 @@ WRAPPERS = {
     "sparse_assign": _sa.sparse_assign,
     "spmm": _spmm.spmm,
     "spmm_t": _spmm.spmm_t,
+    "transpose_columns": _spmm.transpose_columns,   # K6's first step
 }
 
 
@@ -53,6 +54,7 @@ def reset_counts() -> None:
     """Zero every launch counter and the dispatch tally."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    _sa.sparse_assign.by_shape.clear()
     DISPATCH.clear()
 
 

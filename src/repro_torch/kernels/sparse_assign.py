@@ -3,12 +3,17 @@
 Replaces the TPU kernel ``repro.kernels.sparse_assign.sparse_assign``:
 ``d[i, k] = Σ_j (v_ij − μ_k[idx_ij])²`` and its first-index argmin over k,
 for one set of centers (K, p) or r sets (r, K, p) in one launch
-(``csrc/sparse_assign.cu``).
+(``csrc/sparse_assign.cu``). The kernel reads the centers by coordinate: it
+first lays them out as (p, r·K), padded to whole float4s, in a scratch buffer
+the wrapper allocates, so that all r·K center values of a kept coordinate
+share one cache line.
 
 On a CPU tensor the wrapper computes the plain version (``kernels.ref``); on a
 CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -36,16 +41,21 @@ def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Te
     dists = torch.empty((r, n, k), dtype=torch.float32, device=values.device)
     amin = torch.empty((r, n), dtype=torch.int32, device=values.device)
     if n and r:
+        ld = -(-r * k // 4) * 4
+        ct = torch.empty((p, ld), dtype=torch.float32, device=values.device)
         lib = _build.library("sparse_assign")
         with torch.cuda.device(values.device):
             err = lib.sparse_assign_f32(values.data_ptr(), indices.data_ptr(), c3.data_ptr(),
-                                        dists.data_ptr(), amin.data_ptr(), n, m, r, k, p,
-                                        _build.stream_of(values))
+                                        ct.data_ptr(), dists.data_ptr(), amin.data_ptr(),
+                                        n, m, r, k, p, ld, _build.stream_of(values))
         _build.check(err, "sparse_assign")
         sparse_assign.launches += 1
+        sparse_assign.by_shape[(r, k, m)] += 1
     if batched:
         return dists, amin
     return dists[0], amin[0]
 
 
 sparse_assign.launches = 0
+# launches by (r, K, m)
+sparse_assign.by_shape = collections.Counter()

@@ -7,18 +7,21 @@ Replace the TPU kernels ``repro.kernels.spmm.spmm`` and ``spmm_t``
     spmm:    T = W @ Ω      (n, l)
     spmm_t:  Y = Wᵀ @ T     (p, l)
 
-The reference plans VMEM tiles (``plan_tiles``, ``tile_vmem_bytes``); these
-kernels use no shared memory and take any p and l, so nothing here replaces
-that model. What they do need is checked here: float32 operands (the plain
+The reference plans VMEM tiles (``plan_tiles``, ``tile_vmem_bytes``); the
+products hold nothing in shared memory and take any p and l (only K6's
+transposition does, in fixed column slabs), so nothing here replaces that
+model. What they do need is checked here: float32 operands (the plain
 versions keep the reference's promotion rule for other types, see
 ``kernels.ref.spmm_out_dtype``), int32 indices, and fewer than 2^31 entries.
 Indices must lie in [0, p): the kernels do not check them.
 
-``spmm_t`` first buckets the entries by column with a stable sort
-(:func:`column_buckets`, PyTorch ops), so its kernel sums each column in row
-order without atomics and repeated calls are bit-identical. With
-``col_sums=True`` the same launch also returns each column's Σv and Σv² (the
-range-finder's ``sum_w`` and ``diag``), just as reproducible.
+``spmm_t`` first transposes the entries into columns
+(:func:`transpose_columns`, a CUDA kernel whose plain version is
+:func:`column_buckets`, a stable sort): each column's (row, value) pairs in row
+order. Its kernel then sums each column in that order without atomics, so
+repeated calls are bit-identical. With ``col_sums=True`` the same launch also
+returns each column's Σv and Σv² (the range-finder's ``sum_w`` and ``diag``),
+just as reproducible.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernel or raise.
@@ -31,14 +34,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 
-def _check(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor, what: str):
+def _check_rows(values: torch.Tensor, indices: torch.Tensor):
     _build.require(values, torch.float32, 2, "values")
     _build.require(indices, torch.int32, 2, "indices", device=values.device)
-    _build.require(dense, torch.float32, 2, what, device=values.device)
     if indices.shape != values.shape:
         raise ValueError(f"indices {tuple(indices.shape)} != values {tuple(values.shape)}")
     if values.numel() >= 1 << 31:
         raise ValueError(f"{values.numel()} entries: the kernels index them with int32")
+
+
+def _check(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor, what: str):
+    _check_rows(values, indices)
+    _build.require(dense, torch.float32, 2, what, device=values.device)
 
 
 def _vec4(*ts: torch.Tensor) -> int:
@@ -80,12 +87,59 @@ def column_buckets(indices: torch.Tensor, p: int):
     return order.to(torch.int32), starts
 
 
-def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
-           p: int, col_sums: bool = False):
-    """Y (p, l) = Wᵀ @ t for compact sparse rows W (n over p columns), t (n, l);
-    with ``col_sums``, (Y, Σ_i W[i, c], Σ_i W[i, c]²), the sums (p,) float32."""
+# the transposition's tiling (csrc/spmm.cu kTileRows, kPiece, kScanBlock)
+TILE_ROWS, PIECE, SCAN_BLOCK = 64, 512, 256
+
+
+def transpose_scratch(n: int, p: int) -> int:
+    """int32 words of the transposition's scratch: each tile's 64-bit row mask
+    and count (then offset) in each column, each row's piece boundaries, the
+    scan's block sums, and the flag that picks the general passes."""
+    tiles, pieces = -(-n // TILE_ROWS), -(-p // PIECE)
+    return 3 * tiles * p + n * (pieces + 1) + -(-p // SCAN_BLOCK) + 1
+
+
+def transpose_columns(values: torch.Tensor, indices: torch.Tensor, p: int,
+                      with_order: bool = False):
+    """Compact rows → columns: (pairs, starts), or (pairs, starts, order).
+
+    ``pairs`` (n·m, 2) int32 holds each entry's row and its value's bits
+    (``pairs[:, 1].view(torch.float32)``), column by column; column c's
+    entries are ``pairs[starts[c]:starts[c + 1]]``, in row order and within a
+    row in j order. ``order`` (n·m,) int32 is each pair's flat position in the
+    rows. The order is that of :func:`column_buckets`, the plain version.
+    """
+    n, m = values.shape
     if values.device.type == "cpu":
-        return _ref.ref_spmm_t(values, indices, t, p, col_sums)
+        order, starts = column_buckets(indices, p)
+        pairs = torch.stack([order // max(m, 1),
+                             values.reshape(-1)[order.long()].view(torch.int32)], dim=1)
+        return (pairs, starts, order) if with_order else (pairs, starts)
+    _check_rows(values, indices)
+    dev = values.device
+    starts = torch.zeros(p + 1, dtype=torch.int32, device=dev)
+    pairs = torch.empty((n * m, 2), dtype=torch.int32, device=dev)
+    order = torch.empty(n * m, dtype=torch.int32, device=dev) if with_order else None
+    out = (pairs, starts, order) if with_order else (pairs, starts)
+    if n * m == 0 or p == 0:
+        return out
+    scratch = torch.empty(transpose_scratch(n, p), dtype=torch.int32, device=dev)
+    lib = _build.library("spmm")
+    with torch.cuda.device(dev):
+        err = lib.transpose_columns_f32(values.data_ptr(), indices.data_ptr(), scratch.data_ptr(),
+                                        starts.data_ptr(), pairs.data_ptr(),
+                                        order.data_ptr() if with_order else None,
+                                        n, m, p, _build.stream_of(values))
+    _build.check(err, "transpose_columns")
+    transpose_columns.launches += 1
+    return out
+
+
+def _spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor, p: int,
+            col_sums: bool, entries):
+    """(result, launched): K6's column walk over ``entries(values, indices,
+    p)``, either (pairs, starts) from :func:`transpose_columns` or (order,
+    starts) from :func:`column_buckets`."""
     _check(values, indices, t, "t")
     n, m = values.shape
     ell = t.shape[1]
@@ -95,24 +149,46 @@ def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
     sums = torch.empty((2, p), dtype=torch.float32, device=values.device) if col_sums else None
     result = (out, sums[0], sums[1]) if col_sums else out
     if not p or not (ell or col_sums):
-        return result
+        return result, False
     if n * m == 0:
         out.zero_()
         if col_sums:
             sums.zero_()
-        return result
-    order, starts = column_buckets(indices, p)
+        return result, False
+    first, starts = entries(values, indices, p)
+    pairs, order = (first, None) if first.ndim == 2 else (None, first)
     lib = _build.library("spmm")
     with torch.cuda.device(values.device):
-        err = lib.spmm_t_f32(values.data_ptr(), order.data_ptr(), starts.data_ptr(),
-                             t.data_ptr(), out.data_ptr(),
+        err = lib.spmm_t_f32(pairs.data_ptr() if pairs is not None else None, values.data_ptr(),
+                             order.data_ptr() if order is not None else None,
+                             starts.data_ptr(), t.data_ptr(), out.data_ptr(),
                              sums[0].data_ptr() if col_sums else None,
                              sums[1].data_ptr() if col_sums else None,
                              p, m, ell, _vec4(t, out), _build.stream_of(values))
     _build.check(err, "spmm_t")
-    spmm_t.launches += 1
+    return result, True
+
+
+def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
+           p: int, col_sums: bool = False):
+    """Y (p, l) = Wᵀ @ t for compact sparse rows W (n over p columns), t (n, l);
+    with ``col_sums``, (Y, Σ_i W[i, c], Σ_i W[i, c]²), the sums (p,) float32."""
+    if values.device.type == "cpu":
+        return _ref.ref_spmm_t(values, indices, t, p, col_sums)
+    result, launched = _spmm_t(values, indices, t, p, col_sums, transpose_columns)
+    spmm_t.launches += launched
     return result
+
+
+def spmm_t_from_buckets(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
+                        p: int, col_sums: bool = False):
+    """:func:`spmm_t` with the column walk fed by :func:`column_buckets`
+    (a stable torch.sort) through flat positions: the same sums in the same
+    order, kept only to check :func:`spmm_t` and its transposition bit for bit
+    on the card. Not counted as a launch."""
+    return _spmm_t(values, indices, t, p, col_sums, lambda v, i, p: column_buckets(i, p))[0]
 
 
 spmm.launches = 0
 spmm_t.launches = 0
+transpose_columns.launches = 0

@@ -135,19 +135,74 @@ _ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06
 _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
+# XLA's float32 log1p on the CPU (Cephes), as its compiled code evaluates it.
+# Below |t| = 0.41421357: t + (t³·P(t)/Q(t) − t²/2), P and Q by Horner's rule.
+_LOG1P_P = (4.527e-05, 0.49854103, 6.5787325, 29.911919, 60.94967, 57.112965, 20.039553)
+_LOG1P_Q = (1.0, 15.062909, 83.04757, 221.7624, 309.09872, 216.42789, 60.11866)
+# Above it: Cephes logf of w = 1 + t from w's exponent and mantissa, its
+# polynomial in three chains of three coefficients
+_LOGF = ((0.070376836, -0.1151461, 0.116769984), (-0.12420141, 0.14249323, -0.16668057),
+         (0.20000714, -0.24999994, 0.3333333))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a·b + c rounded once, as an FMA instruction does.
+
+    a·b is exact in float64; the sum is taken exactly (TwoSum), rounded to odd
+    in float64 and then to float32, which is the correctly rounded result.
+    """
+    ab = a.double() * torch.as_tensor(b, dtype=torch.float32).to(a.device).double()
+    c = torch.as_tensor(c, dtype=torch.float32).to(a.device).double()
+    s = ab + c
+    bb = s - ab
+    err = (ab - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.where(err > 0, math.inf, -math.inf))
+    return torch.where((err != 0) & even, away, s).float()
+
+
+def _horner(coefs, t: torch.Tensor) -> torch.Tensor:
+    """coefs[0]·tⁿ + … by Horner's rule, each step fused."""
+    p = torch.full_like(t, coefs[0])
+    for c in coefs[1:]:
+        p = _fma(p, t, c)
+    return p
+
+
+def log1p_xla(t: torch.Tensor) -> torch.Tensor:
+    """float32 log1p(t) for t in (-1, 0], bit for bit as XLA's CPU code on a
+    host with FMA: the operations of its LLVM IR in their order, with the
+    multiply-adds that its object code fuses (``_fma``) fused."""
+    t2 = t * t
+    ratio = _horner(_LOG1P_P, t) / _horner(_LOG1P_Q, t)
+    near0 = t + ((t * t2) * ratio - 0.5 * t2)
+    # log(w) = log(m) + e·ln 2 for w = m·2^e, m in [√½, √2)
+    w = torch.clamp(t + 1.0, min=2.0 ** -126)
+    bits = w.view(torch.int32)
+    mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)       # [0.5, 1)
+    low = mant < 0.70710677
+    e = ((bits >> 23) - 127).float() + 1.0
+    e = torch.where(low, e - 1.0, e)
+    xm = (mant - 1.0) + torch.where(low, mant, torch.zeros_like(mant))
+    z = xm * xm
+    z3 = z * xm
+    a, b, c = (_fma(_fma(xm, ch[0], ch[1]), xm, ch[2]) for ch in _LOGF)
+    y = _fma(_fma(_fma(a, z3, b), z3, c), z3, e * -2.1219444e-4)
+    far = _fma(e, 0.6933594, (xm - 0.5 * z) + y)
+    return torch.where(t.abs() < 0.41421357, near0, far)
+
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
-    """float32 inverse error function in XLA's form (Giles' approximation).
+    """float32 inverse error function for |x| < 1 (±inf at ±1), bit for bit
+    as XLA's CPU code on a host with FMA evaluates ``lax.erf_inv``: Giles'
+    approximation on :func:`log1p_xla`, its polynomial fused.
 
-    ``torch.erfinv`` is another approximation; this one follows XLA's
-    evaluation order, so it differs from ``lax.erf_inv`` only where XLA's
-    float32 log1p is not correctly rounded (a few percent of inputs, by at
-    most 2.4e-7 relative). The log1p and the square root are taken in float64
-    and rounded: float32 ``torch.sqrt`` on the CPU has been seen to return
-    values 1e-4 off in a few elements in some processes, which the tail of
-    the normal amplifies.
+    ``torch.erfinv`` is another approximation. The square root is taken in
+    float64 and rounded (the correctly rounded float32 root, as the compiled
+    ``vsqrtps``): float32 ``torch.sqrt`` on the CPU has been seen to return
+    values 1e-4 off in a few elements in some processes.
     """
-    w = -torch.log1p(-(x * x).double()).float()
+    w = -log1p_xla(-(x * x))
     small = w < 5.0
     w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
@@ -155,18 +210,15 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
         return torch.where(small, torch.tensor(_ERFINV_SMALL[i], device=x.device),
                            torch.tensor(_ERFINV_LARGE[i], device=x.device))
 
-    p = coef(0)
-    for i in range(1, len(_ERFINV_SMALL)):
-        p = coef(i) + p * w
-    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
+    p = _fma(coef(0), w, coef(1))
+    for i in range(2, len(_ERFINV_SMALL)):
+        p = _fma(w, p, coef(i))
+    return x * torch.where(x.abs() == 1.0, torch.full_like(p, math.inf), p)
 
 
 def normal(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal`` in float32: √2·erfinv(uniform(-1⁺, 1)).
-
-    The uniforms are JAX's bit for bit; :func:`erfinv` leaves a few percent of
-    draws one or two ulps (≤ 2.4e-7 relative) from JAX's.
-    """
+    """``jax.random.normal`` in float32: √2·erfinv(uniform(-1⁺, 1)), bit for
+    bit as JAX's on a CPU host with FMA (see :func:`erfinv`)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device=device)
     return torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=device) * erfinv(u)

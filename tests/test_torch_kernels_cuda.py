@@ -10,7 +10,11 @@ not a multiple of 32.
 
 Tolerances: K1–K3 are bit-equal to the plain butterfly (same stages, same
 order). K5/K6 sum in another order than the plain einsum/index_add, so they
-are held to 1e-5 of the largest output; K6 is bit-identical across launches.
+are held to 1e-5 of the largest output; K6 is bit-identical across launches,
+its transposition to the stable sort of ``column_buckets``, and its walk to
+the same walk fed by ``column_buckets``. K4 sums in another order than the
+plain version: 1e-5 relative, the same argmin where the top two differ by more
+than that, ties to the first index.
 """
 import numpy as np
 import pytest
@@ -150,6 +154,9 @@ def _assign_case(dev, n=4096, m=819, r=3, k=10, p=16384, seed=1):
 def _check_assign(d, a, d_ref, a_ref):
     rel = torch.abs(d - d_ref) / torch.clamp(torch.abs(d_ref), min=1e-30)
     assert rel.max().item() <= 1e-5
+    if d_ref.shape[-1] == 1:
+        assert torch.all(a == 0) and torch.all(a_ref == 0)
+        return
     top2 = torch.topk(d_ref, 2, dim=-1, largest=False).values
     clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * torch.abs(top2[..., 0])
     assert torch.equal(a[clear], a_ref[clear])
@@ -183,3 +190,76 @@ def test_sparse_assign_ties_go_to_first_index(dev):
     assert torch.all(d[0, :128, 1] == 0) and torch.all(d[0, :128, 4] == 0)
     assert torch.all(a[0, :128] == 1)
     _check_assign(d, a, *ref.ref_sparse_assign(vals, idx, centers))
+
+
+@pytest.mark.parametrize("r,k", [(3, 10), (1, 5), (1, 1), (3, 16)])
+@pytest.mark.parametrize("m,p", [(819, 16384), (3277, 65536)])
+def test_sparse_assign_launch_shapes(dev, r, k, m, p):
+    """Every (r, K) the paths launch (a step; K-means++ candidates and first
+    center), one with r·K > 32, at both paths' m; n ragged for row packing."""
+    vals, idx, centers = _assign_case(dev, n=1001, m=m, r=r, k=k, p=p, seed=r * k)
+    if k > 1:
+        a_, b_ = (3, 7) if k >= 8 else (1, k - 1)
+        centers[:, b_] = centers[:, a_]
+        vals[:100] = centers[0, a_][idx[:100].long()]     # distance 0 to centers a_ and b_
+    before = sparse_assign.sparse_assign.launches
+    d, a = sparse_assign.sparse_assign(vals, idx, centers)
+    torch.cuda.synchronize()
+    assert sparse_assign.sparse_assign.launches == before + 1
+    assert d.shape == (r, 1001, k) and a.shape == (r, 1001)
+    _check_assign(d, a, *ref.ref_sparse_assign(vals, idx, centers))
+    if k > 1:
+        assert torch.all(a[0, :100] == a_)
+    again = sparse_assign.sparse_assign(vals, idx, centers)
+    assert torch.equal(again[0], d) and torch.equal(again[1], a)
+
+
+def _transpose_cases():
+    rng = np.random.default_rng(5)
+    sorted_rows = np.sort(np.argsort(rng.random((300, 40000)), axis=1)[:, :2000], axis=1)
+    repeats = rng.integers(0, 50, size=(70, 33))           # repeats within rows, unsorted
+    repeats[:, 0] = 7                                       # a column in every row
+    repeats[repeats == 11] = 12                             # an empty column
+    every = np.sort(np.argsort(rng.random((257, 64)), axis=1)[:, :9], axis=1)
+    every[:, 0] = 0                                         # a column present in every row
+    one_col = np.full((40, 3), 5)                           # a row of one column, repeated
+    dense = np.sort(np.argsort(rng.random((300, 1024)), axis=1)[:, :600], axis=1)
+    return [("sketch rows, p > 2^15", sorted_rows, 40000 + 30000),
+            ("repeats within rows", repeats, 50),
+            ("a column in every row", every, 64),
+            ("one column", one_col, 9),
+            ("dense rows, more entries a block than it stages", dense, 1024)]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_transpose_columns_matches_column_buckets(dev, case):
+    name, idx_np, p = _transpose_cases()[case]
+    rng = np.random.default_rng(case)
+    idx = torch.from_numpy(idx_np.astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.normal(size=idx_np.shape).astype(np.float32)).to(dev)
+    before = spmm.transpose_columns.launches
+    pairs, starts, order = spmm.transpose_columns(vals, idx, p, with_order=True)
+    torch.cuda.synchronize()
+    assert spmm.transpose_columns.launches == before + 1
+    want_order, want_starts = spmm.column_buckets(idx, p)
+    assert torch.equal(order, want_order), name
+    assert torch.equal(starts, want_starts), name
+    m = idx_np.shape[1]
+    assert torch.equal(pairs[:, 0], want_order // m), name
+    assert torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[want_order.long()]), name
+    cpu = spmm.transpose_columns(vals.cpu(), idx.cpu(), p, with_order=True)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip((pairs, starts, order), cpu)), name
+
+
+@pytest.mark.parametrize("n,p,m,ell", [(4096, 65536, 3277, 128), (777, 4096, 205, 100),
+                                       (5, 64, 64, 13)])
+def test_spmm_t_bit_equal_to_bucket_walk(dev, n, p, m, ell):
+    """The walk over the transposition's pairs gives the bits of the walk fed
+    by column_buckets (the same sums in the same order), on every launch."""
+    vals, idx, dense = _spmm_case(dev, n, p, m, ell, seed=4)
+    t = spmm.spmm(vals, idx, dense)
+    old = spmm.spmm_t_from_buckets(vals, idx, t, p, col_sums=True)
+    for _ in range(2):
+        new = spmm.spmm_t(vals, idx, t, p, col_sums=True)
+        assert all(torch.equal(a, b) for a, b in zip(new, old))
+    assert torch.equal(spmm.spmm_t(vals, idx, t, p), old[0])

@@ -1,6 +1,7 @@
 """repro_torch.kernels.ref (the plain versions of K1, K2, K4) against the
-reference's jnp oracles in repro.kernels.ref, and the CPU routing of the
-kernel wrappers and the dispatch layer."""
+reference's jnp oracles in repro.kernels.ref, the CPU routing of the kernel
+wrappers and the dispatch layer, and the plain version of K6's column
+transposition."""
 import jax
 import numpy as np
 import pytest
@@ -8,7 +9,7 @@ import torch
 
 from repro.core import ros as jros
 from repro.kernels import ref as jref
-from repro_torch.kernels import fwht, ops, ref, sketch_fused, sparse_assign
+from repro_torch.kernels import fwht, ops, ref, sketch_fused, sparse_assign, spmm
 
 
 # jitted reference oracles: one compile per shape instead of one per op
@@ -91,7 +92,7 @@ def test_wrappers_use_plain_versions_for_cpu_tensors():
     ops.spmm(vals, idx, torch.ones((64, 3)))
     assert ops.launch_counts() == {"sketch_fused": 0, "hd_precondition": 0,
                                    "hd_precondition_chunked": 0, "sparse_assign": 0,
-                                   "spmm": 0, "spmm_t": 0}
+                                   "spmm": 0, "spmm_t": 0, "transpose_columns": 0}
     assert ops.DISPATCH == {("sketch_fused", "ref"): 1, ("sparse_assign", "ref"): 1,
                             ("hd_precondition", "ref"): 1, ("spmm", "ref"): 1}
     with pytest.raises(ValueError, match="mode"):
@@ -110,3 +111,41 @@ def test_kernel_checks_reject_what_the_kernel_does_not_take():
         fwht.check_p(1000)
     assert fwht.check_p(1 << 15) == 15 and fwht.check_p(1) == 0
     assert fwht.scale_for(1 << 15) == float(np.float32(1 / np.sqrt(1 << 15)))
+
+
+def _bucket_cases():
+    rng = np.random.default_rng(9)
+    sorted_rows = np.sort(np.argsort(rng.random((30, 500)), axis=1)[:, :40], axis=1)
+    repeats = rng.integers(0, 20, size=(25, 17))        # repeats within rows, unsorted
+    repeats[repeats == 4] = 5                           # column 4 empty
+    ones = np.full((6, 4), 3)                           # one column, four times a row
+    return [(sorted_rows, 600), (repeats, 20), (ones, 8)]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_column_buckets_is_a_stable_sort(case):
+    """The plain version of K6's transposition: numpy's stable argsort of the
+    flat indices, with repeats within a row and empty columns."""
+    idx, p = _bucket_cases()[case]
+    order, starts = spmm.column_buckets(torch.from_numpy(idx.astype(np.int32)), p)
+    flat = idx.reshape(-1)
+    want = np.argsort(flat, kind="stable")
+    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(starts.numpy(), np.searchsorted(flat[want], np.arange(p + 1)))
+    assert order.dtype == starts.dtype == torch.int32
+    # the transposition's plain route: each entry's row and value bits, column by column
+    vals = np.random.default_rng(case).normal(size=idx.shape).astype(np.float32)
+    pairs, starts2 = spmm.transpose_columns(torch.from_numpy(vals),
+                                            torch.from_numpy(idx.astype(np.int32)), p)
+    np.testing.assert_array_equal(starts2.numpy(), starts.numpy())
+    np.testing.assert_array_equal(pairs[:, 0].numpy(), want // idx.shape[1])
+    np.testing.assert_array_equal(pairs[:, 1].view(torch.float32).numpy(), vals.reshape(-1)[want])
+
+
+@pytest.mark.parametrize("n,m,p", [(4096, 3277, 65536), (4096, 819, 16384), (777, 205, 4096)])
+def test_transpose_scratch_within_the_entry_arrays(n, m, p):
+    """The transposition's scratch stays within the size of the entry arrays
+    (values and indices, 2·n·m words) at the paths' shapes."""
+    assert spmm.transpose_scratch(n, p) <= 2 * n * m
+    tiles, pieces = -(-n // spmm.TILE_ROWS), -(-p // spmm.PIECE)
+    assert spmm.transpose_scratch(n, p) == 3 * tiles * p + n * (pieces + 1) + -(-p // 256) + 1
