@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
               K6's transposition bit-equal to column_buckets' stable sort and
               timed alone, K6 bit-equal to its walk fed by column_buckets, and
               no slower than torch.sparse.mm(Wᵀ, T) (whose CSR build is timed
-              beside it).
+              beside it); K6 and its transposition at p = 2^25 by both kinds
+              of passes, bit-equal to column_buckets.
 4. parity   — small runs on the card with the kernels against the same runs on
               the CPU with the plain versions (same seed, same masks): the
               dense path at p = 1000 and the low-rank path at p = 40000.
@@ -60,6 +61,8 @@ PEAK_FP32_PER_S = 67e12
 P, BATCH, STEPS, GAMMA, K, N_INIT, PCA_K = 16384, 4096, 16, 0.05, 10, 3, 8
 # the low-rank path: p, sketch width l, steps, and the steps after which its gates are read
 P_LR, ELL, STEPS_LR = 65536, 128, 8
+# columns of K6's check past the grid's y limit
+P_BIG = 1 << 25
 READ_LR = (2, 4, STEPS_LR)
 PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
 PATH2 = ("hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t", "transpose_columns")
@@ -293,6 +296,26 @@ def main() -> None:
     del hmat
     torch.cuda.empty_cache()
 
+    def transposed_as_buckets(vals, idx, p):
+        """K6's transposition is column_buckets' stable sort, bit for bit."""
+        pairs, starts = spmm_mod.transpose_columns(vals, idx, p)
+        order, want_starts = spmm_mod.column_buckets(idx, p)
+        return (torch.equal(starts, want_starts) and torch.equal(pairs[:, 0], order // idx.shape[1])
+                and torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[order.long()]))
+
+    def by_pass(fn, reps):
+        """Device ms a call of each kernel ``fn`` launches, by torch.profiler."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        passes = {}
+        for e in prof.key_averages():
+            name = re.search(r"::(\w+)[(<]", e.key)
+            if e.device_type == DeviceType.CUDA and name:
+                passes[name.group(1)] = e.self_device_time_total / reps / 1e3
+        return ", ".join(f"{k} {v:.4f}" for k, v in sorted(passes.items(), key=lambda kv: -kv[1]))
+
     # K5 spmm and K6 spmm_t at the low-rank path's shapes, at a ragged n, and at
     # an l that is not a multiple of 32 (float4 lanes) or of 4 (one float a lane)
     def csr(vals, idx, n_rows, n_cols, transpose=False):
@@ -333,25 +356,11 @@ def main() -> None:
             del w, wt
             csr_ms = time_ms(lambda: csr(vals, idx, P_LR, n, transpose=True), reps)
             # the transposition against its plain version, the stable sort of column_buckets
-            pairs, starts, order = spmm_mod.transpose_columns(vals, idx, P_LR, with_order=True)
-            want_order, want_starts = spmm_mod.column_buckets(idx, P_LR)
-            check(torch.equal(order, want_order) and torch.equal(starts, want_starts)
-                  and torch.equal(pairs[:, 0], want_order // m_lr)
-                  and torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[want_order.long()]),
+            check(transposed_as_buckets(vals, idx, P_LR),
                   "K6: the transposition is not the stable sort of column_buckets")
-            del pairs, starts, order, want_order, want_starts
             trans = time_ms(lambda: spmm_mod.transpose_columns(vals, idx, P_LR), reps)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    spmm_mod.transpose_columns(vals, idx, P_LR)
-                torch.cuda.synchronize()
-            passes = {}
-            for e in prof.key_averages():
-                name = re.search(r"::(\w+)[(<]", e.key)
-                if e.device_type == DeviceType.CUDA and name:
-                    passes[name.group(1)] = e.self_device_time_total / reps / 1e3
-            print("  K6 transposition by pass (torch.profiler, ms a call): " + ", ".join(
-                f"{k} {v:.4f}" for k, v in sorted(passes.items(), key=lambda kv: -kv[1])))
+            print(f"  K6 transposition by pass (torch.profiler, ms a call): "
+                  f"{by_pass(lambda: spmm_mod.transpose_columns(vals, idx, P_LR), reps)}")
             prep = time_ms(lambda: spmm_mod.column_buckets(idx, P_LR), reps)
             ms_ys = time_ms(lambda: ops.spmm_t(vals, idx, t, P_LR, col_sums=True), reps)
             old = spmm_mod.spmm_t_from_buckets(vals, idx, t, P_LR, col_sums=True)
@@ -393,6 +402,32 @@ def main() -> None:
                                      bound_ms=b_y[0], bound_by=b_y[1], library_ms=lib_y)
         del idx, vals, om, t, y, ys, t_ref, y_ref
         torch.cuda.empty_cache()
+
+    # K6 past 2^24 columns (the low-rank path takes p_pad up to 2^27): 64 rows at
+    # p = 2^25, kept at m/p = 0.05 (the fast passes) and at m = 3000 (general
+    # passes), against column_buckets and the walk fed by it
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for m_big in (round(GAMMA * P_BIG), 3000):
+        fast = spmm_mod.transpose_plan(64, m_big, P_BIG)[0]
+        idx = torch.stack([torch.randperm(P_BIG, generator=gen, device=dev)[:m_big].sort().values
+                           for _ in range(64)]).int()
+        vals = torch.randn(idx.shape, generator=gen, device=dev)
+        t = torch.randn((64, 8), generator=gen, device=dev)
+        check(transposed_as_buckets(vals, idx, P_BIG),
+              f"K6: the transposition at p={P_BIG}, m={m_big} is not the stable sort of column_buckets")
+        got = ops.spmm_t(vals, idx, t, P_BIG, col_sums=True)
+        old = spmm_mod.spmm_t_from_buckets(vals, idx, t, P_BIG, col_sums=True)
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, old)),
+              f"K6 at p={P_BIG}, m={m_big}: Y and the sums differ from the walk fed by column_buckets")
+        ms = time_ms(lambda: spmm_mod.transpose_columns(vals, idx, P_BIG), 3, warmup=1)
+        prep = time_ms(lambda: spmm_mod.column_buckets(idx, P_BIG), 3, warmup=1)
+        print(f"  K6 at (n=64, m={m_big}, p={P_BIG}, l=8), the {'fast' if fast else 'general'} "
+              f"passes: transposition {ms:.4f} ms (column_buckets' sort + searchsorted "
+              f"{prep:.4f} ms), bit-equal to column_buckets; Y and the sums "
+              f"bit-equal to the walk fed by column_buckets. By pass (ms a call): "
+              f"{by_pass(lambda: spmm_mod.transpose_columns(vals, idx, P_BIG), 3)}")
+        del idx, vals, t, got, old
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4 parity
     print("== 4 small run on the card against the same run on the CPU", flush=True)
@@ -633,17 +668,17 @@ def main() -> None:
           f"device share {t_dev / (t_src + t_dev):.3f}")
     print(f"  sample_indices ({BATCH}, {P_LR}, m={m_lr}): "
           f"{time_ms(lambda: sample_indices(key, BATCH, P_LR, m_lr, device=dev), 2, 1):.2f} ms")
-    # one device update under the profiler: device time by kernel (the
-    # kernels' own entries, not the host ops that launched them)
+    # one device update under the profiler: device time by kernel, copy and set
+    # (every entry that ran on the card, not the host ops that launched them)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.update(state, x, STEPS_LR + 2)
         torch.cuda.synchronize()
-    kernel_rows = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA and e.key.startswith("void ")),
+    kernel_rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                          key=lambda e: e.self_device_time_total, reverse=True)
     total = sum(e.self_device_time_total for e in kernel_rows)
-    print(f"  one device update under torch.profiler: {len(kernel_rows)} kernels, "
-          f"{sum(e.count for e in kernel_rows)} launches, {total / 1e3:.1f} ms of kernel time; the largest:")
+    print(f"  one device update under torch.profiler: {len(kernel_rows)} kernels, copies and sets, "
+          f"{sum(e.count for e in kernel_rows)} launches, {total / 1e3:.1f} ms of device time; the "
+          f"largest:")
     for e in kernel_rows[:10]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:100]}")
     del state, x

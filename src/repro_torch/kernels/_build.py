@@ -36,7 +36,7 @@ SIGNATURES = {
     "spmm": {
         "spmm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         "spmm_t_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "transpose_columns_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "transpose_columns_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 

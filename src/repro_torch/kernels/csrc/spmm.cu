@@ -30,20 +30,27 @@
 // does not compute) turns the compact rows into columns: each column's
 // (row, value) pairs, contiguous, in row order and within a row in j order,
 // exactly the order of a stable sort of the flat indices by column. It is a
-// counting sort over tiles of 64 rows: per (tile, column) counts, a scan to
+// counting sort over tiles of rows: per (tile, column) counts, a scan to
 // column starts and to each tile's offset within each column, then the
-// placement. Where every row's indices increase strictly (every sketch's), a
-// row holds a column at most once: pass 0 finds each row's boundaries at
+// placement. Pass 0 flags each row whose indices increase strictly (every
+// sketch's: a row holds a column at most once). Where all do and the fast
+// passes' scratch fits in the entry arrays' size (2·n·m words: m/p above
+// about 0.024), tiles are 64 rows: pass 0 also finds each row's boundaries at
 // every 512 columns, pass 1 stores for each (tile, column) the 64-bit mask of
 // the tile's rows that hold it (its popcount is the count), and an entry's
 // rank in its column is the number of earlier rows in those masks, so a block
 // places all its entries at once. Scattered 8-byte writes of pairs cost most
 // (partial sectors), so the placement goes piece by piece of 512 columns, and
 // each block stages its pairs column by column in shared memory and writes
-// them run by run. Otherwise (pass 0 sets a flag on the device, and the fast
-// passes return at once) general passes walk each tile's rows in order with
-// a cursor per column in shared memory, repeats of a column in a row ranked in
-// j order with __match_any_sync.
+// them run by run. Otherwise (the host picks that when the masks do not fit;
+// pass 0 sets a flag on the device when a row does not increase, and the fast
+// passes return at once) general passes walk each tile's rows in order, a
+// slab of 32768 columns a block, with a cursor per column in shared memory:
+// a row that increases is cut to the slab by binary search, any other is read
+// whole, its repeats of a column ranked in j order with __match_any_sync.
+// Their tiles are as wide as they must be for the counts (tiles·p words) to
+// fit in the entry arrays' size. Every grid is one-dimensional, so no p or n
+// meets a grid's y limit.
 // Then one warp per column sums v·T[i] over its pairs in registers, in that
 // order, and writes Y[c] once — no atomics, so repeated launches are
 // bit-identical, as the TPU kernel's reduction grid is. On request the same
@@ -70,6 +77,8 @@ constexpr int kScanBlock = 256;          // columns a scan block sums
 constexpr int kPlaceThreads = 1024;      // threads of a general block
 constexpr int kSlab = 32768;             // columns a general block holds: 128 KB
 constexpr int kPer = 4;                  // loads a thread has in flight
+constexpr int kOrderThreads = 256;       // threads of a pass-0 block
+constexpr int kOrderChunk = 4 * kOrderThreads;   // entries of a row a pass-0 block reads
 
 template <int VEC>
 struct Acc {
@@ -190,31 +199,39 @@ spmm_t_cols(const int2* __restrict__ pairs, const float* __restrict__ values,
   }
 }
 
-// ---- K6 transposition. Tiles of kTileRows rows; counts (tiles, p) holds each
-// tile's count in each column, then its offset within the column.
+// ---- K6 transposition. counts (tiles, p) holds each tile's count in each
+// column, then its offset within the column.
 
-// pass 0, a block a row: rs[i, s] = the first j of row i with idx ≥ s·kPiece
-// (rs[i, pieces] = m), and *general = 1 if the row's indices do not increase
-// strictly; then the columns may repeat and the general passes run instead
-__global__ void __launch_bounds__(256)
-row_pieces(const int* __restrict__ idx, int* __restrict__ rs, int* __restrict__ general, int m,
-           int pieces) {
-  const long long i = blockIdx.x;
+// pass 0, block b: entries [ch·kOrderChunk, (ch + 1)·kOrderChunk) of row
+// i = b / chunks (ch = b % chunks). Sets unord[i] and *general (both zeroed
+// before) to 1 if an index there is at or below its left neighbour: the row
+// may repeat a column, so the general passes run instead of the fast ones.
+// With rs not null (the fast passes), rs[i, s] = the first j of row i with
+// idx ≥ s·kPiece (rs[i, pieces] = m).
+__global__ void __launch_bounds__(kOrderThreads)
+row_order(const int* __restrict__ idx, int* __restrict__ rs, int* __restrict__ unord,
+          int* __restrict__ general, int m, int pieces, int chunks) {
+  const long long i = blockIdx.x / chunks;
+  const int j0 = (blockIdx.x % chunks) * kOrderChunk;
+  const int j1 = m - j0 < kOrderChunk ? m : j0 + kOrderChunk;
   const int* ix = idx + i * m;
-  int* r = rs + i * (pieces + 1);
+  int* r = rs == nullptr ? nullptr : rs + i * (pieces + 1);
   auto piece = [&](int c) { return c < 0 ? 0 : (c / kPiece < pieces ? c / kPiece : pieces); };
+  int unordered = 0;
 #pragma unroll 4
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int c = ix[j], sc = piece(c);
-    if (j == 0) {
-      for (int s = 0; s <= sc; ++s) r[s] = 0;
-    } else {
-      const int prev = ix[j - 1];
-      if (c <= prev) *general = 1;
-      for (int s = piece(prev) + 1; s <= sc; ++s) r[s] = j;
-    }
+  for (int j = j0 + threadIdx.x; j < j1; j += kOrderThreads) {
+    const int c = ix[j];
+    const int prev = j > 0 ? ix[j - 1] : 0;
+    if (j > 0) unordered |= c <= prev;
+    if (r == nullptr) continue;
+    const int sc = piece(c);
+    for (int s = j > 0 ? piece(prev) + 1 : 0; s <= sc; ++s) r[s] = j;
     if (j == m - 1)
       for (int s = sc + 1; s <= pieces; ++s) r[s] = m;
+  }
+  if (__syncthreads_or(unordered) && threadIdx.x == 0) {
+    unord[i] = 1;
+    *general = 1;
   }
 }
 
@@ -268,22 +285,23 @@ struct RowRanges {
   }
 };
 
-// pass 1, block (t, s): tile t's row masks in the kMaskCols columns of
-// block s (kMaskCols / kPiece pieces): bit r of masks[t, c] says whether row
-// t·64 + r holds column c
+// pass 1, fast, block b: tile t = b % tiles's row masks in the kMaskCols
+// columns of block s = b / tiles (kMaskCols / kPiece pieces): bit r of
+// masks[t, c] says whether row t·64 + r holds column c
 __global__ void __launch_bounds__(kFastThreads)
 piece_masks(const int* __restrict__ idx, const int* __restrict__ rs,
             const int* __restrict__ general, unsigned long long* __restrict__ masks, int n,
-            int m, int p, int pieces) {
+            int m, int p, int tiles, int pieces) {
   __shared__ unsigned rows_of[2][kMaskCols];   // rows 0–31 and 32–63 (native 32-bit atomics)
   __shared__ RowRanges<kTileRows> rr;
   if (*general) return;
-  const int lo = blockIdx.y * kMaskCols;
+  const int t = blockIdx.x % tiles, sb = blockIdx.x / tiles;
+  const int lo = sb * kMaskCols;
   const int w = p - lo < kMaskCols ? p - lo : kMaskCols;
   for (int c = threadIdx.x; c < w; c += blockDim.x) rows_of[0][c] = rows_of[1][c] = 0;
-  const long long r0 = (long long)blockIdx.x * kTileRows;
+  const long long r0 = (long long)t * kTileRows;
   const long long r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
-  const int s0 = blockIdx.y * (kMaskCols / kPiece);
+  const int s0 = sb * (kMaskCols / kPiece);
   rr.load(rs, r0, r1, pieces, s0, min(s0 + kMaskCols / kPiece, pieces));
   const int total = rr.first[kTileRows];
   for (int e0 = threadIdx.x; e0 < total; e0 += kPer * kFastThreads) {
@@ -299,31 +317,71 @@ piece_masks(const int* __restrict__ idx, const int* __restrict__ rs,
       if ((unsigned)c[u] < (unsigned)w) atomicOr(&rows_of[r[u] >> 5][c[u]], 1u << (r[u] & 31));
   }
   __syncthreads();
-  unsigned long long* out = masks + (long long)blockIdx.x * p + lo;
+  unsigned long long* out = masks + (long long)t * p + lo;
   for (int c = threadIdx.x; c < w; c += blockDim.x)
     out[c] = rows_of[0][c] | (unsigned long long)rows_of[1][c] << 32;
 }
 
-// pass 1, general (any rows), block (t, s): tile t's counts in the kSlab
-// columns of slab s
+// the first j of the m increasing indices ix with ix[j] ≥ key
+__device__ int first_at_least(const int* __restrict__ ix, int m, int key) {
+  int a = 0, b = m;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (ix[mid] < key) a = mid + 1; else b = mid;
+  }
+  return a;
+}
+
+// The general passes' part of a row in columns [lo, lo + w): its entries
+// [x, y), found by binary search where the row's indices increase strictly
+// (not unord), else the whole row, whose entries the caller filters by column
+__device__ int2 row_span(const int* __restrict__ ix, int m, int unord, int lo, int w) {
+  if (unord) return make_int2(0, m);
+  return make_int2(first_at_least(ix, m, lo), first_at_least(ix, m, lo + w));
+}
+
+// The general passes' rows [r0, r1) of a tile, kPlaceThreads at a time: each
+// batch's spans in shared memory (a thread a row, the searches in parallel),
+// then body(i, span) for its rows in order, by every thread of the block
+template <typename Body>
+__device__ void for_rows(const int* __restrict__ idx, const int* __restrict__ unord, int m,
+                         long long r0, long long r1, int lo, int w, Body body) {
+  __shared__ int2 spans[kPlaceThreads];
+  for (long long b = r0; b < r1; b += kPlaceThreads) {
+    const int nb = r1 - b < kPlaceThreads ? (int)(r1 - b) : kPlaceThreads;
+    if ((int)threadIdx.x < nb) {
+      const long long i = b + threadIdx.x;
+      spans[threadIdx.x] = row_span(idx + i * m, m, unord[i], lo, w);
+    }
+    __syncthreads();
+    for (int k = 0; k < nb; ++k) body(b + k, spans[k]);
+    __syncthreads();   // the next batch rewrites spans
+  }
+}
+
+// pass 1, general (any rows), block b: the counts of tile t = b % tiles (rows
+// [t·rows, (t + 1)·rows)) in the kSlab columns of slab b / tiles
 __global__ void __launch_bounds__(kPlaceThreads)
-tile_counts(const int* __restrict__ idx, const int* __restrict__ general,
-            int* __restrict__ counts, int n, int m, int p) {
+tile_counts(const int* __restrict__ idx, const int* __restrict__ unord,
+            const int* __restrict__ general, int* __restrict__ counts, int n, int m, int p,
+            int rows, int tiles) {
   if (!*general) return;
   extern __shared__ int cnt_slab[];
-  const int lo = blockIdx.y * kSlab;
+  const int t = blockIdx.x % tiles;
+  const int lo = (blockIdx.x / tiles) * kSlab;
   const int w = p - lo < kSlab ? p - lo : kSlab;
   for (int c = threadIdx.x; c < w; c += blockDim.x) cnt_slab[c] = 0;
   __syncthreads();
-  const long long r0 = (long long)blockIdx.x * kTileRows;
-  const long long r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
-  const int* ix = idx + r0 * m;
-  for (long long e = threadIdx.x; e < (r1 - r0) * m; e += blockDim.x) {
-    const int c = ix[e] - lo;
-    if ((unsigned)c < (unsigned)w) atomicAdd(&cnt_slab[c], 1);
-  }
-  __syncthreads();
-  int* out = counts + (long long)blockIdx.x * p + lo;
+  const long long r0 = (long long)t * rows;
+  const long long r1 = r0 + rows < n ? r0 + rows : n;
+  for_rows(idx, unord, m, r0, r1, lo, w, [&](long long i, int2 span) {   // in any order
+    const int* ix = idx + i * m;
+    for (int j = span.x + threadIdx.x; j < span.y; j += blockDim.x) {
+      const int c = ix[j] - lo;
+      if ((unsigned)c < (unsigned)w) atomicAdd(&cnt_slab[c], 1);
+    }
+  });
+  int* out = counts + (long long)t * p + lo;
   for (int c = threadIdx.x; c < w; c += blockDim.x) out[c] = cnt_slab[c];
 }
 
@@ -335,7 +393,7 @@ __global__ void __launch_bounds__(kScanBlock)
 tile_offsets(const unsigned long long* __restrict__ masks, const int* __restrict__ general,
              int* __restrict__ counts, int* __restrict__ starts, int* __restrict__ block_sums,
              int p, int tiles) {
-  __shared__ int part[kScanBlock];
+  __shared__ int warp_total[kScanBlock / 32];
   const int tid = threadIdx.x;
   const long long c = (long long)blockIdx.x * kScanBlock + tid;
   const int gen = *general;
@@ -355,58 +413,70 @@ tile_offsets(const unsigned long long* __restrict__ masks, const int* __restrict
       }
     }
   }
-  part[tid] = run;
+  int incl = run;   // the block's scan: each warp's by shuffles, then the warps' totals
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if ((tid & 31) >= o) incl += x;
+  }
+  if ((tid & 31) == 31) warp_total[tid >> 5] = incl;
   __syncthreads();
-  for (int off = 1; off < kScanBlock; off <<= 1) {
+  for (int w = 0; w < (tid >> 5); ++w) incl += warp_total[w];
+  if (c < p) starts[c] = incl - run;
+  if (tid == kScanBlock - 1) block_sums[blockIdx.x] = incl;
+}
+
+// pass 3, one block: the block sums' exclusive prefix, in place (each thread
+// sums a run of them, the block scans the runs' totals, each thread writes its
+// run's prefixes); starts[p] = the total
+__global__ void __launch_bounds__(kPlaceThreads)
+scan_blocks(int* __restrict__ starts, int* __restrict__ block_sums, int p, int blocks) {
+  __shared__ int part[kPlaceThreads];
+  const int tid = threadIdx.x;
+  const int per = (blocks + kPlaceThreads - 1) / kPlaceThreads;
+  const int b0 = tid * per < blocks ? tid * per : blocks;
+  const int b1 = b0 + per < blocks ? b0 + per : blocks;
+  int sum = 0;
+  for (int b = b0; b < b1; ++b) sum += block_sums[b];
+  part[tid] = sum;
+  __syncthreads();
+  for (int off = 1; off < kPlaceThreads; off <<= 1) {
     const int add = tid >= off ? part[tid - off] : 0;
     __syncthreads();
     part[tid] += add;
     __syncthreads();
   }
-  if (c < p) starts[c] = part[tid] - run;
-  if (tid == kScanBlock - 1) block_sums[blockIdx.x] = part[tid];
-}
-
-// pass 3, one block: the block sums' exclusive prefix added to starts;
-// starts[p] = the total
-__global__ void __launch_bounds__(kPlaceThreads)
-scan_blocks(int* __restrict__ starts, int* __restrict__ block_sums, int p, int blocks) {
-  __shared__ int part[kPlaceThreads];
-  const int tid = threadIdx.x;
-  int base = 0;
-  for (int b0 = 0; b0 < blocks; b0 += kPlaceThreads) {
-    const int x = b0 + tid < blocks ? block_sums[b0 + tid] : 0;
-    part[tid] = x;
-    __syncthreads();
-    for (int off = 1; off < kPlaceThreads; off <<= 1) {
-      const int add = tid >= off ? part[tid - off] : 0;
-      __syncthreads();
-      part[tid] += add;
-      __syncthreads();
-    }
-    if (b0 + tid < blocks) block_sums[b0 + tid] = base + part[tid] - x;
-    base += part[kPlaceThreads - 1];
-    __syncthreads();
+  int run = part[tid] - sum;
+  for (int b = b0; b < b1; ++b) {
+    const int x = block_sums[b];
+    block_sums[b] = run;
+    run += x;
   }
-  for (long long c = tid; c < p; c += kPlaceThreads) starts[c] += block_sums[c / kScanBlock];
-  if (tid == 0) starts[p] = base;
+  if (tid == kPlaceThreads - 1) starts[p] = part[tid];
 }
 
-// pass 4, block (g, s): places the entries of tile group g (kGroupTiles tiles,
-// kGroupRows rows) in the kPiece columns of piece s. Rows increase strictly,
-// so a column holds at most one entry of a row, and an entry's rank in its
-// column within the group is the number of earlier rows in the column's masks.
-// The group's entries of a column are one run of the column's pairs (its
-// tiles are consecutive); they are staged in shared memory column by column
-// and written run by run, so consecutive threads write consecutive pairs. A
-// block of more than kStage entries writes each entry where it goes. order,
-// if not null, gets each entry's flat position.
+// pass 3b, a thread a column: starts[c] += its scan block's prefix
+__global__ void __launch_bounds__(kPlaceThreads)
+add_block_sums(int* __restrict__ starts, const int* __restrict__ block_sums, int p) {
+  const long long c = (long long)blockIdx.x * kPlaceThreads + threadIdx.x;
+  if (c < p) starts[c] += block_sums[c / kScanBlock];
+}
+
+// pass 4, fast, block b: places the entries of tile group g = b % groups
+// (kGroupTiles tiles, kGroupRows rows) in the kPiece columns of piece
+// b / groups. Rows increase strictly, so a column holds at most one entry of a
+// row, and an entry's rank in its column within the group is the number of
+// earlier rows in the column's masks. The group's entries of a column are one
+// run of the column's pairs (its tiles are consecutive); they are staged in
+// shared memory column by column and written run by run, so consecutive
+// threads write consecutive pairs. A block of more than kStage entries writes
+// each entry where it goes.
 __global__ void __launch_bounds__(kFastThreads)
 mask_place(const float* __restrict__ values, const int* __restrict__ idx,
            const int* __restrict__ rs, const int* __restrict__ general,
            const unsigned long long* __restrict__ masks, const int* __restrict__ offsets,
-           const int* __restrict__ starts, int2* __restrict__ pairs, int* __restrict__ order,
-           int n, int m, int p, int tiles, int pieces) {
+           const int* __restrict__ starts, int2* __restrict__ pairs, int n, int m, int p,
+           int tiles, int pieces) {
   static_assert(kFastThreads == kPiece, "one thread a column of the piece");
   extern __shared__ int2 stage[];   // kStage
   __shared__ unsigned long long rows_of[kGroupTiles][kPiece];
@@ -415,8 +485,10 @@ mask_place(const float* __restrict__ values, const int* __restrict__ idx,
   __shared__ int warp_sum[kPiece / 32];
   __shared__ RowRanges<kGroupRows> rr;
   if (*general) return;
-  const int t0 = blockIdx.x * kGroupTiles;
-  const int lo = blockIdx.y * kPiece;
+  const int groups = (tiles + kGroupTiles - 1) / kGroupTiles;
+  const int t0 = (blockIdx.x % groups) * kGroupTiles;
+  const int sp = blockIdx.x / groups;
+  const int lo = sp * kPiece;
   const int w = p - lo < kPiece ? p - lo : kPiece;
   const long long r0 = (long long)t0 * kTileRows;
   const long long r1 = r0 + kGroupRows < n ? r0 + kGroupRows : n;
@@ -442,20 +514,19 @@ mask_place(const float* __restrict__ values, const int* __restrict__ idx,
   for (int v = 0; v < (col >> 5); ++v) incl += warp_sum[v];
   col_first[col] = incl - cnt;
   if (col == kPiece - 1) col_first[kPiece] = incl;
-  rr.load(rs, r0, r1, pieces, blockIdx.y, blockIdx.y + 1);   // ends with __syncthreads
+  rr.load(rs, r0, r1, pieces, sp, sp + 1);   // ends with __syncthreads
   const int total = rr.first[kGroupRows];
   const bool staged = total <= kStage;
   for (int e0 = threadIdx.x; e0 < total; e0 += kPer * kFastThreads) {
     int c[kPer], r[kPer];
-    long long pos[kPer];
     float v[kPer];
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int e = e0 + u * kFastThreads;
       r[u] = e < total ? rr.row_of(e) : 0;
-      pos[u] = rr.pos(e, r[u], r0, m);
-      c[u] = e < total ? idx[pos[u]] - lo : -1;
-      v[u] = e < total ? values[pos[u]] : 0.f;
+      const long long pos = rr.pos(e, r[u], r0, m);
+      c[u] = e < total ? idx[pos] - lo : -1;
+      v[u] = e < total ? values[pos] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
@@ -466,7 +537,6 @@ mask_place(const float* __restrict__ values, const int* __restrict__ idx,
       const int2 pr = make_int2((int)(r0 + r[u]), __float_as_int(v[u]));
       if (staged) stage[col_first[c[u]] + rank] = pr;
       else pairs[gbase[c[u]] + rank] = pr;
-      if (order != nullptr) order[gbase[c[u]] + rank] = (int)pos[u];
     }
   }
   if (!staged) return;
@@ -481,38 +551,34 @@ mask_place(const float* __restrict__ values, const int* __restrict__ idx,
   }
 }
 
-// pass 4, general (any rows), block (t, s): places tile t's entries of slab s
-// at their columns' cursors, its rows in order. A row whose indices increase
-// strictly is placed by all threads at once; any other row 32 entries at a
-// time by one warp, a column's repeats ranked in j order with
-// __match_any_sync.
+// pass 4, general (any rows), block b: places the entries of tile t = b % tiles
+// in the kSlab columns of slab b / tiles at their columns' cursors, its rows
+// in order. A row whose indices increase strictly is placed by all threads at
+// once; any other row 32 entries at a time by one warp, a column's repeats
+// ranked in j order with __match_any_sync.
 __global__ void __launch_bounds__(kPlaceThreads)
 tile_place(const float* __restrict__ values, const int* __restrict__ idx,
-           const int* __restrict__ general, const int* __restrict__ offsets,
-           const int* __restrict__ starts, int2* __restrict__ pairs, int* __restrict__ order,
-           int n, int m, int p) {
+           const int* __restrict__ unord, const int* __restrict__ general,
+           const int* __restrict__ offsets, const int* __restrict__ starts,
+           int2* __restrict__ pairs, int n, int m, int p, int rows, int tiles) {
   if (!*general) return;
   extern __shared__ int cur[];
-  const int lo = blockIdx.y * kSlab;
+  const int t = blockIdx.x % tiles;
+  const int lo = (blockIdx.x / tiles) * kSlab;
   const int w = p - lo < kSlab ? p - lo : kSlab;
-  const int* off = offsets + (long long)blockIdx.x * p + lo;
+  const int* off = offsets + (long long)t * p + lo;
   for (int c = threadIdx.x; c < w; c += blockDim.x) cur[c] = starts[lo + c] + off[c];
-  const long long r0 = (long long)blockIdx.x * kTileRows;
-  const long long r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
-  for (long long i = r0; i < r1; ++i) {
+  const long long r0 = (long long)t * rows;
+  const long long r1 = r0 + rows < n ? r0 + rows : n;
+  for_rows(idx, unord, m, r0, r1, lo, w, [&](long long i, int2 span) {
     const int* ix = idx + i * m;
     const float* v = values + i * m;
-    int unordered = 0;   // is any index at or below its left neighbour?
-    for (int j = threadIdx.x + 1; j < m; j += blockDim.x) unordered |= ix[j] <= ix[j - 1];
-    if (!__syncthreads_or(unordered)) {
-      for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    if (!unord[i]) {   // the span's columns are all in the slab, each once
+      for (int j = span.x + threadIdx.x; j < span.y; j += blockDim.x) {
         const int c = ix[j] - lo;
-        if ((unsigned)c < (unsigned)w) {
-          const int dst = cur[c];
-          cur[c] = dst + 1;
-          pairs[dst] = make_int2((int)i, __float_as_int(v[j]));
-          if (order != nullptr) order[dst] = (int)(i * m + j);
-        }
+        const int dst = cur[c];
+        cur[c] = dst + 1;
+        pairs[dst] = make_int2((int)i, __float_as_int(v[j]));
       }
     } else if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
@@ -526,14 +592,11 @@ tile_place(const float* __restrict__ values, const int* __restrict__ idx,
         __syncwarp();
         if (mine && rank == __popc(peers) - 1) cur[c] = dst + 1;   // the last repeat moves it
         __syncwarp();
-        if (mine) {
-          pairs[dst] = make_int2((int)i, __float_as_int(v[j]));
-          if (order != nullptr) order[dst] = (int)(i * m + j);
-        }
+        if (mine) pairs[dst] = make_int2((int)i, __float_as_int(v[j]));
       }
     }
-    __syncthreads();
-  }
+    __syncthreads();   // the next row reads the cursors
+  });
 }
 
 unsigned blocks_for(int rows) { return (unsigned)((rows + kWarps - 1) / kWarps); }
@@ -552,21 +615,38 @@ extern "C" int spmm_f32(const float* values, const int* idx, const float* dense,
   return (int)cudaGetLastError();
 }
 
-// The transposition: pairs (n·m) and starts (p + 1) from compact rows; order
-// (n·m) may be null. scratch: int32 words, 3·tiles·p for the masks (64-bit)
-// and the counts, n·(pieces + 1) for the rows' pieces, ceil(p / kScanBlock)
-// block sums and a flag (tiles = ceil(n / kTileRows), pieces = ceil(p / kPiece)).
+// The transposition: pairs (n·m) and starts (p + 1) from compact rows, over
+// tiles of tile_rows rows. With fast (then tile_rows = kTileRows) the fast
+// passes run, and the general ones only if a row's indices do not increase
+// strictly; without it the general passes run. scratch, int32 words: with
+// fast, 2·tiles·p for the masks (64-bit); always tiles·p counts; with fast,
+// n·(pieces + 1) for the rows' pieces; always the flag, n row flags and
+// ceil(p / kScanBlock) block sums (tiles = ceil(n / tile_rows), pieces =
+// ceil(p / kPiece)). spmm.py's transpose_plan picks tile_rows and fast.
 extern "C" int transpose_columns_f32(const float* values, const int* idx, int* scratch,
-                                     int* starts, int2* pairs, int* order, int n, int m, int p,
-                                     void* stream) {
+                                     int* starts, int2* pairs, int n, int m, int p,
+                                     int tile_rows, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (n + kTileRows - 1) / kTileRows, pieces = (p + kPiece - 1) / kPiece;
+  if (fast && tile_rows != kTileRows) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + (long long)tile_rows - 1) / tile_rows;
+  const int pieces = (p + kPiece - 1) / kPiece;
   const int scan_blocks_n = (p + kScanBlock - 1) / kScanBlock;
-  auto* masks = reinterpret_cast<unsigned long long*>(scratch);
-  int* counts = scratch + 2LL * tiles * p;
-  int* rs = counts + (long long)tiles * p;
-  int* block_sums = rs + (long long)n * (pieces + 1);
-  int* general = block_sums + scan_blocks_n;
+  int* at = scratch;
+  unsigned long long* masks = nullptr;
+  int* rs = nullptr;
+  if (fast) {
+    masks = reinterpret_cast<unsigned long long*>(at);
+    at += 2 * tiles * p;
+  }
+  int* counts = at;
+  at += tiles * p;
+  if (fast) {
+    rs = at;
+    at += (long long)n * (pieces + 1);
+  }
+  int* general = at;   // then a flag a row, zeroed with it
+  int* unord = general + 1;
+  int* block_sums = unord + n;
   const int smem = 4 * (p < kSlab ? p : kSlab);
   cudaError_t err = cudaFuncSetAttribute(tile_counts, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
@@ -574,21 +654,30 @@ extern "C" int transpose_columns_f32(const float* values, const int* idx, int* s
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(mask_place, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kStage * sizeof(int2));
-  if (err == cudaSuccess) err = cudaMemsetAsync(general, 0, sizeof(int), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(general, 0, sizeof(int) * (n + 1LL), s);
+  if (err == cudaSuccess && !fast) err = cudaMemsetAsync(general, 1, 1, s);   // the int 1
   if (err != cudaSuccess) return (int)err;
-  const dim3 by_slab(tiles, (p + kSlab - 1) / kSlab);
-  row_pieces<<<n, 256, 0, s>>>(idx, rs, general, m, pieces);
-  piece_masks<<<dim3(tiles, (p + kMaskCols - 1) / kMaskCols), kFastThreads, 0, s>>>(
-      idx, rs, general, masks, n, m, p, pieces);
-  tile_counts<<<by_slab, kPlaceThreads, smem, s>>>(idx, general, counts, n, m, p);
+  // every grid one-dimensional, its tiles varying fastest
+  const unsigned by_slab = (unsigned)(tiles * ((p + kSlab - 1) / kSlab));
+  const int chunks = (m + kOrderChunk - 1) / kOrderChunk;
+  row_order<<<(unsigned)((long long)n * chunks), kOrderThreads, 0, s>>>(idx, rs, unord, general, m,
+                                                                       pieces, chunks);
+  if (fast)
+    piece_masks<<<(unsigned)(tiles * ((p + kMaskCols - 1) / kMaskCols)), kFastThreads, 0, s>>>(
+        idx, rs, general, masks, n, m, p, (int)tiles, pieces);
+  tile_counts<<<by_slab, kPlaceThreads, smem, s>>>(idx, unord, general, counts, n, m, p, tile_rows,
+                                                   (int)tiles);
   tile_offsets<<<scan_blocks_n, kScanBlock, 0, s>>>(masks, general, counts, starts, block_sums,
-                                                    p, tiles);
+                                                    p, (int)tiles);
   scan_blocks<<<1, kPlaceThreads, 0, s>>>(starts, block_sums, p, scan_blocks_n);
-  mask_place<<<dim3((tiles + kGroupTiles - 1) / kGroupTiles, pieces), kFastThreads,
-               kStage * sizeof(int2), s>>>(values, idx, rs, general, masks, counts, starts, pairs,
-                                           order, n, m, p, tiles, pieces);
-  tile_place<<<by_slab, kPlaceThreads, smem, s>>>(values, idx, general, counts, starts, pairs,
-                                                  order, n, m, p);
+  add_block_sums<<<(p + kPlaceThreads - 1) / kPlaceThreads, kPlaceThreads, 0, s>>>(starts,
+                                                                                 block_sums, p);
+  if (fast)
+    mask_place<<<(unsigned)((tiles + kGroupTiles - 1) / kGroupTiles * pieces), kFastThreads,
+                 kStage * sizeof(int2), s>>>(values, idx, rs, general, masks, counts, starts,
+                                             pairs, n, m, p, (int)tiles, pieces);
+  tile_place<<<by_slab, kPlaceThreads, smem, s>>>(values, idx, unord, general, counts, starts,
+                                                  pairs, n, m, p, tile_rows, (int)tiles);
   return (int)cudaGetLastError();
 }
 

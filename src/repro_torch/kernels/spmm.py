@@ -8,9 +8,9 @@ Replace the TPU kernels ``repro.kernels.spmm.spmm`` and ``spmm_t``
     spmm_t:  Y = Wᵀ @ T     (p, l)
 
 The reference plans VMEM tiles (``plan_tiles``, ``tile_vmem_bytes``); the
-products hold nothing in shared memory and take any p and l (only K6's
-transposition does, in fixed column slabs), so nothing here replaces that
-model. What they do need is checked here: float32 operands (the plain
+products hold nothing in shared memory but K6's transposition, which does in
+fixed column pieces and slabs, and they take any p below 2^31 and any l, so
+nothing here replaces that model. What they do need is checked here: float32 operands (the plain
 versions keep the reference's promotion rule for other types, see
 ``kernels.ref.spmm_out_dtype``), int32 indices, and fewer than 2^31 entries.
 Indices must lie in [0, p): the kernels do not check them.
@@ -91,48 +91,56 @@ def column_buckets(indices: torch.Tensor, p: int):
 TILE_ROWS, PIECE, SCAN_BLOCK = 64, 512, 256
 
 
-def transpose_scratch(n: int, p: int) -> int:
-    """int32 words of the transposition's scratch: each tile's 64-bit row mask
-    and count (then offset) in each column, each row's piece boundaries, the
-    scan's block sums, and the flag that picks the general passes."""
-    tiles, pieces = -(-n // TILE_ROWS), -(-p // PIECE)
-    return 3 * tiles * p + n * (pieces + 1) + -(-p // SCAN_BLOCK) + 1
+def transpose_plan(n: int, m: int, p: int) -> tuple[bool, int, int]:
+    """(fast, tile_rows, words): the transposition's passes, its tiles' rows
+    and its scratch in int32 words, for n rows of m entries over p columns.
+
+    The fast passes (64-row tiles, a 64-bit row mask and a count a (tile,
+    column), each row's boundaries at every 512 columns) run where their
+    scratch fits in the entry arrays' size, 2·n·m words. Otherwise the general
+    passes run, over tiles wide enough for their counts (a word a (tile,
+    column)) to fit there too, or over one tile of p counts where n·m < p/2.
+    Both also hold a flag a row, the scan's block sums and a flag.
+    """
+    extra = n + -(-p // SCAN_BLOCK) + 1
+    tiles = -(-n // TILE_ROWS)
+    words = 3 * tiles * p + n * (-(-p // PIECE) + 1) + extra
+    if words <= 2 * n * m:
+        return True, TILE_ROWS, words
+    rows = -(-n // max(1, min(n, 2 * n * m // p)))
+    return False, rows, -(-n // rows) * p + extra
 
 
-def transpose_columns(values: torch.Tensor, indices: torch.Tensor, p: int,
-                      with_order: bool = False):
-    """Compact rows → columns: (pairs, starts), or (pairs, starts, order).
+def transpose_columns(values: torch.Tensor, indices: torch.Tensor, p: int):
+    """Compact rows → columns: (pairs, starts).
 
     ``pairs`` (n·m, 2) int32 holds each entry's row and its value's bits
     (``pairs[:, 1].view(torch.float32)``), column by column; column c's
     entries are ``pairs[starts[c]:starts[c + 1]]``, in row order and within a
-    row in j order. ``order`` (n·m,) int32 is each pair's flat position in the
-    rows. The order is that of :func:`column_buckets`, the plain version.
+    row in j order: the order of :func:`column_buckets`, the plain version.
     """
     n, m = values.shape
     if values.device.type == "cpu":
         order, starts = column_buckets(indices, p)
         pairs = torch.stack([order // max(m, 1),
                              values.reshape(-1)[order.long()].view(torch.int32)], dim=1)
-        return (pairs, starts, order) if with_order else (pairs, starts)
+        return pairs, starts
     _check_rows(values, indices)
     dev = values.device
     starts = torch.zeros(p + 1, dtype=torch.int32, device=dev)
     pairs = torch.empty((n * m, 2), dtype=torch.int32, device=dev)
-    order = torch.empty(n * m, dtype=torch.int32, device=dev) if with_order else None
-    out = (pairs, starts, order) if with_order else (pairs, starts)
     if n * m == 0 or p == 0:
-        return out
-    scratch = torch.empty(transpose_scratch(n, p), dtype=torch.int32, device=dev)
+        return pairs, starts
+    fast, rows, words = transpose_plan(n, m, p)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     lib = _build.library("spmm")
     with torch.cuda.device(dev):
         err = lib.transpose_columns_f32(values.data_ptr(), indices.data_ptr(), scratch.data_ptr(),
-                                        starts.data_ptr(), pairs.data_ptr(),
-                                        order.data_ptr() if with_order else None,
-                                        n, m, p, _build.stream_of(values))
+                                        starts.data_ptr(), pairs.data_ptr(), n, m, p, rows,
+                                        int(fast), _build.stream_of(values))
     _build.check(err, "transpose_columns")
     transpose_columns.launches += 1
-    return out
+    return pairs, starts
 
 
 def _spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor, p: int,

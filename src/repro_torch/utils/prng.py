@@ -24,6 +24,8 @@ M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # elements hashed per chunk: bounds the int64 scratch of one draw to ~256 MiB
 _CHUNK = 1 << 24
+# elements the normal's erfinv takes at a time
+_ERFINV_CHUNK = 1 << 18
 
 
 def _threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
@@ -145,27 +147,42 @@ _LOGF = ((0.070376836, -0.1151461, 0.116769984), (-0.12420141, 0.14249323, -0.16
          (0.20000714, -0.24999994, 0.3333333))
 
 
+def _f32(x) -> float:
+    """x rounded to float32, as a Python float."""
+    return float(np.float32(x))
+
+
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 a·b + c rounded once, as an FMA instruction does.
 
-    a·b is exact in float64; the sum is taken exactly (TwoSum), rounded to odd
-    in float64 and then to float32, which is the correctly rounded result.
+    a·b is exact in float64, so s = a·b + c in float64 is rounded once. s
+    rounds to float32 as the exact sum does unless s lies on a float32
+    midpoint (its low 29 mantissa bits 1 and 28 zeros) that the exact sum
+    does not: only those few elements take the exact remainder (TwoSum) and
+    step off the midpoint towards it. ``b`` and ``c`` are float32 tensors or
+    Python floats that float32 holds exactly.
     """
-    ab = a.double() * torch.as_tensor(b, dtype=torch.float32).to(a.device).double()
-    c = torch.as_tensor(c, dtype=torch.float32).to(a.device).double()
-    s = ab + c
-    bb = s - ab
-    err = (ab - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    away = torch.nextafter(s, torch.where(err > 0, math.inf, -math.inf))
-    return torch.where((err != 0) & even, away, s).float()
+    s = a.double() * b + c
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    out = s.float()
+    if bool(mid.any()):
+        at = mid.nonzero(as_tuple=True)
+        pick = (lambda x: x[at] if torch.is_tensor(x) and x.ndim else x)
+        ab = a[at].double() * (pick(b).double() if torch.is_tensor(b) else b)
+        cc = pick(c).double() if torch.is_tensor(c) else c
+        sm = s[at]
+        bb = sm - ab
+        err = (ab - (sm - bb)) + (cc - bb)
+        toward = torch.where(err > 0, math.inf, torch.where(err < 0, -math.inf, sm))
+        out[at] = torch.nextafter(sm, toward).float()
+    return out
 
 
 def _horner(coefs, t: torch.Tensor) -> torch.Tensor:
     """coefs[0]·tⁿ + … by Horner's rule, each step fused."""
     p = torch.full_like(t, coefs[0])
     for c in coefs[1:]:
-        p = _fma(p, t, c)
+        p = _fma(p, t, _f32(c))
     return p
 
 
@@ -186,9 +203,9 @@ def log1p_xla(t: torch.Tensor) -> torch.Tensor:
     xm = (mant - 1.0) + torch.where(low, mant, torch.zeros_like(mant))
     z = xm * xm
     z3 = z * xm
-    a, b, c = (_fma(_fma(xm, ch[0], ch[1]), xm, ch[2]) for ch in _LOGF)
+    a, b, c = (_fma(_fma(xm, _f32(ch[0]), _f32(ch[1])), xm, _f32(ch[2])) for ch in _LOGF)
     y = _fma(_fma(_fma(a, z3, b), z3, c), z3, e * -2.1219444e-4)
-    far = _fma(e, 0.6933594, (xm - 0.5 * z) + y)
+    far = _fma(e, _f32(0.6933594), (xm - 0.5 * z) + y)
     return torch.where(t.abs() < 0.41421357, near0, far)
 
 
@@ -203,16 +220,11 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     values 1e-4 off in a few elements in some processes.
     """
     w = -log1p_xla(-(x * x))
-    small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-
-    def coef(i):
-        return torch.where(small, torch.tensor(_ERFINV_SMALL[i], device=x.device),
-                           torch.tensor(_ERFINV_LARGE[i], device=x.device))
-
-    p = _fma(coef(0), w, coef(1))
-    for i in range(2, len(_ERFINV_SMALL)):
-        p = _fma(w, p, coef(i))
+    p = _horner(_ERFINV_SMALL, w - 2.5)
+    large = w >= 5.0   # few: |x| above 0.9966
+    if bool(large.any()):
+        at = large.nonzero(as_tuple=True)
+        p[at] = _horner(_ERFINV_LARGE, torch.sqrt(w[at].double()).float() - 3.0)
     return x * torch.where(x.abs() == 1.0, torch.full_like(p, math.inf), p)
 
 
@@ -220,8 +232,11 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.normal`` in float32: √2·erfinv(uniform(-1⁺, 1)), bit for
     bit as JAX's on a CPU host with FMA (see :func:`erfinv`)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0, device=device)
-    return torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=device) * erfinv(u)
+    u = uniform(key, shape, lo, 1.0, device=device).reshape(-1)
+    root2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=device)
+    for part in u.split(_ERFINV_CHUNK):   # each slice's temporaries stay in cache
+        part.copy_(root2 * erfinv(part))
+    return u.reshape(shape)
 
 
 def bernoulli(key, p: float = 0.5, shape=(), device="cpu") -> torch.Tensor:

@@ -224,31 +224,59 @@ def _transpose_cases():
     every[:, 0] = 0                                         # a column present in every row
     one_col = np.full((40, 3), 5)                           # a row of one column, repeated
     dense = np.sort(np.argsort(rng.random((300, 1024)), axis=1)[:, :600], axis=1)
+    sparse = np.sort(np.argsort(rng.random((300, 40000)), axis=1)[:, :100], axis=1)
+    mixed = np.sort(np.argsort(rng.random((150, 5000)), axis=1)[:, :20], axis=1)
+    mixed[::3] = rng.integers(0, 5000, size=(50, 20))      # every third row unsorted
+    mixed[::9, 1] = mixed[::9, 0]                           # some repeats
     return [("sketch rows, p > 2^15", sorted_rows, 40000 + 30000),
             ("repeats within rows", repeats, 50),
             ("a column in every row", every, 64),
             ("one column", one_col, 9),
-            ("dense rows, more entries a block than it stages", dense, 1024)]
+            ("dense rows, more entries a block than it stages", dense, 1024),
+            ("sketch rows at m/p = 0.0025: general passes, two slabs", sparse, 40000),
+            ("general passes, rows with and without repeats", mixed, 5000)]
 
 
-@pytest.mark.parametrize("case", range(5))
+def _transposed_as_buckets(vals, idx, p, name):
+    before = spmm.transpose_columns.launches
+    pairs, starts = spmm.transpose_columns(vals, idx, p)
+    torch.cuda.synchronize()
+    assert spmm.transpose_columns.launches == before + 1
+    want_order, want_starts = spmm.column_buckets(idx, p)
+    assert torch.equal(starts, want_starts), name
+    assert torch.equal(pairs[:, 0], want_order // idx.shape[1]), name
+    assert torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[want_order.long()]), name
+    cpu = spmm.transpose_columns(vals.cpu(), idx.cpu(), p)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip((pairs, starts), cpu)), name
+
+
+@pytest.mark.parametrize("case", range(7))
 def test_transpose_columns_matches_column_buckets(dev, case):
     name, idx_np, p = _transpose_cases()[case]
     rng = np.random.default_rng(case)
     idx = torch.from_numpy(idx_np.astype(np.int32)).to(dev)
     vals = torch.from_numpy(rng.normal(size=idx_np.shape).astype(np.float32)).to(dev)
-    before = spmm.transpose_columns.launches
-    pairs, starts, order = spmm.transpose_columns(vals, idx, p, with_order=True)
-    torch.cuda.synchronize()
-    assert spmm.transpose_columns.launches == before + 1
-    want_order, want_starts = spmm.column_buckets(idx, p)
-    assert torch.equal(order, want_order), name
-    assert torch.equal(starts, want_starts), name
-    m = idx_np.shape[1]
-    assert torch.equal(pairs[:, 0], want_order // m), name
-    assert torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[want_order.long()]), name
-    cpu = spmm.transpose_columns(vals.cpu(), idx.cpu(), p, with_order=True)
-    assert all(torch.equal(a.cpu(), b) for a, b in zip((pairs, starts, order), cpu)), name
+    fast = spmm.transpose_plan(*idx_np.shape, p)[0]
+    assert fast == ("general passes" not in name), name
+    _transposed_as_buckets(vals, idx, p, name)
+
+
+@pytest.mark.parametrize("m", [1677722, 3000])
+def test_transpose_and_spmm_t_past_the_grid_limit(dev, m):
+    """p = 2^25 (512-column pieces past 65535; the low-rank path takes p_pad up
+    to 2^27): the fast passes at m/p = 0.05 and the general ones at m = 3000,
+    bit for bit against column_buckets and the walk fed by it."""
+    p = 1 << 25
+    gen = torch.Generator(device=dev).manual_seed(m)
+    idx = torch.stack([torch.randperm(p, generator=gen, device=dev)[:m].sort().values
+                       for _ in range(64)]).int()
+    vals = torch.randn(idx.shape, generator=gen, device=dev)
+    t = torch.randn((64, 8), generator=gen, device=dev)
+    assert spmm.transpose_plan(64, m, p)[0] == (m > 3000)
+    _transposed_as_buckets(vals, idx, p, f"m={m}")
+    got = spmm.spmm_t(vals, idx, t, p, col_sums=True)
+    want = spmm.spmm_t_from_buckets(vals, idx, t, p, col_sums=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("n,p,m,ell", [(4096, 65536, 3277, 128), (777, 4096, 205, 100),

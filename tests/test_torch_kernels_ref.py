@@ -142,10 +142,24 @@ def test_column_buckets_is_a_stable_sort(case):
     np.testing.assert_array_equal(pairs[:, 1].view(torch.float32).numpy(), vals.reshape(-1)[want])
 
 
-@pytest.mark.parametrize("n,m,p", [(4096, 3277, 65536), (4096, 819, 16384), (777, 205, 4096)])
+@pytest.mark.parametrize("n,m,p", [(4096, 3277, 65536), (4096, 819, 16384), (777, 205, 4096),
+                                   (64, 1677722, 1 << 25), (4096, 655, 65536),
+                                   (64, 3000, 1 << 25), (300, 100, 40000), (1 << 20, 50, 1 << 16),
+                                   (1, 1, 1 << 27)])
 def test_transpose_scratch_within_the_entry_arrays(n, m, p):
     """The transposition's scratch stays within the size of the entry arrays
-    (values and indices, 2·n·m words) at the paths' shapes."""
-    assert spmm.transpose_scratch(n, p) <= 2 * n * m
-    tiles, pieces = -(-n // spmm.TILE_ROWS), -(-p // spmm.PIECE)
-    assert spmm.transpose_scratch(n, p) == 3 * tiles * p + n * (pieces + 1) + -(-p // 256) + 1
+    (values and indices, 2·n·m words), or one tile's p counts where that is
+    more, beside a flag a row and the scan's block sums; the fast passes run
+    at the paths' shapes (m/p = 0.05) and wherever they fit."""
+    fast, rows, words = spmm.transpose_plan(n, m, p)
+    extra = n + -(-p // 256) + 1
+    assert words <= max(2 * n * m, p) + extra
+    tiles, pieces = -(-n // rows), -(-p // spmm.PIECE)
+    fast_words = 3 * -(-n // spmm.TILE_ROWS) * p + n * (pieces + 1) + extra
+    assert fast == (fast_words <= 2 * n * m)
+    if m >= 0.05 * p:
+        assert fast
+    if fast:
+        assert rows == spmm.TILE_ROWS and words == fast_words <= 2 * n * m
+    else:
+        assert 1 <= rows <= n and words == tiles * p + extra
