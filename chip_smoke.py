@@ -12,6 +12,15 @@ Phases, in order; any failure exits non-zero:
               shapes the two streaming paths give it (and at its edges), with
               its time over repeated launches beside its bound: K4 at every
               (r, K) the paths launch and one with r·K > 32, at both paths' m;
+              K3 bit-equal at every cluster size (p = 2^16 … 2^19) and on its
+              multi-pass schedule (2^20, 2^21), timed by cluster size; the
+              sketch at p = 2^16 and 2^18 through K3's cluster gather mode,
+              bit-equal, timed beside the composition it replaces (K3 +
+              torch.gather); K5's windowed kernel within 1e-5, bit-identical
+              across launches, bit-equal to its row kernel with one split,
+              its splits probed, timed against the row kernel also at
+              m/p = 0.01 (where the plan takes that), and rows that do not
+              increase sent to the row kernel;
               K6's transposition bit-equal to column_buckets' stable sort and
               timed alone, K6 bit-equal to its walk fed by column_buckets, and
               no slower than torch.sparse.mm(Wᵀ, T) (whose CSR build is timed
@@ -30,7 +39,8 @@ Phases, in order; any failure exits non-zero:
 7. lowrank  — the second path at full width: Plan(cov_path="lowrank",
               rank=128), p = 65536, 8 steps of 4096 rows, streaming K-means
               (K = 10, r = 3), then cov_lowrank.top(8) unmixed; every kernel of
-              the path (K3, K4, K5, K6) must have launched, the outputs must be
+              the path (the sketch in K3's cluster gather mode, K3 in the
+              unmixes, K4, K5, K6) must have launched, the outputs must be
               finite, the state O(l·p); read after 2, 4 and 8 steps of the one
               stream, the subspace of the planted directions that the
               range-finder resolves at each n must match the planted one, and
@@ -65,7 +75,8 @@ P_LR, ELL, STEPS_LR = 65536, 128, 8
 P_BIG = 1 << 25
 READ_LR = (2, 4, STEPS_LR)
 PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
-PATH2 = ("hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t", "transpose_columns")
+PATH2 = ("sketch_fused_cluster", "hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t",
+         "transpose_columns")
 
 
 def fail(msg: str) -> None:
@@ -130,7 +141,7 @@ def main() -> None:
     from repro_torch.core.sampling import SparseRows, sample_indices
     from repro_torch.data.pipeline import VectorStreamSource
     from repro_torch.core import sketch as sketch_mod
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, fwht, ops, ref
     from repro_torch.kernels import sparse_assign as sa_mod
     from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.stream import StreamKMeansConfig
@@ -147,10 +158,15 @@ def main() -> None:
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", report))
         print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
               f"{spills} bytes of spill stores in all")
+    c_max = fwht.max_cluster(dev)
     print(f"  hadamard: dynamic shared memory a block {4 * (P + P // 32 + 1)} bytes at p={P}, "
-          f"{4 * (2 * P + P // 16 + 1)} at p={2 * P}; sparse_assign: a 4224-byte tile for the "
-          f"centers' layout; spmm's transposition: 64 KB of staged pairs a placement block, "
-          f"128 KB of cursors a block of its general passes")
+          f"{4 * (2 * P + P // 16 + 1)} at p={2 * P} and a block of K3's clusters; the largest "
+          f"cluster the card places (C_max) {c_max}, so one pass up to p = {c_max << 15}; "
+          f"sparse_assign: a 4224-byte tile for the centers' layout; spmm: two windows of Ω "
+          f"and the rows' rings of pairs, {spmm_mod.spmm_plan(BATCH, P_LR, ELL, 1).smem} bytes a "
+          f"block at l={ELL}, on {spmm_mod.sm_count(dev)} SMs; its "
+          f"transposition: 64 KB of staged pairs a placement block, 128 KB of cursors a block "
+          f"of its general passes")
 
     # --------------------------------------------------------------- 3 kernels
     print("== 3 kernels against their plain versions", flush=True)
@@ -255,9 +271,11 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # K3 hd_precondition above 2^15: a batch of the low-rank path in both sign
-    # modes, the unmix shapes of its finalize, and K3's outer passes at 2^17, 2^19.
-    # One PyTorch call for the same function at p = 2^16 is x @ (D·H) or x @ (H·D):
-    # H (16 GiB) is built once, from the plain transform of the identity's rows
+    # modes, the unmix shapes of its finalize, a 1 GiB batch at every other
+    # cluster size (p = 2^17 … 2^19), and the multi-pass schedule at 2^20, 2^21.
+    # Bit-equal to the plain butterfly. One PyTorch call for the same function
+    # at p = 2^16 is x @ (D·H) or x @ (H·D): H (16 GiB) is built once, from the
+    # plain transform of the identity's rows
     hmat = torch.empty((P_LR, P_LR), device=dev)
     ones = torch.ones(P_LR, device=dev)
     for r0 in range(0, P_LR, BATCH):
@@ -265,15 +283,25 @@ def main() -> None:
         rows[:, r0:r0 + BATCH] = torch.eye(BATCH, device=dev)
         hmat[r0:r0 + BATCH] = ref.ref_hd_precondition(rows, ones)
     del rows, ones
+    by_cluster = []
     for n, p, modes in [(BATCH, P_LR, (False, True)), (PCA_K, P_LR, (True,)), (K, P_LR, (True,)),
-                        (256, 1 << 17, (False, True)), (64, 1 << 19, (False, True))]:
+                        (2048, 1 << 17, (False, True)), (1024, 1 << 18, (False, True)),
+                        (512, 1 << 19, (False, True)), (256, 1 << 20, (False, True)),
+                        (64, 1 << 21, (False,))]:
         gen = torch.Generator(device=dev).manual_seed(n + p)
         x = torch.randn((n, p), device=dev, generator=gen)
         s = prng.rademacher(prng.fold_in(key, n + p), (p,), device=dev)
+        plan = fwht.chunk_plan(p, c_max)
         for after in modes:
+            ops.reset_counts()
             got = ops.hd_precondition(x, s, signs_after=after)
             torch.cuda.synchronize()
-            err = (got - ref.ref_hd_precondition(x, s, after)).abs().max().item()
+            check(ops.launch_counts()["hd_precondition_chunked"] == 1, f"K3 at p={p} did not launch")
+            want = ref.ref_hd_precondition(x, s, after)
+            check(torch.equal(got, want), f"K3 at ({n}, {p}) signs_after={after} is not bit-equal "
+                                          f"to the plain butterfly")
+            err = (got - want).abs().max().item()
+            del want
             ms = time_ms(lambda: ops.hd_precondition(x, s, signs_after=after), 20)
             plain_ms = time_ms(lambda: ref.ref_hd_precondition(x, s, after), 3)
             b = bound(4 * (2 * n * p + p), n * p * (math.log2(p) + 2))
@@ -286,14 +314,65 @@ def main() -> None:
                 hmat.mul_(signs)
                 print(f"  x @ (H·D) at ({n}, {p}): max |library - kernel| {lib_err:.3g}")
                 check(lib_err <= 1e-2 * got.abs().max().item(), "K3: the library call is not its function")
-            report(f"K3 hd_precondition ({n}, {p}) signs_after={after}, bit-equal expected",
-                   err, 1e-5, ms, plain_ms, b, lib_ms)
-            if (n, p, after) == (BATCH, P_LR, False):
+            report(f"K3 hd_precondition ({n}, {p}) signs_after={after}, cluster {plan[0]} of "
+                   f"2^{plan[1]}-value blocks, {plan[2]} register passes, bit-equal", err, 0.0, ms,
+                   plain_ms, b, lib_ms)
+            if not after and n * p == BATCH * P_LR:
+                by_cluster.append(f"C={plan[0]}{f' + {plan[2]} register passes' if plan[2] else ''} "
+                                  f"(p={p}) {ms:.4f} ms, {b[0] / ms:.2f} of its bound")
+            if (n, p, after) == (PCA_K, P_LR, True):     # the unmix that phase 7 launches
                 entries["hd_precondition_chunked"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                     library_ms=lib_ms)
         del x, s, got
     del hmat
+    print(f"  K3 by cluster size, 1 GiB batches: {'; '.join(by_cluster)}")
+    torch.cuda.empty_cache()
+
+    # K1's function above 2^15 in one pass: K3's cluster kernel in its gather
+    # mode, at the low-rank path's shape, at p = 2^18 (C = 8) with a ragged n,
+    # and with m = 1; bit-equal to the plain composition, timed beside the
+    # composition it replaces (K3, then torch.gather on the (n, p) result)
+    for n, p, mm in [(BATCH, P_LR, m_lr), (777, 1 << 18, round(GAMMA * (1 << 18))), (333, P_LR, 1)]:
+        x, s, idx = sketch_case(n, p, mm, seed=n + p)
+        ops.reset_counts()
+        got = ops.sketch_fused(x, s, idx)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts["sketch_fused_cluster"] == 1 and counts["hd_precondition_chunked"] == 0
+              and ops.DISPATCH[("sketch_fused", "kernel_cluster")] == 1,
+              f"the sketch at p={p} did not take K3's cluster gather: {counts}")
+        want = ref.ref_sketch_fused(x, s, idx)
+        check(torch.equal(got, want), f"the cluster sketch ({n}, {p}, m={mm}) is not bit-equal")
+        err = (got - want).abs().max().item()
+        del want
+        again = ops.sketch_fused(x, s, idx)
+        check(torch.equal(again, got), "the cluster sketch differs between launches")
+        ms = time_ms(lambda: ops.sketch_fused(x, s, idx), 20)
+        plain_ms = time_ms(lambda: ref.ref_sketch_fused(x, s, idx), 3)
+        old_ms = time_ms(lambda: torch.gather(fwht.hd_precondition_chunked(x, s), 1, idx.long()), 20)
+        b = bound(4 * (n * p + p + 2 * n * mm), n * p * (math.log2(p) + 1) + n * mm)
+        report(f"K1 sketch above 2^15, K3's cluster gather ({n}, {p}, m={mm}), bit-equal", err, 0.0,
+               ms, plain_ms, b)
+        if (n, p) == (BATCH, P_LR):     # device memory a call adds to what its inputs hold
+            peaks = []
+            for fn in (lambda: ops.sketch_fused(x, s, idx),
+                       lambda: torch.gather(fwht.hd_precondition_chunked(x, s), 1, idx.long()),
+                       lambda: sample_indices(key, n, p, mm, device=dev)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fn()
+                torch.cuda.synchronize()
+                peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+            print(f"    peak device memory a call adds: the cluster sketch {peaks[0]:.3f} GiB, "
+                  f"K3 + torch.gather {peaks[1]:.3f} GiB, sample_indices at this shape "
+                  f"{peaks[2]:.3f} GiB")
+        print(f"    the composition it replaces, K3 + torch.gather: {old_ms:.4f} ms")
+        if (n, p) == (BATCH, P_LR):
+            entries["sketch_fused_cluster"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=b[0], bound_by=b[1], library_ms=None)
+        del x, s, idx, got, again
     torch.cuda.empty_cache()
 
     def transposed_as_buckets(vals, idx, p):
@@ -388,6 +467,60 @@ def main() -> None:
             print(f"  K6 with the column sums against torch.sparse.mm(Wᵀ, T): {ms_ys:.4f} against "
                   f"{lib_y:.4f} ms ({'not ' if ms_ys > lib_y else ''}within it)")
             del rows, d1, d2, again, old
+            # K5: the windowed kernel, which the path's m/p takes, against
+            # its row kernel (bit-equal with one split), across launches, by
+            # pass and over splits; at m/p = 0.01, where the plan takes the
+            # row kernel, both timed; rows that do not increase strictly go
+            # to the row kernel
+            sms = spmm_mod.sm_count(dev)
+            check(spmm_mod.windows_pay(m_lr, P_LR), "K5: the path's m/p does not take the windows")
+            plan = spmm_mod.spmm_plan(n, P_LR, ell, sms)
+            by_rows = spmm_mod._launch(vals, idx, om, None)[0]
+            one = spmm_mod._launch(vals, idx, om, spmm_mod.spmm_plan(n, P_LR, ell, sms, 1))[0]
+            check(torch.equal(one, by_rows), "K5 with one split is not bit-equal to its row kernel")
+            check(all(torch.equal(ops.spmm(vals, idx, om), t) for _ in range(2)),
+                  "K5: repeated launches are not bit-identical")
+            rows_ms = time_ms(lambda: spmm_mod._launch(vals, idx, om, None), reps)
+            probes = []
+            for splits in sorted({1, 2, 4, 8, 16, plan.splits}):
+                pl = spmm_mod.spmm_plan(n, P_LR, ell, sms, splits)
+                probes.append(f"S={pl.splits} "
+                              f"{time_ms(lambda: spmm_mod._launch(vals, idx, om, pl), reps):.4f}")
+            m_low = P_LR // 100
+            check(not spmm_mod.windows_pay(m_low, P_LR), "K5: m/p = 0.01 takes the windows")
+            idx_low = sample_indices(prng.fold_in(key, 99), n, P_LR, m_low, device=dev)
+            vals_low = vals[:, :m_low].contiguous()
+            plan_low = spmm_mod.spmm_plan(n, P_LR, ell, sms)
+            check(torch.equal(ops.spmm(vals_low, idx_low, om),
+                              spmm_mod._launch(vals_low, idx_low, om, None)[0]),
+                  "K5 at m/p = 0.01 did not take the row kernel")
+            low_rows = time_ms(lambda: spmm_mod._launch(vals_low, idx_low, om, None), reps)
+            low_win = time_ms(lambda: spmm_mod._launch(vals_low, idx_low, om, plan_low), reps)
+            idx_rep = idx.clone()
+            idx_rep[::97, 1] = idx_rep[::97, 0]              # a repeat in every 97th row
+            t_rep = ops.spmm(vals, idx_rep, om)
+            rows_rep = spmm_mod._launch(vals, idx_rep, om, None)[0]
+            torch.cuda.synchronize()
+            err_rep = (t_rep - ref.ref_spmm(vals, idx_rep, om)).abs().max().item()
+            check(err_rep <= 1e-5 * t_ref.abs().max().item() and torch.equal(t_rep[::97], rows_rep[::97]),
+                  "K5: rows with a repeated index did not take the row kernel")
+            rep_ms = time_ms(lambda: ops.spmm(vals, idx_rep, om), reps)
+            print(f"  K5 windowed on its plan (R={spmm_mod.WIN_ROWS}, W={spmm_mod.WINDOW}, "
+                  f"S={plan.splits}, {plan.blocks} blocks, {plan.smem} bytes of shared memory a "
+                  f"block): {ms_t:.4f} ms against its row kernel {rows_ms:.4f} ms and "
+                  f"torch.sparse.mm {lib_t:.4f} ms; with one split bit-equal to the row kernel, "
+                  f"repeated launches bit-identical; Ω's L2 reads {(n * m_lr * ell * 4) / 1e9:.2f} "
+                  f"GB by rows, {-(-n // spmm_mod.WIN_ROWS) * P_LR * ell * 4 / 1e9:.2f} GB by "
+                  f"windows")
+            print(f"  K5 by pass (torch.profiler, ms a call): "
+                  f"{by_pass(lambda: ops.spmm(vals, idx, om), reps)}")
+            print(f"  K5 over splits (ms): {'; '.join(probes)}")
+            print(f"  K5 at m/p = 0.01 (m={m_low}), where the plan takes the row kernel: row kernel "
+                  f"{low_rows:.4f} ms, windows (S={plan_low.splits}) {low_win:.4f} ms")
+            print(f"  K5 with a repeated index in every 97th row: those rows bit-equal to the row "
+                  f"kernel, err {err_rep:.3g}; {rep_ms:.4f} ms")
+            del idx_low, vals_low
+            del by_rows, one, idx_rep, t_rep, rows_rep
         b_t = bound(4 * (2 * n * m_lr + P_LR * ell + n * ell), flops)
         b_y = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell), flops)
         tol_t, tol_y = 1e-5 * t_ref.abs().max().item(), 1e-5 * y_ref.abs().max().item()
@@ -686,6 +819,8 @@ def main() -> None:
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
+               # K1's function above 2^15: K3's cluster kernel in its gather mode
+               "sketch_fused_cluster": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches_lr),
                "hd_precondition": (hadamard, "src/repro/kernels/fwht.py:205", launches),
                "hd_precondition_chunked": (hadamard, "src/repro/kernels/fwht.py:132", launches_lr),
                "sparse_assign": ("src/repro_torch/kernels/csrc/sparse_assign.cu",

@@ -28,13 +28,15 @@ SIGNATURES = {
     "hadamard": {
         "hd_precondition_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
         "sketch_fused_f32": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
-        "hd_precondition_chunked_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+        "hd_precondition_chunked_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P),
+        "sketch_cluster_f32": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
+        "hadamard_max_cluster": (),
     },
     "sparse_assign": {
         "sparse_assign_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "spmm": {
-        "spmm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "spmm_t_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "transpose_columns_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },

@@ -32,21 +32,41 @@
 // K1 then writes only row[idx[i, j]]; K2 writes the whole row.
 //
 // K3. The TPU kernel splits a row into three Kronecker factors of order <= 512
-// because a row does not fit VMEM. Here 2^15 floats fit one block's shared
-// memory, so the schedule is the butterfly's own, cut by index bits:
-//   pass 1  every contiguous chunk of 2^15 values is one row of the K2 kernel
-//           above (signs applied on load in precondition mode, none in unmix
-//           mode, no scale): stages h = 1 … 2^14, in shared memory;
-//   pass 2+ the remaining stages h = 2^15 … p/2, at most five index bits a
-//           pass: a thread loads the 2^E values of its group, which lie 2^lo
-//           apart, into registers, runs the E stages, and writes them back in
-//           place. Neighbouring threads take neighbouring offsets, so every
-//           load and store is coalesced. The last pass applies the scale (and
-//           the signs, in unmix mode).
-// Up to p = 2^20 that is two passes over device memory, so at (4096, 65536)
-// the kernel moves twice the 2.15 GB the bound counts and can reach at most
-// half of it. Stage order and scale are the butterfly's, so K3 too is
+// because a row does not fit VMEM. Here a row of p = C·2^CL floats (C = 2, 4,
+// 8 or 16) fits the shared memory of one thread-block cluster: each of its C
+// blocks holds one contiguous chunk of 2^CL values, padded as above: 2^14
+// (66 KiB, two blocks an SM, so one block's loads overlap another's stages)
+// where the row fits a cluster of such blocks, else 2^15 (132 KiB, one). So
+// the whole transform is one read and one write of the row:
+//   1. each block loads its chunk (signs applied in precondition mode) and runs
+//      the stages h = 1 … 2^(CL-1) in its own shared memory (the phases above);
+//   2. cluster.sync(); the log2(C) stages h = 2^CL … p/2 then combine values
+//      at the same in-chunk offset o of all C chunks: each block takes 1/C of
+//      the offsets, a thread reads the C values at o from every block's shared
+//      memory (distributed shared memory, map_shared_rank), runs the stages in
+//      registers, applies the 1/√p scale (and in unmix mode the signs) last
+//      and writes the C outputs, coalesced across threads;
+//   3. a block arrives at a cluster barrier once its reads of the peers'
+//      chunks are done and waits on it just before it exits, since its peers
+//      read its chunk.
+// In gather mode (K1's function for 2^15 < p <= C_max·2^15), once that
+// barrier completes, each block puts the 2^CL results it computed into its
+// own shared memory and writes out[i, j] = row[idx[i, j]]·scale for the j
+// whose positions it holds, scanning the row's indices, so neither the (n, p)
+// intermediate nor a gather pass touches device memory. (Writing results back
+// to their owners' chunks and gathering across blocks, the first design, cost
+// more than the composition it replaces: PERF.md §6.)
+// C_max is the largest C for which cudaOccupancyMaxActiveClusters places a
+// cluster of 132 KiB blocks (hadamard_max_cluster; 16 needs the non-portable
+// cluster size). Above C_max·2^15 (up to 2^30) the cluster kernel runs first
+// on every C_max·2^15 segment of a row (no scale), then register passes run
+// the remaining stages, at most five index bits a pass: a thread loads the
+// 2^E values of its group, which lie 2^lo apart, runs the E stages, and writes
+// them back in place, coalesced; the last pass applies the scale (and the
+// signs, in unmix mode). fwht.chunk_plan in Python mirrors this schedule.
+// Every stage runs in the butterfly's order with the scale last, so K3 stays
 // bit-equal to repro.core.ros.fwht.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,13 +74,24 @@ namespace {
 constexpr int kLogE = 5;           // index bits per register phase
 constexpr int kE = 1 << kLogE;     // elements a thread holds in a phase
 
-// kChunkSigns / kChunkPlain: a row is one 2^LOG_P chunk of a longer row (K3's
-// first pass): signs indexed by the chunk's place in its row, or none; no scale
+// kChunkSigns / kChunkPlain: a row is one segment of a longer row (K3's first
+// pass above C_max·2^15): signs indexed by the segment's place in its row, or
+// none; no scale
 enum Mode { kSignsBefore = 0, kSignsAfter = 1, kGather = 2, kChunkSigns = 3, kChunkPlain = 4 };
 
-constexpr int kChunkLog = 15;      // K3: log2 of the chunk that pass 1 transforms
+constexpr int kChunkLog = 15;      // K3: log2 of the largest chunk a block of a cluster holds
+constexpr int kMaxClusterLog = 4;  // clusters of at most 16 blocks
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+
+// cluster.sync() in two halves: this thread's earlier accesses are released
+// at the arrive, and the wait returns once every thread of the cluster arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 // Shape of a row of 2^LOG_P floats: each of T threads holds E elements.
 template <int LOG_P>
@@ -123,13 +154,11 @@ __device__ __forceinline__ int strided(int r, int t) {
 template <int MODE, int LOG_P>
 __global__ void __launch_bounds__(Geom<LOG_P>::T)
 hadamard_rows(const float* __restrict__ x, const float* __restrict__ signs,
-              const int* __restrict__ idx, float* __restrict__ out, int m, float scale,
-              int chunk_mask) {
+              const int* __restrict__ idx, float* __restrict__ out, int m, float scale) {
   using G = Geom<LOG_P>;
   extern __shared__ float row[];
   const int t = threadIdx.x;
   const long long base = (long long)blockIdx.x * G::P;
-  if constexpr (MODE == kChunkSigns) signs += (blockIdx.x & chunk_mask) << LOG_P;
 
   // all E loads of a thread are issued before the first store, so the row's
   // global reads are in flight together rather than one latency at a time
@@ -138,7 +167,7 @@ hadamard_rows(const float* __restrict__ x, const float* __restrict__ signs,
   for (int r = 0; r < G::E; ++r) v[r] = x[base + r * G::T + t];
 #pragma unroll
   for (int r = 0; r < G::E; ++r) {
-    const bool sign = MODE == kSignsBefore || MODE == kGather || MODE == kChunkSigns;
+    const bool sign = MODE == kSignsBefore || MODE == kGather;
     row[strided<LOG_P>(r, t)] = sign ? v[r] * signs[r * G::T + t] : v[r];
   }
   __syncthreads();
@@ -150,9 +179,6 @@ hadamard_rows(const float* __restrict__ x, const float* __restrict__ signs,
   if constexpr (MODE == kGather) {
     const long long ob = (long long)blockIdx.x * m;
     for (int j = t; j < m; j += G::T) out[ob + j] = row[padded(idx[ob + j])] * scale;
-  } else if constexpr (MODE == kChunkSigns || MODE == kChunkPlain) {
-#pragma unroll
-    for (int r = 0; r < G::E; ++r) out[base + r * G::T + t] = row[strided<LOG_P>(r, t)];
   } else {
 #pragma unroll
     for (int r = 0; r < G::E; ++r) {
@@ -164,13 +190,12 @@ hadamard_rows(const float* __restrict__ x, const float* __restrict__ signs,
 
 template <int MODE, int LOG_P>
 int launch_p(const float* x, const float* signs, const int* idx, float* out, int n, int m,
-             float scale, cudaStream_t stream, int chunk_mask = 0) {
+             float scale, cudaStream_t stream) {
   using G = Geom<LOG_P>;
   cudaError_t err = cudaFuncSetAttribute(hadamard_rows<MODE, LOG_P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  hadamard_rows<MODE, LOG_P><<<n, G::T, G::SMEM, stream>>>(x, signs, idx, out, m, scale,
-                                                           chunk_mask);
+  hadamard_rows<MODE, LOG_P><<<n, G::T, G::SMEM, stream>>>(x, signs, idx, out, m, scale);
   return (int)cudaGetLastError();
 }
 
@@ -187,6 +212,194 @@ int launch(const float* x, const float* signs, const int* idx, float* out, int n
 #undef HADAMARD_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K3: one cluster of C = 2^LOG_C blocks transforms one segment of C·2^CL
+// floats; segment g = blockIdx.x / C, and block r of the cluster holds its
+// chunk r of 2^CL floats (CL = 14: 66 KiB, two blocks an SM, so one block's
+// loads overlap the other's stages; CL = 15: 132 KiB, one). MODE
+// kSignsBefore / kSignsAfter / kGather: the segment is a whole row (seg_mask
+// 0); kChunkSigns / kChunkPlain: one segment of a longer row, g & seg_mask its
+// place there, no scale.
+template <int MODE, int LOG_C, int CL>
+__global__ void __launch_bounds__(Geom<CL>::T, CL == 14 ? 2 : 1)
+hadamard_cluster(const float* __restrict__ x, const float* __restrict__ signs,
+                 const int* __restrict__ idx, float* __restrict__ out, int m, float scale,
+                 int seg_mask) {
+  namespace cg = cooperative_groups;
+  using G = Geom<CL>;
+  constexpr int C = 1 << LOG_C;
+  constexpr int kLen = 1 << CL;
+  constexpr long long kSeg = (long long)C << CL;
+  constexpr int PER = kE / C;            // offsets a thread takes in the high stages
+  constexpr int kHalf = kE / 2;
+  constexpr bool kLoadSigns = MODE == kSignsBefore || MODE == kGather || MODE == kChunkSigns;
+  extern __shared__ float row[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x;
+  const int r = (int)cluster.block_rank();
+  const long long g = blockIdx.x / C;
+  const float* sg = signs + (MODE == kChunkSigns ? (g & seg_mask) * kSeg : 0);
+
+  // 1. this block's chunk, in two halves whose values and signs are all in
+  // flight before the half's first store; then the stages h = 1 … 2^(CL-1)
+  {
+    const float* xc = x + g * kSeg + ((long long)r << CL);
+    const float* sc = sg + (r << CL);
+    float v[kE];
+#pragma unroll
+    for (int h0 = 0; h0 < kE; h0 += kHalf) {
+      float d[kHalf];
+#pragma unroll
+      for (int e = 0; e < kHalf; ++e) {
+        v[h0 + e] = xc[(h0 + e) * G::T + t];
+        d[e] = kLoadSigns ? sc[(h0 + e) * G::T + t] : 1.f;
+      }
+#pragma unroll
+      for (int e = 0; e < kHalf; ++e)
+        row[strided<CL>(h0 + e, t)] = kLoadSigns ? v[h0 + e] * d[e] : v[h0 + e];
+    }
+    __syncthreads();
+    phase<CL, 0>(row, v, t);
+    phase<CL, 5>(row, v, t);
+    phase<CL, 10>(row, v, t);
+  }
+  cluster.sync();
+
+  // 2. the high stages on offsets o = r·2^CL/C + q·T + t of every chunk k
+  float h[PER][C];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int o = r * (kLen / C) + q * G::T + t;
+#pragma unroll
+    for (int k = 0; k < C; ++k) h[q][k] = *cluster.map_shared_rank(row + padded(o), k);
+  }
+#pragma unroll
+  for (int s = 0; s < LOG_C; ++s) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        if (!(k & (1 << s))) {
+          const float a = h[q][k], b = h[q][k | (1 << s)];
+          h[q][k] = a + b;
+          h[q][k | (1 << s)] = a - b;
+        }
+      }
+    }
+  }
+  // every read of a peer's chunk is done (the stages consumed the values): the
+  // arrive lets the peers go on, and this block waits only before it
+  // overwrites its chunk or exits
+  cluster_arrive();
+  if constexpr (MODE == kGather) {
+    // this block's results go into its own chunk (slot k·2^CL/C + q·T + t
+    // holds position k·2^CL + o), and the block writes the kept values at the
+    // positions it holds, scanning the row's indices (in any order)
+    cluster_wait();
+#pragma unroll
+    for (int q = 0; q < PER; ++q)
+#pragma unroll
+      for (int k = 0; k < C; ++k) row[k * (kLen / C) + q * G::T + t] = h[q][k];
+    __syncthreads();
+    const long long ob = g * m;
+    for (int j = t; j < m; j += G::T) {
+      const int c = idx[ob + j];
+      const int o = c & (kLen - 1);
+      if (o / (kLen / C) == r) out[ob + j] = row[(c >> CL) * (kLen / C) + o % (kLen / C)] * scale;
+    }
+    return;   // no block reads another's chunk after the wait above
+  } else {
+    float* oseg = out + g * kSeg;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int o = r * (kLen / C) + q * G::T + t;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int at = (k << CL) + o;
+        float y = h[q][k];
+        if constexpr (MODE == kSignsBefore || MODE == kSignsAfter) y *= scale;
+        if constexpr (MODE == kSignsAfter) y *= sg[at];
+        oseg[at] = y;
+      }
+    }
+  }
+  cluster_wait();   // peers may still be reading this block's chunk
+}
+
+template <int MODE, int LOG_C, int CL>
+cudaError_t cluster_attrs() {
+  auto kernel = hadamard_cluster<MODE, LOG_C, CL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Geom<CL>::SMEM);
+  if (err == cudaSuccess && LOG_C > 3)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <int LOG_C, int CL>
+cudaLaunchConfig_t cluster_config(long long segments, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(segments << LOG_C));
+  cfg.blockDim = dim3(Geom<CL>::T);
+  cfg.dynamicSmemBytes = Geom<CL>::SMEM;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << LOG_C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int MODE, int LOG_C, int CL>
+int launch_cluster_c(const float* x, const float* signs, const int* idx, float* out,
+                     long long segments, int m, float scale, int seg_mask, cudaStream_t stream) {
+  cudaError_t err = cluster_attrs<MODE, LOG_C, CL>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config<LOG_C, CL>(segments, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, hadamard_cluster<MODE, LOG_C, CL>, x, signs, idx, out, m, scale,
+                           seg_mask);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the cluster kernel on segments of 2^(chunk_log + log_c) floats; the chunk
+// modes (a segment of a longer row) only with chunk_log 15
+template <int MODE>
+int launch_cluster(const float* x, const float* signs, const int* idx, float* out,
+                   long long segments, int log_c, int chunk_log, int m, float scale,
+                   int seg_mask, cudaStream_t s) {
+  constexpr bool kWhole = MODE == kSignsBefore || MODE == kSignsAfter || MODE == kGather;
+  if (segments < 1 || (segments << log_c) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+#define CLUSTER_CASE(LC, CL)                                                              \
+  if (log_c == LC && chunk_log == CL)                                                     \
+    return launch_cluster_c<MODE, LC, CL>(x, signs, idx, out, segments, m, scale, seg_mask, s);
+  CLUSTER_CASE(1, 15) CLUSTER_CASE(2, 15) CLUSTER_CASE(3, 15) CLUSTER_CASE(4, 15)
+  if constexpr (kWhole) {
+    CLUSTER_CASE(1, 14) CLUSTER_CASE(2, 14) CLUSTER_CASE(3, 14) CLUSTER_CASE(4, 14)
+  }
+#undef CLUSTER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int LOG_C>
+int active_clusters() {
+  cudaError_t err = cluster_attrs<kSignsBefore, LOG_C, kChunkLog>();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config<LOG_C, kChunkLog>(1, nullptr, attr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, hadamard_cluster<kSignsBefore, LOG_C, kChunkLog>,
+                                       &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // a cluster size the card cannot place: clear the error, count none
+    return 0;
+  }
+  return count;
 }
 
 // K3, passes 2+: the stages on index bits [lo, lo + E) of every row of 2^log_p
@@ -251,20 +464,45 @@ extern "C" int sketch_fused_f32(const float* x, const float* signs, const int* i
   return launch<kGather>(x, signs, idx, out, n, log_p, m, scale, static_cast<cudaStream_t>(stream));
 }
 
-// K3: H·(d ⊙ x), or d ⊙ (H·x), for 2^15 < p <= 2^30 (log_p in (15, 30]); n·p/2^15
-// must stay below 2^31 (one block per chunk in pass 1).
+// The largest cluster of 132 KiB blocks that the card places (C_max: 16, 8,
+// 4 or 2, after cudaOccupancyMaxActiveClusters), or 0 if none; a negative
+// value is a cudaError_t from setting the kernel's attributes.
+extern "C" int hadamard_max_cluster(void) {
+  int counts[kMaxClusterLog + 1] = {0, active_clusters<1>(), active_clusters<2>(),
+                                    active_clusters<3>(), active_clusters<4>()};
+  for (int lc = kMaxClusterLog; lc >= 1; --lc) {
+    if (counts[lc] < 0) return counts[lc];
+    if (counts[lc] > 0) return 1 << lc;
+  }
+  return 0;
+}
+
+// K3: H·(d ⊙ x), or d ⊙ (H·x), for 2^15 < p <= 2^30 (log_p in (15, 30]):
+// clusters of 2^log_c blocks of 2^chunk_log values (14 or 15) on segments of
+// 2^(chunk_log + log_c) values — the whole row when that is log_p — then
+// register passes for the rest (chunk_log 15 there).
 extern "C" int hd_precondition_chunked_f32(const float* x, const float* signs, float* out, int n,
-                                           int log_p, int signs_after, float scale,
-                                           void* stream) {
+                                           int log_p, int signs_after, float scale, int log_c,
+                                           int chunk_log, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (log_p <= kChunkLog || log_p > 30 || n < 1) return (int)cudaErrorInvalidValue;
-  const long long chunks = (long long)n << (log_p - kChunkLog);
-  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int chunk_mask = (1 << (log_p - kChunkLog)) - 1;
+  const int seg_log = chunk_log + log_c;
+  if (log_p <= kChunkLog || log_p > 30 || n < 1 || log_c < 1 || log_c > kMaxClusterLog ||
+      seg_log > log_p || (chunk_log != 14 && chunk_log != 15))
+    return (int)cudaErrorInvalidValue;
+  const long long segments = (long long)n << (log_p - seg_log);
+  if (seg_log == log_p)
+    return signs_after
+        ? launch_cluster<kSignsAfter>(x, signs, nullptr, out, segments, log_c, chunk_log, 0, scale,
+                                      0, s)
+        : launch_cluster<kSignsBefore>(x, signs, nullptr, out, segments, log_c, chunk_log, 0,
+                                       scale, 0, s);
+  const int seg_mask = (1 << (log_p - seg_log)) - 1;
   int err = signs_after
-      ? launch_p<kChunkPlain, kChunkLog>(x, signs, nullptr, out, (int)chunks, 0, 1.0f, s, chunk_mask)
-      : launch_p<kChunkSigns, kChunkLog>(x, signs, nullptr, out, (int)chunks, 0, 1.0f, s, chunk_mask);
-  for (int lo = kChunkLog; err == 0 && lo < log_p; lo += kLogE) {
+      ? launch_cluster<kChunkPlain>(x, signs, nullptr, out, segments, log_c, chunk_log, 0, 1.0f,
+                                    seg_mask, s)
+      : launch_cluster<kChunkSigns>(x, signs, nullptr, out, segments, log_c, chunk_log, 0, 1.0f,
+                                    seg_mask, s);
+  for (int lo = seg_log; err == 0 && lo < log_p; lo += kLogE) {
     const int e = log_p - lo < kLogE ? log_p - lo : kLogE;
     const int last = lo + e == log_p;
     const long long groups = ((long long)n << log_p) >> e;
@@ -277,4 +515,15 @@ extern "C" int hd_precondition_chunked_f32(const float* x, const float* signs, f
     }
   }
   return err;
+}
+
+// K1's function for p = 2^(chunk_log + log_c): values (n, m) =
+// (H·(d ⊙ x))[i, idx[i, j]] in one cluster pass (the gather mode of K3's
+// cluster kernel).
+extern "C" int sketch_cluster_f32(const float* x, const float* signs, const int* idx, float* out,
+                                  int n, int log_c, int chunk_log, int m, float scale,
+                                  void* stream) {
+  if (n < 1 || log_c < 1 || log_c > kMaxClusterLog) return (int)cudaErrorInvalidValue;
+  return launch_cluster<kGather>(x, signs, idx, out, n, log_c, chunk_log, m, scale, 0,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -19,12 +19,32 @@
 // The TPU kernel densifies a block of rows in VMEM and runs MXU matmuls; on
 // Hopper the gather is direct.
 //
-// K5 design. One warp per row. Lane k holds columns [4k, 4k+4) of a 128-column
-// chunk (a float4; one float when l is not a multiple of 4), so a warp reads
-// one Ω row as one coalesced 512-byte load. The warp loads 32 (value, index)
-// pairs at a time and broadcasts each with a shuffle. Ω (32 MiB at p = 65536,
-// l = 128) stays in the 50 MB L2. The j order is fixed, so the result is the
-// same on every launch.
+// K5 design. Each kept coordinate needs a whole 512-byte row of Ω, and each Ω
+// row is wanted by n·m/p sample rows (≈ 205 at the path's shape), so the
+// windowed kernel shares those loads through shared memory. A block owns
+// R = 96 rows (3 a warp) and walks its range of Ω's rows in windows of
+// W = 160 rows, brought in by cp.async and double-buffered, so the next
+// window loads while the block consumes this one. A sketch row's indices
+// increase strictly, so a row's entries in a window are contiguous: each row
+// has a ring of two halves of 32 (value, index) pairs in shared memory, the
+// next half fetched by cp.async while this one is consumed, so no lane waits
+// on device memory for its next pairs; a ballot over the lanes' indices
+// counts the pairs that fall in the window, and for each the warp reads the
+// pair by a broadcast load and FMAs v·Ω[idx − w0] from shared memory, lane k
+// holding columns [4k, 4k+4) of a 128-column chunk (a float4; one float a
+// lane of a 32-column chunk when l is not a multiple of 4). Ω's L2 traffic
+// falls from n·m·l·4 bytes (6.9 GB) to (n/R)·p·l·4 (1.44 GB). To fill the
+// card the coordinate range is split over S blocks a row tile (the rows'
+// starting cursors by a 32-way search); the S partial (n, l) tiles are
+// summed by a second pass in split order, so the result is deterministic,
+// and with S = 1 each row's sum runs in j order with the same FMAs as the
+// row kernel below, which makes it bit-equal. Before it, a pass (K6's pass 0,
+// row_order) flags each row whose indices do not increase strictly; those
+// rows go to the row kernel, one warp a row, which gathers Ω rows from L2 in
+// j order. Where m/p is small (a few entries a row and window) the windows
+// do not pay and spmm.py's spmm_plan sends every row to the row kernel; it
+// also picks S. What bounds the windowed kernel is each entry's 512 bytes of
+// shared-memory reads and the window barriers, not L2 (PERF.md §6).
 //
 // K6 design. First a transposition (index preparation the TPU kernel's body
 // does not compute) turns the compact rows into columns: each column's
@@ -78,6 +98,15 @@ constexpr int kPlaceThreads = 1024;      // threads of a general block
 constexpr int kSlab = 32768;             // columns a general block holds: 128 KB
 constexpr int kPer = 4;                  // loads a thread has in flight
 constexpr int kOrderThreads = 256;       // threads of a pass-0 block
+// K5's windowed kernel (python spmm.py mirrors kWinRows and kWindow): warps
+// a block, rows a warp, and Ω rows a window
+constexpr int kWinWarps = 32;
+constexpr int kRowsAWarp = 3;
+constexpr int kWinRows = kWinWarps * kRowsAWarp;
+constexpr int kWindow = 160;
+// its shared memory: two windows of 32·vec columns, and each row's ring of
+// 64 (value, index) pairs
+constexpr int window_smem(int vec) { return 2 * kWindow * 32 * vec * 4 + kWinRows * 64 * 8; }
 constexpr int kOrderChunk = 4 * kOrderThreads;   // entries of a row a pass-0 block reads
 
 template <int VEC>
@@ -108,14 +137,17 @@ struct Acc {
   }
 };
 
-// K5: warp w computes T[w, :]
+// K5, the row kernel: warp w computes T[w, :]; with general not null only the
+// rows that unord flags, and nothing when no row is flagged
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 spmm_rows(const float* __restrict__ values, const int* __restrict__ idx,
-          const float* __restrict__ dense, float* __restrict__ out, int n, int m, int ell) {
+          const float* __restrict__ dense, float* __restrict__ out, const int* __restrict__ unord,
+          const int* __restrict__ general, int n, int m, int ell) {
+  if (general != nullptr && !*general) return;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= n) return;
+  if (row >= n || (general != nullptr && !unord[row])) return;
   const float* vrow = values + (long long)row * m;
   const int* irow = idx + (long long)row * m;
   for (int c0 = 0; c0 < ell; c0 += 32 * VEC) {
@@ -137,6 +169,194 @@ spmm_rows(const float* __restrict__ values, const int* __restrict__ idx,
     }
     if (active) acc.store(out + (long long)row * ell + col);
   }
+}
+
+// VEC floats from global to shared memory, asynchronously (cp.async)
+template <int VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// the first j of the m increasing indices ix with ix[j] >= key, by the 32
+// lanes of a warp together (a 32-way search: each step samples 32 places)
+__device__ int warp_first_at_least(const int* __restrict__ ix, int m, int key, int lane) {
+  int a = 0, b = m;   // the answer lies in [a, b]
+  while (a < b) {
+    const int step = (b - a + 31) / 32;
+    const int at = a + lane * step;
+    const unsigned below = __ballot_sync(0xffffffffu, at < b && ix[at] < key);
+    const int cnt = __popc(below);   // the samples below key come first
+    if (cnt == 0) break;             // ix[a] >= key
+    b = a + cnt * step < b ? a + cnt * step : b;
+    a += (cnt - 1) * step + 1;
+  }
+  return a;
+}
+
+// 4 bytes from global to shared memory, asynchronously
+__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// K5, the windowed kernel: block b takes row tile b % tiles (kWinRows rows,
+// warp w its rows w·kRowsAWarp …) and Ω's rows [lo, lo + span) of split
+// b / tiles; with splits > 1 it writes its partial sums to out + split·n·l,
+// else T itself. Rows that unord flags are left alone. Shared memory: two
+// windows of kWindow × CW floats, then each row's ring of two halves of 32
+// (value, index bits) pairs.
+template <int VEC>
+__global__ void __launch_bounds__(kWinWarps * 32)
+spmm_windows(const float* __restrict__ values, const int* __restrict__ idx,
+             const float* __restrict__ dense, float* __restrict__ out,
+             const int* __restrict__ unord, int n, int m, int p, int ell, int splits, int span) {
+  constexpr int CW = 32 * VEC;          // columns a chunk
+  constexpr int RW = kRowsAWarp, W = kWindow, R = kWinRows;
+  constexpr int kNone = 0x7fffffff;     // the index of a pair past the row's end
+  extern __shared__ __align__(16) float win[];
+  float2* ring = reinterpret_cast<float2*>(win + 2 * W * CW);   // [R][2][32]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (n + R - 1) / R;
+  const int tile = blockIdx.x % tiles, sp = blockIdx.x / tiles;
+  const int lo = sp * span;
+  const int hi = p - lo < span ? p : lo + span;
+  const int nwin = (hi - lo + W - 1) / W;
+  float* dst = splits > 1 ? out + (long long)sp * n * ell : out;
+  int rowi[RW];
+  bool live[RW];
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr) {
+    rowi[rr] = tile * R + warp * RW + rr;
+    live[rr] = rowi[rr] < n && !unord[rowi[rr]];
+  }
+  // this lane's pair j0 + lane of row rr into half h of its ring
+  auto fetch = [&](int rr, int h, int j0) {
+    float2* slot = ring + ((warp * RW + rr) * 2 + h) * 32 + lane;
+    const int j = j0 + lane;
+    if (j < m) {
+      const long long at = (long long)rowi[rr] * m + j;
+      copy_async4(&slot->x, values + at);
+      copy_async4(&slot->y, idx + at);
+    } else {
+      *slot = make_float2(0.f, __int_as_float(kNone));
+    }
+  };
+  for (int c0 = 0; c0 < ell; c0 += CW) {
+    const int col = c0 + lane * VEC;
+    const bool active = col < ell;
+    auto load = [&](int k) {
+      const int w0 = lo + k * W;
+      const int rows = hi - w0 < W ? hi - w0 : W;
+      float* buf = win + (k & 1) * W * CW;
+      for (int e = threadIdx.x; e < rows * (CW / VEC); e += kWinWarps * 32) {
+        const int r = e / (CW / VEC), c = c0 + (e % (CW / VEC)) * VEC;
+        if (c < ell) copy_async<VEC>(buf + r * CW + c - c0, dense + (long long)(w0 + r) * ell + c);
+      }
+      copy_commit();
+    };
+    Acc<VEC> acc[RW];
+    int base[RW], used[RW], half[RW], bi[RW], fetched[RW];
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) {
+      acc[rr].zero();
+      used[rr] = 0;
+      half[rr] = 0;
+      base[rr] = 0;
+      fetched[rr] = -1;
+      if (live[rr]) {
+        base[rr] = lo == 0 ? 0 : warp_first_at_least(idx + (long long)rowi[rr] * m, m, lo, lane);
+        fetch(rr, 0, base[rr]);
+        fetch(rr, 1, base[rr] + 32);
+      }
+    }
+    load(0);
+    copy_wait<0>();
+    __syncwarp();
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr)
+      bi[rr] = live[rr] ? __float_as_int(ring[((warp * RW + rr) * 2) * 32 + lane].y) : kNone;
+    for (int k = 0; k < nwin; ++k) {
+      if (k + 1 < nwin) {
+        load(k + 1);
+        copy_wait<1>();
+      } else {
+        copy_wait<0>();
+      }
+      __syncthreads();
+      const int w0 = lo + k * W;
+      const int wend = hi - w0 < W ? hi : w0 + W;
+      const float* buf = win + (k & 1) * W * CW + lane * VEC;
+#pragma unroll
+      for (int rr = 0; rr < RW; ++rr) {
+        if (!live[rr]) continue;
+        while (true) {
+          const unsigned in = __ballot_sync(0xffffffffu, lane >= used[rr] && bi[rr] < wend);
+          const int end = used[rr] + __popc(in);
+          const float2* pr = ring + ((warp * RW + rr) * 2 + half[rr]) * 32;
+          int t = used[rr];
+          if ((t & 1) && t < end) {
+            const float2 q = pr[t];
+            if (active) acc[rr].fma_row(q.x, buf + (__float_as_int(q.y) - w0) * CW);
+            ++t;
+          }
+#pragma unroll 2
+          for (; t + 2 <= end; t += 2) {
+            const float4 two = *reinterpret_cast<const float4*>(pr + t);
+            if (active) {
+              acc[rr].fma_row(two.x, buf + (__float_as_int(two.y) - w0) * CW);
+              acc[rr].fma_row(two.z, buf + (__float_as_int(two.w) - w0) * CW);
+            }
+          }
+          if (t < end) {
+            const float2 q = pr[t];
+            if (active) acc[rr].fma_row(q.x, buf + (__float_as_int(q.y) - w0) * CW);
+          }
+          used[rr] = end;
+          if (end < 32) break;
+          // the half is spent: take the other, and fetch the pairs after it into this one
+          const int spent = half[rr];
+          half[rr] ^= 1;
+          base[rr] += 32;
+          used[rr] = 0;
+          if (fetched[rr] == k) copy_wait<0>();   // fetched in this window: wait for it
+          __syncwarp();
+          bi[rr] = __float_as_int(ring[((warp * RW + rr) * 2 + half[rr]) * 32 + lane].y);
+          __syncwarp();
+          fetch(rr, spent, base[rr] + 32);
+          copy_commit();
+          fetched[rr] = k;
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr)
+      if (live[rr] && active) acc[rr].store(dst + (long long)rowi[rr] * ell + col);
+    copy_wait<0>();   // no fetch is left in flight into the ring of the next chunk
+    __syncthreads();
+  }
+}
+
+// K5's second pass for splits > 1: T[i, c] = Σ_s partial[s, i, c] in split
+// order, for the rows unord does not flag
+__global__ void __launch_bounds__(kThreads)
+sum_splits(const float* __restrict__ partial, const int* __restrict__ unord,
+           float* __restrict__ out, int n, int ell, int splits) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long total = (long long)n * ell;
+  if (e >= total || unord[e / ell]) return;
+  float s = partial[e];
+  for (int k = 1; k < splits; ++k) s += partial[k * total + e];
+  out[e] = s;
 }
 
 // K6 walk: warp w computes Y[w, :] from its column's entries k in
@@ -603,16 +823,50 @@ unsigned blocks_for(int rows) { return (unsigned)((rows + kWarps - 1) / kWarps);
 
 }  // namespace
 
-// vec4 = 1 needs l % 4 == 0 and 16-byte aligned operands (the wrapper checks).
+// K5. splits = 0: the row kernel on every row. Otherwise pass 0 flags the
+// rows that do not increase strictly, the windowed kernel (splits blocks a
+// row tile, span Ω rows each, a multiple of the window) takes the others,
+// the splits' partial sums are added in order, and the row kernel takes the
+// flagged rows. scratch, int32 words: with splits > 1 splits·n·l floats of
+// partial sums, then the flag and n row flags. vec4 = 1 needs l % 4 == 0 and
+// 16-byte aligned operands (the wrapper checks).
 extern "C" int spmm_f32(const float* values, const int* idx, const float* dense, float* out,
-                        int n, int m, int ell, int vec4, void* stream) {
+                        int* scratch, int n, int m, int p, int ell, int vec4, int splits, int span,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    spmm_rows<4><<<blocks_for(n), kThreads, 0, s>>>(values, idx, dense, out, n, m, ell);
-  } else {
-    spmm_rows<1><<<blocks_for(n), kThreads, 0, s>>>(values, idx, dense, out, n, m, ell);
+  auto rows = [&](const int* unord, const int* general) {
+    if (vec4)
+      spmm_rows<4><<<blocks_for(n), kThreads, 0, s>>>(values, idx, dense, out, unord, general, n,
+                                                      m, ell);
+    else
+      spmm_rows<1><<<blocks_for(n), kThreads, 0, s>>>(values, idx, dense, out, unord, general, n,
+                                                      m, ell);
+    return (int)cudaGetLastError();
+  };
+  if (splits == 0) return rows(nullptr, nullptr);
+  if (splits < 0 || span < 1) return (int)cudaErrorInvalidValue;
+  float* partial = reinterpret_cast<float*>(scratch);   // first, for its float4 alignment
+  int* general = scratch + (splits > 1 ? (long long)splits * n * ell : 0);
+  int* unord = general + 1;
+  const int smem = window_smem(vec4 ? 4 : 1);
+  const long long blocks = (long long)((n + kWinRows - 1) / kWinRows) * splits;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(vec4 ? spmm_windows<4> : spmm_windows<1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaMemsetAsync(general, 0, sizeof(int) * (n + 1LL), s);
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = (m + kOrderChunk - 1) / kOrderChunk;
+  row_order<<<(unsigned)((long long)n * chunks), kOrderThreads, 0, s>>>(idx, nullptr, unord,
+                                                                       general, m, 0, chunks);
+  float* dst = splits > 1 ? partial : out;
+  (vec4 ? spmm_windows<4> : spmm_windows<1>)<<<(unsigned)blocks, kWinWarps * 32, smem, s>>>(
+      values, idx, dense, dst, unord, n, m, p, ell, splits, span);
+  if (splits > 1) {
+    const long long total = (long long)n * ell;
+    sum_splits<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(partial, unord,
+                                                                                 out, n, ell, splits);
   }
-  return (int)cudaGetLastError();
+  return rows(unord, general);
 }
 
 // The transposition: pairs (n·m) and starts (p + 1) from compact rows, over

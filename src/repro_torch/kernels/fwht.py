@@ -1,17 +1,25 @@
 """K2 and K3: y = H·(d ⊙ x), or d ⊙ (H·x) — the CUDA kernels' wrappers.
 
 Replace the TPU kernels ``repro.kernels.fwht.hd_precondition`` (K2, one row
-in one tile, p ≤ 2^15) and ``hd_precondition_chunked`` (K3, 2^15 < p ≤ 2^27).
-Both kernels are in ``csrc/hadamard.cu``: K2 holds one row per block in
-shared memory, which caps p at 2^15; K3 transforms each 2^15-value chunk of a
-row that way, then runs the remaining butterfly stages in register passes over
-device memory. :func:`hd_precondition` takes any p up to 2^27 and picks the
-kernel, as the reference's does.
+in one tile, p ≤ 2^15) and ``hd_precondition_chunked`` (K3, 2^15 < p ≤ 2^27),
+both in ``csrc/hadamard.cu``. K2 holds one row per block in shared memory,
+which caps p at 2^15. K3 holds a row in a thread-block cluster of C blocks,
+2^14 values each (two blocks an SM) where the row fits such a cluster, else
+2^15, so up to C_max·2^15 (C_max, the largest cluster the card places, is
+:func:`max_cluster`: 16 on an H100 80GB HBM3) the transform is one read and
+one write of the row; above that the cluster kernel transforms each
+C_max·2^15 segment and register passes over device memory run the remaining
+stages. :func:`chunk_plan` is that schedule.
+:func:`hd_precondition` takes any p up to 2^27 and picks the kernel, as the
+reference's does. A cluster launch that fails raises; nothing runs the
+multi-pass schedule or the plain version in its place.
 
 On a CPU tensor the wrappers compute the plain version (``kernels.ref``); on a
 CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -22,6 +30,14 @@ from repro_torch.kernels import ref as _ref
 MAX_P_SINGLE = 1 << 15
 # largest p overall, the reference's limit for its chunked schedule
 MAX_P = 1 << 27
+# K3's schedule (csrc/hadamard.cu kChunkLog, kMaxClusterLog, kLogE): log2 of
+# the chunk a block of a cluster holds (2^14 where a row fits a cluster of
+# such blocks, two blocks an SM; else 2^15, one), the cluster sizes the kernel
+# is built for, and the index bits a register pass takes
+CHUNK_LOGS = (14, 15)
+CHUNK_LOG = 15
+CLUSTER_SIZES = (2, 4, 8, 16)
+REGISTER_BITS = 5
 
 
 def scale_for(p: int) -> float:
@@ -39,6 +55,43 @@ def check_p(p: int, ceiling: int = MAX_P_SINGLE) -> int:
                   if ceiling == MAX_P_SINGLE else "")
         raise ValueError(f"p_pad={p} exceeds the Hadamard kernels' ceiling {ceiling}{beyond}")
     return p.bit_length() - 1
+
+
+def chunk_plan(p: int, max_cluster: int) -> tuple[int, int, int]:
+    """(cluster, chunk_log, register_passes): K3's schedule for 2^15 < p ≤ 2^27.
+
+    One launch of clusters of ``cluster`` blocks, each holding 2^chunk_log
+    values, runs the stages of the low chunk_log + log2(cluster) index bits;
+    then ``register_passes`` passes of at most five index bits each run the
+    rest. ``max_cluster`` is C_max (:func:`max_cluster` on the card). Chunks
+    are 2^14 values where the row fits a cluster of them, else 2^15.
+    """
+    log_p = check_p(p, MAX_P)
+    if p <= MAX_P_SINGLE:
+        raise ValueError(f"K3 takes p > {MAX_P_SINGLE}, got {p}; use hd_precondition")
+    if max_cluster not in CLUSTER_SIZES:
+        raise ValueError(f"max_cluster must be one of {CLUSTER_SIZES}, got {max_cluster}")
+    chunk_log = CHUNK_LOGS[0] if p <= max_cluster << CHUNK_LOGS[0] else CHUNK_LOG
+    cluster = min(p >> chunk_log, max_cluster)
+    rest = log_p - chunk_log - (cluster.bit_length() - 1)
+    return cluster, chunk_log, -(-rest // REGISTER_BITS)
+
+
+@functools.cache
+def _max_cluster(index: int) -> int:
+    with torch.cuda.device(index):
+        got = _build.library("hadamard").hadamard_max_cluster()
+    if got < 0:
+        _build.check(-got, "hadamard_max_cluster")
+    if got not in CLUSTER_SIZES:
+        raise RuntimeError("the card places no cluster of two 132 KiB blocks, which K3 needs")
+    return got
+
+
+def max_cluster(device: torch.device) -> int:
+    """C_max: the largest cluster of K3's 132 KiB blocks that the card at
+    ``device`` places (cudaOccupancyMaxActiveClusters), asked once."""
+    return _max_cluster(torch.device(device).index or 0)
 
 
 def _check(x: torch.Tensor, signs: torch.Tensor) -> None:
@@ -75,28 +128,35 @@ def hd_precondition(x: torch.Tensor, signs: torch.Tensor,
 
 def hd_precondition_chunked(x: torch.Tensor, signs: torch.Tensor,
                             signs_after: bool = False) -> torch.Tensor:
-    """K3: the same transform for 2^15 < p ≤ 2^27, in two or more passes.
+    """K3: the same transform for 2^15 < p ≤ 2^27, on :func:`chunk_plan`'s
+    schedule: one cluster pass up to C_max·2^15, register passes above.
 
     Above 2^27 it raises on any device, as the reference does.
     """
-    log_p = check_p(x.shape[-1], MAX_P)
+    check_p(x.shape[-1], MAX_P)
     if x.device.type == "cpu":
         return _ref.ref_hd_precondition(x, signs, signs_after)
+    return _chunked(x, signs, signs_after, chunk_plan(x.shape[-1], max_cluster(x.device)))
+
+
+def _chunked(x: torch.Tensor, signs: torch.Tensor, signs_after: bool,
+             plan: tuple[int, int, int]) -> torch.Tensor:
+    """K3's launch on ``plan``, :func:`chunk_plan`'s schedule for a C_max
+    the card places."""
     _check(x, signs)
     n, p = x.shape
-    if p <= MAX_P_SINGLE:
-        raise ValueError(f"the chunked transform takes p > {MAX_P_SINGLE}, got {p}; "
-                         "use hd_precondition")
-    if n * (p // MAX_P_SINGLE) >= 1 << 31:
-        raise ValueError(f"({n}, {p}) has too many 2^15 chunks for one launch; "
-                         "split the rows")
+    cluster, chunk_log, _ = plan
+    if n * (p >> chunk_log) >= 1 << 31:
+        raise ValueError(f"({n}, {p}) has too many chunks for one launch; split the rows")
     out = torch.empty_like(x)
     if n:
         lib = _build.library("hadamard")
         with torch.cuda.device(x.device):
             err = lib.hd_precondition_chunked_f32(x.data_ptr(), signs.data_ptr(),
-                                                  out.data_ptr(), n, log_p, int(signs_after),
-                                                  scale_for(p), _build.stream_of(x))
+                                                  out.data_ptr(), n, p.bit_length() - 1,
+                                                  int(signs_after), scale_for(p),
+                                                  cluster.bit_length() - 1, chunk_log,
+                                                  _build.stream_of(x))
         _build.check(err, "hd_precondition_chunked")
         hd_precondition_chunked.launches += 1
     return out

@@ -4,7 +4,9 @@
 CUDA kernel for a CUDA tensor and computes the plain version for a CPU tensor;
 "ref" asks for the plain version on any device. Every call is tallied in
 :data:`DISPATCH` by (op, path), where path is "kernel" when a kernel was
-launched, "kernel_chunked" when the transform went to K3 (p > 2^15), and
+launched, "kernel_chunked" when the transform went to K3 (p > 2^15) or the
+sketch to K3 and a gather (p > C_max·2^15), "kernel_cluster" when the sketch
+went to K3's cluster kernel in its gather mode (2^15 < p ≤ C_max·2^15), and
 "ref" otherwise.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ DISPATCH: collections.Counter = collections.Counter()
 # each kernel's wrapper, which carries its launch count
 WRAPPERS = {
     "sketch_fused": _sf.sketch_fused,
+    "sketch_fused_cluster": _sf.sketch_fused_cluster,   # K1's function above 2^15
     "hd_precondition": _fwht.hd_precondition,
     "hd_precondition_chunked": _fwht.hd_precondition_chunked,
     "sparse_assign": _sa.sparse_assign,
@@ -34,15 +37,18 @@ WRAPPERS = {
 }
 
 
-def _use_kernel(op: str, mode: str, t: torch.Tensor, chunked: bool = False) -> bool:
+def _on_card(mode: str, t: torch.Tensor) -> bool:
+    """Whether ``mode`` sends a CUDA tensor ``t`` to a kernel."""
+    return mode in ("auto", "kernel") and t.device.type == "cuda"
+
+
+def _use_kernel(op: str, mode: str, t: torch.Tensor, path: str = "kernel") -> bool:
+    """Whether ``op`` goes to its kernel wrapper, tallied under ``path`` when
+    a kernel launches (see :data:`DISPATCH`)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    kernel = mode in ("auto", "kernel")
-    path = "ref"
-    if kernel and t.device.type == "cuda":
-        path = "kernel_chunked" if chunked else "kernel"
-    DISPATCH[(op, path)] += 1
-    return kernel
+    DISPATCH[(op, path if _on_card(mode, t) else "ref")] += 1
+    return mode in ("auto", "kernel")
 
 
 def launch_counts() -> dict[str, int]:
@@ -63,7 +69,8 @@ def hd_precondition(x: torch.Tensor, signs: torch.Tensor, signs_after: bool = Fa
     """y = H·(d⊙x), or d⊙(H·x) with ``signs_after`` (unmix); K2 up to
     p = 2^15, K3 above."""
     x = x.contiguous()
-    if _use_kernel("hd_precondition", mode, x, chunked=x.shape[-1] > _fwht.MAX_P_SINGLE):
+    chunked = x.shape[-1] > _fwht.MAX_P_SINGLE
+    if _use_kernel("hd_precondition", mode, x, "kernel_chunked" if chunked else "kernel"):
         return _fwht.hd_precondition(x, signs, signs_after)
     return _ref.ref_hd_precondition(x, signs, signs_after)
 
@@ -73,16 +80,23 @@ def sketch_fused(x: torch.Tensor, signs: torch.Tensor, indices: torch.Tensor,
     """values (n, m) = (H·(signs⊙x))[i, indices[i]] — precondition and keep m
     values per row in one pass.
 
-    Above K1's single-row ceiling (p > 2^15) the kernel path composes K3 with a
-    gather, as the reference does: the kernel transform, not in one pass.
+    K1 up to p = 2^15; K3's cluster kernel in its gather mode up to
+    C_max·2^15 (2^19 on an H100 80GB HBM3), in one pass with no (n, p)
+    intermediate; above that K3 and a gather, as the reference composes them.
     """
     x = x.contiguous()
-    chunked = x.shape[-1] > _fwht.MAX_P_SINGLE
-    if not _use_kernel("sketch_fused", mode, x, chunked=chunked):
+    p = x.shape[-1]
+    path = "kernel"
+    if _on_card(mode, x) and p > _fwht.MAX_P_SINGLE:
+        fits = p <= _fwht.max_cluster(x.device) << _fwht.CHUNK_LOG
+        path = "kernel_cluster" if fits else "kernel_chunked"
+    if not _use_kernel("sketch_fused", mode, x, path):
         return _ref.ref_sketch_fused(x, signs, indices)
-    if chunked:
+    if path == "kernel_cluster":
+        return _sf.sketch_fused_cluster(x, signs, indices.contiguous())
+    if path == "kernel_chunked":
         return torch.gather(_fwht.hd_precondition_chunked(x, signs), 1, indices.long())
-    return _sf.sketch_fused(x, signs, indices.contiguous())
+    return _sf.sketch_fused(x, signs, indices.contiguous())   # or the plain version on the CPU
 
 
 def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Tensor,

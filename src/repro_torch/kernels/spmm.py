@@ -7,13 +7,21 @@ Replace the TPU kernels ``repro.kernels.spmm.spmm`` and ``spmm_t``
     spmm:    T = W @ Ω      (n, l)
     spmm_t:  Y = Wᵀ @ T     (p, l)
 
-The reference plans VMEM tiles (``plan_tiles``, ``tile_vmem_bytes``); the
-products hold nothing in shared memory but K6's transposition, which does in
-fixed column pieces and slabs, and they take any p below 2^31 and any l, so
-nothing here replaces that model. What they do need is checked here: float32 operands (the plain
-versions keep the reference's promotion rule for other types, see
-``kernels.ref.spmm_out_dtype``), int32 indices, and fewer than 2^31 entries.
-Indices must lie in [0, p): the kernels do not check them.
+The reference plans VMEM tiles (``plan_tiles``, ``tile_vmem_bytes``). Here
+``spmm`` holds windows of Ω's rows in shared memory, on the plan of
+:func:`spmm_plan` (splits of the coordinate range), where a row keeps enough
+of Ω's rows for the windows to pay (:func:`windows_pay`); elsewhere its row
+kernel takes every row. K6's transposition holds fixed column pieces and
+slabs. They take any p below 2^31 and any l. What they do need is checked
+here: float32 operands (the plain versions keep the reference's promotion
+rule for other types, see ``kernels.ref.spmm_out_dtype``), int32 indices,
+and fewer than 2^31 entries. Indices must lie in [0, p): the kernels do not
+check them.
+
+``spmm``'s windowed kernel needs rows whose indices increase strictly (every
+sketch's); a pass on the device flags any other row, and those rows go to
+the row kernel, one warp a row. Repeated calls are bit-identical; with one
+split the result is bit-equal to the row kernel's.
 
 ``spmm_t`` first transposes the entries into columns
 (:func:`transpose_columns`, a CUDA kernel whose plain version is
@@ -27,6 +35,9 @@ On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernel or raise.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -53,26 +64,99 @@ def _vec4(*ts: torch.Tensor) -> int:
     return int(all(t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0 for t in ts))
 
 
+# the windowed kernel (csrc/spmm.cu kWinRows, kWindow): rows a block and Ω
+# rows a window; a block holds two windows and a ring of 64 pairs a row, and
+# one block runs an SM (1024 threads)
+WIN_ROWS, WINDOW = 96, 160
+SMEM_LIMIT = 227 * 1024            # the shared memory a block may ask for
+MAX_SPLITS = 64
+
+
+def windows_pay(m: int, p: int) -> bool:
+    """Whether the windowed kernel takes the rows (else the row kernel takes
+    them all): where a row keeps at least 1/32 of Ω's rows. On an H100 at
+    n = 4096, l = 128 the windows win at m/p = 0.05 (the low-rank path's) and
+    0.25 and lose at 0.01 (PERF.md §6)."""
+    return 32 * m >= p
+
+
+class SpmmPlan(NamedTuple):
+    splits: int      # S, blocks a row tile (coordinate ranges)
+    span: int        # Ω rows a split, a multiple of WINDOW
+    smem: int        # shared memory a block, bytes
+    blocks: int      # the grid
+
+
+def spmm_plan(n: int, p: int, ell: int, sms: int, splits: int | None = None) -> SpmmPlan:
+    """The windowed kernel's plan for T (n, l) = W·Ω over p columns on a card
+    of ``sms`` SMs (:func:`sm_count`).
+
+    A block holds two windows of WINDOW Ω rows by one chunk of columns (128,
+    or 32 when l is not a multiple of 4) and each row's ring of pairs. S
+    splits the coordinate range so the grid fills the card: the smallest S
+    whose grid has at least one block an SM and fills its last wave to 90 %,
+    or the one that fills it best, or, where even S = MAX_SPLITS (or one
+    window a split) is short of that, the most splits there are. ``splits``
+    fixes S.
+    """
+    smem = 2 * WINDOW * (128 if ell % 4 == 0 else 32) * 4 + WIN_ROWS * 64 * 8
+    tiles = max(1, -(-n // WIN_ROWS))
+    windows = max(1, -(-p // WINDOW))
+    if splits is None:
+        cap = min(windows, MAX_SPLITS)
+        full = [s for s in range(1, cap + 1) if tiles * s >= sms]
+        fill = {s: tiles * s / (-(-tiles * s // sms) * sms) for s in full}
+        good = [s for s in full if fill[s] >= 0.9]
+        splits = good[0] if good else max(full, key=lambda s: fill[s]) if full else cap
+    span = -(-windows // splits) * WINDOW
+    splits = max(1, -(-p // span))     # every split holds at least one window
+    return SpmmPlan(splits, span, smem, tiles * splits)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card at ``device``, asked once."""
+    return _sm_count(torch.device(device).index or 0)
+
+
 def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
-    """T (n, l) = W @ dense for compact sparse rows W and dense (p, l)."""
+    """T (n, l) = W @ dense for compact sparse rows W and dense (p, l): the
+    windowed kernel on :func:`spmm_plan`'s plan where :func:`windows_pay`,
+    else the row kernel."""
     if values.device.type == "cpu":
         return _ref.ref_spmm(values, indices, dense)
+    (n, m), (p, ell) = values.shape, dense.shape
+    plan = spmm_plan(n, p, ell, sm_count(values.device)) if windows_pay(m, p) else None
+    out, launched = _launch(values, indices, dense, plan)
+    spmm.launches += launched
+    return out
+
+
+def _launch(values, indices, dense, plan: SpmmPlan | None):
+    """(T, launched): the windowed kernel on ``plan``, or with no plan the
+    row kernel on every row (one warp a row, Ω gathered from L2)."""
     _check(values, indices, dense, "dense")
     n, m = values.shape
-    ell = dense.shape[1]
+    p, ell = dense.shape
     out = torch.empty((n, ell), dtype=torch.float32, device=values.device)
     if not (n and ell):
-        return out
+        return out, False
     if m == 0:
-        return out.zero_()
+        return out.zero_(), False
+    splits, span = (plan.splits, plan.span) if plan else (0, 0)
+    words = 1 + n + (splits * n * ell if splits > 1 else 0) if plan else 0
+    scratch = torch.empty(words, dtype=torch.int32, device=values.device)
     lib = _build.library("spmm")
     with torch.cuda.device(values.device):
         err = lib.spmm_f32(values.data_ptr(), indices.data_ptr(), dense.data_ptr(),
-                           out.data_ptr(), n, m, ell, _vec4(dense, out),
-                           _build.stream_of(values))
+                           out.data_ptr(), scratch.data_ptr(), n, m, p, ell, _vec4(dense, out),
+                           splits, span, _build.stream_of(values))
     _build.check(err, "spmm")
-    spmm.launches += 1
-    return out
+    return out, True
 
 
 def column_buckets(indices: torch.Tensor, p: int):

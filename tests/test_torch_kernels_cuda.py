@@ -5,12 +5,15 @@ inside a fixture). On the card run ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``. Shapes are the streaming engine's
 (4096 rows a step, p = 16384, m = 819, K = 10, r = 3) and the low-rank path's
 (p = 65536, m = 3277, l = 128) plus the edges: the p = 2^15 ceiling of K1/K2,
-K3's outer passes at 2^17 and 2^21, ragged row counts, p < 32 and an l that is
-not a multiple of 32.
+K3 at every cluster size (p = 2^16 … 2^19) and on its multi-pass schedule
+(2^20, 2^21), the sketch in K3's cluster gather mode, ragged row counts,
+p < 32 and an l that is not a multiple of 32.
 
 Tolerances: K1–K3 are bit-equal to the plain butterfly (same stages, same
-order). K5/K6 sum in another order than the plain einsum/index_add, so they
-are held to 1e-5 of the largest output; K6 is bit-identical across launches,
+order), the cluster sketch too. K5/K6 sum in another order than the plain
+einsum/index_add, so they are held to 1e-5 of the largest output; K5 is
+bit-identical across launches and, with one split, bit-equal to its row
+kernel; K6 is bit-identical across launches,
 its transposition to the stable sort of ``column_buckets``, and its walk to
 the same walk fed by ``column_buckets``. K4 sums in another order than the
 plain version: 1e-5 relative, the same argmin where the top two differ by more
@@ -63,9 +66,15 @@ def test_hd_precondition_matches_plain(dev, n, p, signs_after):
     assert torch.max(torch.abs(got - want)).item() <= 1e-5
 
 
-@pytest.mark.parametrize("n,p", [(64, 1 << 16), (10, 1 << 16), (3, 1 << 17), (2, 1 << 21)])
+K3_SHAPES = [(64, 1 << 16), (10, 1 << 16), (3, 1 << 17), (2, 1 << 21)] + [
+    (n, 1 << lp) for n in (1, 10, 777) for lp in range(16, 21)]
+
+
+@pytest.mark.parametrize("n,p", K3_SHAPES)
 @pytest.mark.parametrize("signs_after", [False, True])
 def test_chunked_transform_matches_plain(dev, n, p, signs_after):
+    """K3 at every cluster size the card places (one pass up to C_max·2^15)
+    and on its multi-pass schedule above, bit-equal to the plain butterfly."""
     x, s, _ = _case(n, p, 1, dev)
     before = fwht.hd_precondition_chunked.launches
     got = fwht.hd_precondition(x, s, signs_after=signs_after)      # p > 2^15: K3
@@ -74,8 +83,57 @@ def test_chunked_transform_matches_plain(dev, n, p, signs_after):
     assert torch.equal(got, ref.ref_hd_precondition(x, s, signs_after=signs_after))
 
 
+def test_max_cluster_and_the_one_pass_ceiling(dev):
+    """C_max is 8 (portable) or 16 on an H100, and p = 2^16 is one cluster pass."""
+    c_max = fwht.max_cluster(dev)
+    assert c_max in (8, 16)
+    assert fwht.chunk_plan(1 << 16, c_max) == (4, 14, 0)
+    assert fwht.chunk_plan(c_max << 15, c_max) == (c_max, 15, 0)
+
+
+@pytest.mark.parametrize("lp", range(16, 20))
+@pytest.mark.parametrize("signs_after", [False, True])
+def test_chunked_transform_both_block_sizes(dev, lp, signs_after):
+    """K3 and the cluster sketch on the schedule of every C_max up to the
+    card's: blocks of 2^14 and of 2^15 values, smaller clusters and register
+    passes, all bit-equal to the plain versions."""
+    p = 1 << lp
+    x, s, idx = _case(9, p, 77, dev, seed=lp)
+    want = ref.ref_hd_precondition(x, s, signs_after=signs_after)
+    want_sketch = ref.ref_sketch_fused(x, s, idx)
+    chunk_logs = set()
+    for c_max in fwht.CLUSTER_SIZES:
+        if c_max > fwht.max_cluster(dev):
+            continue
+        plan = fwht.chunk_plan(p, c_max)
+        chunk_logs.add(plan[1])
+        assert torch.equal(fwht._chunked(x, s, signs_after, plan), want), plan
+        if not plan[2]:
+            assert torch.equal(sketch_fused._cluster(x, s, idx, plan), want_sketch), plan
+    assert chunk_logs == ({14, 15} if p <= fwht.max_cluster(dev) << 14 else {15})
+
+
+@pytest.mark.parametrize("n,p,m", [(16, 1 << 16, 3277), (777, 1 << 16, 1), (5, 1 << 16, 65536),
+                                   (3, 1 << 18, 13107), (129, 1 << 18, 1), (1, 1 << 17, 6554)])
+def test_sketch_cluster_gather_matches_plain(dev, n, p, m):
+    """The sketch above 2^15 in one cluster pass: bit-equal to the plain
+    composition, counted on its own wrapper and tallied kernel_cluster."""
+    x, s, idx = _case(n, p, m, dev, seed=n + m)
+    ops.reset_counts()
+    got = ops.sketch_fused(x, s, idx)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["sketch_fused_cluster"] == 1 and counts["hd_precondition_chunked"] == 0
+    assert ops.DISPATCH[("sketch_fused", "kernel_cluster")] == 1
+    assert got.shape == (n, m)
+    assert torch.equal(got, ref.ref_sketch_fused(x, s, idx))
+    shuffled = idx[:, torch.randperm(m, device=dev)].contiguous()   # any order of indices
+    assert torch.equal(sketch_fused.sketch_fused_cluster(x, s, shuffled),
+                       ref.ref_sketch_fused(x, s, shuffled))
+
+
 def test_sketch_fused_above_the_ceiling_composes_k3(dev):
-    x, s, idx = _case(16, 1 << 16, 3277, dev)
+    x, s, idx = _case(4, 1 << 20, 3277, dev)
     ops.reset_counts()
     got = ops.sketch_fused(x, s, idx)
     torch.cuda.synchronize()
@@ -84,6 +142,8 @@ def test_sketch_fused_above_the_ceiling_composes_k3(dev):
     assert torch.equal(got, ref.ref_sketch_fused(x, s, idx))
     with pytest.raises(ValueError, match="K3"):
         sketch_fused.sketch_fused(x, s, idx)           # K1 alone stays single-row
+    with pytest.raises(ValueError, match="cluster"):
+        sketch_fused.sketch_fused_cluster(x, s, idx)   # past C_max·2^15
 
 
 def test_chunked_transform_above_its_ceiling_raises(dev):
@@ -121,6 +181,59 @@ def test_spmm_and_spmm_t_match_plain(dev, n, p, m, ell):
     assert torch.equal(got[0], y)
     for g, w in zip(got[1:], want[1:]):
         _close_rel(g, w)
+
+
+@pytest.mark.parametrize("n,ell", [(4096, 128), (777, 128), (4096, 40), (1000, 130), (33, 40)])
+def test_spmm_windows_match_row_kernel(dev, n, ell):
+    """The windowed K5, which the low-rank path's m/p takes: with one split
+    bit-equal to the row kernel; on its plan within 1e-5 of max |plain| and
+    bit-identical across launches."""
+    p, m = 65536, 3277
+    assert spmm.windows_pay(m, p)
+    vals, idx, dense = _spmm_case(dev, n, p, m, ell, seed=n + ell)
+    plan = spmm.spmm_plan(n, p, ell, spmm.sm_count(dev))
+    assert plan.splits > 1 and plan.smem <= spmm.SMEM_LIMIT
+    by_rows = spmm._launch(vals, idx, dense, None)[0]
+    one = spmm._launch(vals, idx, dense, spmm.spmm_plan(n, p, ell, spmm.sm_count(dev), splits=1))[0]
+    before = spmm.spmm.launches
+    got = spmm.spmm(vals, idx, dense)
+    torch.cuda.synchronize()
+    assert spmm.spmm.launches == before + 1
+    assert torch.equal(one, by_rows)
+    _close_rel(got, ref.ref_spmm(vals, idx, dense))
+    for _ in range(2):
+        assert torch.equal(spmm.spmm(vals, idx, dense), got)
+    for splits in (2, 3, 7):
+        other = spmm.spmm_plan(n, p, ell, spmm.sm_count(dev), splits=splits)
+        _close_rel(spmm._launch(vals, idx, dense, other)[0], ref.ref_spmm(vals, idx, dense))
+
+
+def test_spmm_takes_the_row_kernel_where_windows_do_not_pay(dev):
+    """At m/p below 1/32 every row takes the row kernel: bit-equal to it."""
+    n, p, m, ell = 1000, 65536, 655, 128
+    assert not spmm.windows_pay(m, p)
+    vals, idx, dense = _spmm_case(dev, n, p, m, ell, seed=11)
+    got = spmm.spmm(vals, idx, dense)
+    assert torch.equal(got, spmm._launch(vals, idx, dense, None)[0])
+    _close_rel(got, ref.ref_spmm(vals, idx, dense))
+
+
+def test_spmm_rows_that_do_not_increase_take_the_row_kernel(dev):
+    """Rows with a repeated or an out-of-order index go to the row kernel
+    (bit-equal to it there); the others stay on the windowed kernel."""
+    n, p, m, ell = 300, 65536, 3277, 128
+    vals, idx, dense = _spmm_case(dev, n, p, m, ell, seed=7)
+    idx[5, 10] = idx[5, 9]                        # a repeat
+    idx[77] = idx[77].flip(0)                     # decreasing
+    idx[150, [0, 1]] = idx[150, [1, 0]]           # one swap
+    got = spmm.spmm(vals, idx, dense)
+    by_rows = spmm._launch(vals, idx, dense, None)[0]
+    torch.cuda.synchronize()
+    _close_rel(got, ref.ref_spmm(vals, idx, dense))
+    for i in (5, 77, 150):
+        assert torch.equal(got[i], by_rows[i]), i
+    one = spmm._launch(vals, idx, dense, spmm.spmm_plan(n, p, ell, spmm.sm_count(dev), splits=1))[0]
+    assert torch.equal(one, by_rows)
 
 
 def test_spmm_t_is_deterministic(dev):

@@ -90,9 +90,10 @@ def test_wrappers_use_plain_versions_for_cpu_tensors():
     big = torch.ones((2, 1 << 16))
     ops.hd_precondition(big, torch.ones(1 << 16))
     ops.spmm(vals, idx, torch.ones((64, 3)))
-    assert ops.launch_counts() == {"sketch_fused": 0, "hd_precondition": 0,
-                                   "hd_precondition_chunked": 0, "sparse_assign": 0,
-                                   "spmm": 0, "spmm_t": 0, "transpose_columns": 0}
+    assert ops.launch_counts() == {"sketch_fused": 0, "sketch_fused_cluster": 0,
+                                   "hd_precondition": 0, "hd_precondition_chunked": 0,
+                                   "sparse_assign": 0, "spmm": 0, "spmm_t": 0,
+                                   "transpose_columns": 0}
     assert ops.DISPATCH == {("sketch_fused", "ref"): 1, ("sparse_assign", "ref"): 1,
                             ("hd_precondition", "ref"): 1, ("spmm", "ref"): 1}
     with pytest.raises(ValueError, match="mode"):
@@ -163,3 +164,58 @@ def test_transpose_scratch_within_the_entry_arrays(n, m, p):
         assert rows == spmm.TILE_ROWS and words == fast_words <= 2 * n * m
     else:
         assert 1 <= rows <= n and words == tiles * p + extra
+
+
+@pytest.mark.parametrize("max_cluster", [8, 16])
+@pytest.mark.parametrize("log_p", range(16, 28))
+def test_chunk_plan_covers_every_index_bit(log_p, max_cluster):
+    """K3's schedule: one cluster pass takes the low chunk_log + log2(C) index
+    bits (blocks of 2^14 values where the row fits a cluster of them, else
+    2^15), register passes of at most five bits the rest, every bit exactly
+    once; one pass wherever the row fits a cluster."""
+    cluster, chunk_log, passes = fwht.chunk_plan(1 << log_p, max_cluster)
+    assert chunk_log == (14 if 1 << log_p <= max_cluster << 14 else 15)
+    assert cluster in fwht.CLUSTER_SIZES and cluster <= max_cluster
+    cluster_bits = chunk_log + cluster.bit_length() - 1
+    rest = log_p - cluster_bits
+    assert rest >= 0 and (passes - 1) * fwht.REGISTER_BITS < rest <= passes * fwht.REGISTER_BITS \
+        or rest == passes == 0
+    assert (rest == 0) == ((1 << log_p) <= max_cluster << fwht.CHUNK_LOG)
+    if rest:
+        assert cluster == max_cluster
+
+
+def test_chunk_plan_refuses_what_k3_does_not_take():
+    for p in (1 << 15, 1 << 28, 3 << 16):
+        with pytest.raises(ValueError):
+            fwht.chunk_plan(p, 16)
+    with pytest.raises(ValueError, match="max_cluster"):
+        fwht.chunk_plan(1 << 16, 32)
+    assert fwht.chunk_plan(1 << 16, 2) == (2, 15, 0)      # 4 blocks of 2^14 do not fit
+    assert fwht.chunk_plan(1 << 19, 16) == (16, 15, 0)    # nor do 32
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("n,m,p,ell", [(4096, 3277, 65536, 128), (777, 3277, 65536, 128),
+                                       (4096, 3277, 65536, 40), (1000, 3277, 65536, 130),
+                                       (64, 3277, 65536, 16), (5, 64, 64, 13), (8, 1, 256, 4),
+                                       (1 << 20, 50, 1 << 16, 128), (4096, 819, 16384, 128)])
+def test_spmm_plan_fits_and_fills_the_card(sms, n, m, p, ell):
+    """The windowed K5's plan on a card of ``sms`` SMs: two windows and the
+    rows' rings of pairs within a block's 227 KiB of shared memory; at least
+    one block an SM where the rows and Ω's windows allow that many; splits
+    cover Ω's rows once, in whole windows. The windows take the rows where a
+    row keeps at least 1/32 of Ω's rows (the low-rank path's 0.05 does)."""
+    plan = spmm.spmm_plan(n, p, ell, sms)
+    window = spmm.WINDOW
+    smem = 2 * window * (128 if ell % 4 == 0 else 32) * 4 + spmm.WIN_ROWS * 64 * 8
+    assert plan.smem == smem <= spmm.SMEM_LIMIT
+    tiles = -(-n // spmm.WIN_ROWS)
+    assert plan.blocks == tiles * plan.splits
+    assert plan.span % window == 0 and (plan.splits - 1) * plan.span < p <= plan.splits * plan.span
+    if tiles * min(-(-p // window), spmm.MAX_SPLITS) >= sms:
+        assert plan.blocks >= sms
+    fixed = spmm.spmm_plan(n, p, ell, sms, splits=1)
+    assert fixed.splits == 1 and fixed.span >= p
+    assert spmm.windows_pay(m, p) == (m >= p / 32)
+    assert spmm.windows_pay(3277, 65536) and not spmm.windows_pay(655, 65536)

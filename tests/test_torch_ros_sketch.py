@@ -10,7 +10,9 @@ import torch
 from repro.core import ros as jros
 from repro.core import sampling as jsampling
 from repro.core import sketch as jsketch
+from repro.kernels import ref as jref
 from repro_torch.core import ros, sampling, sketch
+from repro_torch.kernels import ops
 
 KEY = jax.random.PRNGKey(5)
 
@@ -106,3 +108,27 @@ def test_subsample_and_gather_match(partitionable):
     np.testing.assert_array_equal(
         sampling.row_sampled_gather(torch.from_numpy(v), s.indices).numpy(),
         np.asarray(jsampling.row_sampled_gather(jnp.asarray(v), s_j.indices)))
+
+
+@pytest.mark.parametrize("p", [40000, 1 << 17])
+def test_sketch_above_the_single_row_ceiling_matches(partitionable, p):
+    """Past p_pad = 2^15, on the CPU (the plain path of the cluster sketch):
+    the sketch and ops.sketch_fused against the reference's plain
+    composition, p_pad = 2^16 (40000 padded) and 2^17; identical indices,
+    values within 1e-5. The card's kernel meets this reference through its
+    bit-equality with the port's plain version (tests/test_torch_kernels_cuda.py)."""
+    spec_j = jsketch.make_spec(p, KEY, gamma=0.05)
+    spec = sketch.make_spec(p, _kd(KEY), gamma=0.05)
+    assert spec.p_pad == spec_j.p_pad > 1 << 15
+    x = _x(3, p, seed=p)
+    bk_j = jsketch.batch_key(spec_j, jnp.int32(2), 0)
+    s = sketch.sketch(torch.from_numpy(x), spec, batch_key=_kd(bk_j))
+    s_j = jsketch.sketch(jnp.asarray(x), spec_j, batch_key=bk_j)
+    np.testing.assert_array_equal(s.indices.numpy(), np.asarray(s_j.indices))
+    _close(s.values, s_j.values)
+    xp = np.pad(x, [(0, 0), (0, spec.p_pad - p)])
+    d = ros.signs_for(spec.signs_key(), spec.p_pad)
+    idx = s.indices
+    got = ops.sketch_fused(torch.from_numpy(xp), d, idx)
+    _close(got, jref.ref_sketch_fused(jnp.asarray(xp), jnp.asarray(d.numpy()), jnp.asarray(idx.numpy())))
+    np.testing.assert_array_equal(got.numpy(), s.values.numpy())
