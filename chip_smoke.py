@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero:
               memory and spills from ptxas.
 3. kernels  — each kernel against its plain PyTorch version on the card, at the
               shapes the two streaming paths give it (and at its edges), with
-              its time over repeated launches beside its bound: K4 at every
+              its time over repeated launches beside its bound: K2 bit-equal
+              at (10, 16384), (4096, 16384) and (16384, 16384) in both sign
+              modes, on split_plan's schedule and the others it can take,
+              each back to back and by its device time alone; K4 at every
               (r, K) the paths launch and one with r·K > 32, at both paths' m;
               K3 bit-equal at every cluster size (p = 2^16 … 2^19) and on its
               multi-pass schedule (2^20, 2^21), timed by cluster size; the
@@ -28,7 +31,9 @@ Phases, in order; any failure exits non-zero:
               of passes, bit-equal to column_buckets.
 4. parity   — small runs on the card with the kernels against the same runs on
               the CPU with the plain versions (same seed, same masks): the
-              dense path at p = 1000 and the low-rank path at p = 40000.
+              dense path at p = 1000, the low-rank path at p = 40000, and the
+              front door, fit_many(Plan(backend="batch", gamma=0.1), [mean,
+              PCA(4), K-means(4)]) at p = 1000 (Lloyd's labels equal).
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
               (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
@@ -45,6 +50,20 @@ Phases, in order; any failure exits non-zero:
               stream, the subspace of the planted directions that the
               range-finder resolves at each n must match the planted one, and
               after 8 steps their eigenvalues too.
+8. front    — the estimator front door at phase 5's width: 65,536 rows of
+              p = 16384 on the card (the phase-5 source's planted U and λ),
+              fit_many over SparsifiedMean, SparsifiedCov, SparsifiedPCA(8) and
+              SparsifiedKMeans(10) (Lloyd, n_init = 3) on the batch and then the
+              stream backend (16 sketches; phase 5's PCA gates; the backends
+              agree to 1e-5); cov_original (two K2 launches of (16384, 16384));
+              Lloyd on a planted mixture of 10 Gaussians (accuracy ≥ 0.95, the
+              dense K-means ≥ 0.99, a second fit bit-identical); every kernel of
+              the path (K1, K2, K4, K6) must have launched; Lloyd's center
+              update bit-equal to the CPU's scatter-add and K4 at (r = 1, K = 10)
+              against its plain version, both on the mixture's 65,536 retained
+              rows; and the low-rank
+              SparsifiedPCA at p = 65536, whose RangeState and top-8 must be
+              bit-equal to make_engine(...).run(2) on the same source.
 
 Then one JSON line listing every kernel, the card's line again, and the result
 line ``{"ok": true, "device": {...}}`` last.
@@ -77,6 +96,13 @@ READ_LR = (2, 4, STEPS_LR)
 PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
 PATH2 = ("sketch_fused_cluster", "hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t",
          "transpose_columns")
+# the front door (phase 8): the sketch, the unmixes (cov_original's two of
+# (16384, 16384) among them), Lloyd's assignment (K4) and its center update (K6)
+PATH8 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm_t", "transpose_columns")
+# phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
+# so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
+# ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
+SEP = 40.0
 
 
 def fail(msg: str) -> None:
@@ -137,6 +163,7 @@ def main() -> None:
     from repro_torch import api
     from repro_torch.core import pca as pca_mod
     from repro_torch.core import estimators
+    from repro_torch.core import kmeans as kmeans_mod
     from repro_torch import lowrank
     from repro_torch.core.sampling import SparseRows, sample_indices
     from repro_torch.data.pipeline import VectorStreamSource
@@ -187,6 +214,36 @@ def main() -> None:
         print(f"  {name}: err {err:.3g} (tol {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"one library call {lib}, bound {b[0]:.4f} ms ({b[1]})")
 
+    def by_pass(fn, reps):
+        """Device ms a call of each kernel ``fn`` launches, by torch.profiler."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        passes = {}
+        for e in prof.key_averages():
+            name = re.search(r"::(\w+)[(<]", e.key)
+            if e.device_type == DeviceType.CUDA and name:
+                passes[name.group(1)] = e.self_device_time_total / reps / 1e3
+        return ", ".join(f"{k} {v:.4f}" for k, v in sorted(passes.items(), key=lambda kv: -kv[1]))
+
+    def by_pass_total(fn, reps):
+        """Device ms a call of ``fn`` takes on the card, by torch.profiler: each
+        kernel's mean over the launches the trace kept (it can drop some, which
+        a sum over ``reps`` calls would count as zero), summed over the
+        kernels; for calls that launch each of their kernels once. NaN (not
+        measured) where two traces in turn kept no launch at all."""
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            kept = [e.self_device_time_total / e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count]
+            if kept:
+                return sum(kept) / 1e3
+        return math.nan
+
     # K1 sketch_fused at the stream's shape, at its p = 2^15 ceiling, and at a ragged n
     for n, p, mm in [(BATCH, P, m), (1024, 1 << 15, round(GAMMA * (1 << 15))), (777, P, m)]:
         x, s, idx = sketch_case(n, p, mm, seed=n)
@@ -198,32 +255,92 @@ def main() -> None:
         b = bound(4 * (n * p + p + 2 * n * mm), n * p * (math.log2(p) + 1) + n * mm)
         report(f"K1 sketch_fused ({n}, {p}, m={mm})", err, 1e-5, ms, plain_ms, b)
         if (n, p) == (BATCH, P):
+            print(f"    device time alone (torch.profiler) "
+                  f"{by_pass_total(lambda: ops.sketch_fused(x, s, idx), 20):.4f} ms")
             entries["sketch_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                            bound_ms=b[0], bound_by=b[1], library_ms=None)
     del x, s, idx, got
 
-    # K2 hd_precondition: a batch of rows, and the unmix shape of finalize, both sign modes
+    # K2 hd_precondition, both sign modes, at the finalize's unmix (10, 16384),
+    # a batch (4096, 16384) and cov_original's (16384, 16384): bit-equal to the
+    # plain butterfly on the schedule split_plan picks and on the others it
+    # could; each timed back to back (CUDA events around many calls: host and
+    # device) and by its device time alone (torch.profiler). One PyTorch call
+    # for the same function is x @ (H·D) or x @ (D·H)
     eye = torch.eye(P, device=dev)
     hmat = ref.ref_hd_precondition(eye, torch.ones(P, device=dev))   # H, symmetric
     del eye
-    for n in (BATCH, K):
-        x, s, _ = sketch_case(n, P, 1, seed=7 + n)
+    sms = spmm_mod.sm_count(dev)
+    for n in (K, BATCH, P):
+        gen = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((n, P), device=dev, generator=gen)
+        s = prng.rademacher(prng.fold_in(key, 7 + n), (P,), device=dev)
+        chosen = fwht.split_plan(n, P, sms, c_max)
+        others = [c for c in ([(8, 11), (4, 12), (2, 13)] if n < sms else [(2, 13), (4, 12)])
+                  if c[0] <= c_max]
+        b = bound(4 * (2 * n * P + P), n * P * (math.log2(P) + 2))
         for after in (False, True):
+            ops.reset_counts()
             got = ops.hd_precondition(x, s, signs_after=after)
             torch.cuda.synchronize()
-            err = (got - ref.ref_hd_precondition(x, s, after)).abs().max().item()
-            ms = time_ms(lambda: ops.hd_precondition(x, s, signs_after=after), 20)
-            plain_ms = time_ms(lambda: ref.ref_hd_precondition(x, s, after), 5)
+            check(ops.launch_counts()["hd_precondition"] == 1, f"K2 at ({n}, {P}) did not launch")
+            want = ref.ref_hd_precondition(x, s, after)
+            check(torch.equal(got, want), f"K2 at ({n}, {P}) signs_after={after} on its plan "
+                                          f"{chosen} is not bit-equal to the plain butterfly")
+            err = (got - want).abs().max().item()
+            del want
+            # back to back: each way of calling it, in 5 interleaved rounds,
+            # the median (a shared host's share moves from round to round):
+            # the wrapper on its plan, then every plan through fwht._rows
+            plans = [chosen] + [pl for pl in [None] + others if pl != chosen]
+            calls = {"ops": lambda: ops.hd_precondition(x, s, signs_after=after)}
+            for pl in plans:
+                alt = fwht._rows(x, s, after, pl)
+                check(torch.equal(alt, got), f"K2 at ({n}, {P}) on plan {pl} is not bit-equal")
+                calls[pl] = (lambda pl=pl: fwht._rows(x, s, after, pl))
+            if n < sms and after:
+                # the host's layers: the C entry point alone with its arguments
+                # ready, the launcher, the kernel wrapper, the dispatch
+                lib = _build.library("hadamard")
+                out = torch.empty_like(x)
+                raw = (x.data_ptr(), s.data_ptr(), out.data_ptr(), n, P.bit_length() - 1, 1,
+                       fwht.scale_for(P), chosen[0].bit_length() - 1, chosen[1],
+                       _build.stream_of(x))
+                calls["raw"] = lambda: lib.hd_precondition_f32(*raw)
+                calls["fwht"] = lambda: fwht.hd_precondition(x, s, signs_after=after)
+            reps = 200 if n < sms else 20
+            rounds = {k_: [] for k_ in calls}
+            for _ in range(5):
+                for k_, fn in calls.items():
+                    rounds[k_].append(time_ms(fn, reps))
+            med = {k_: float(np.median(v)) for k_, v in rounds.items()}
+            ms = med["ops"]
+            dev_ms = by_pass_total(calls["ops"], 20)
+            plain_ms = time_ms(lambda: ref.ref_hd_precondition(x, s, after), 3)
             dense = hmat * s[None, :] if after else s[:, None] * hmat     # H·D or D·H
-            lib_ms = time_ms(lambda: torch.matmul(x, dense), 5)
+            lib_ms = time_ms(lambda: torch.matmul(x, dense), 3)
             del dense
-            b = bound(4 * (2 * n * P + P), n * P * (math.log2(P) + 2))
-            report(f"K2 hd_precondition ({n}, {P}) signs_after={after}", err, 1e-5, ms,
-                   plain_ms, b, lib_ms)
+            report(f"K2 hd_precondition ({n}, {P}) signs_after={after}, plan {chosen}, bit-equal",
+                   err, 0.0, ms, plain_ms, b, lib_ms)
+            setter = ("not measured" if math.isnan(dev_ms)
+                      else "the host" if ms > 1.5 * dev_ms else "the device")
+            print(f"    device time alone (torch.profiler) {dev_ms:.4f} ms, back to back {ms:.4f} ms "
+                  f"(median of 5 rounds of {reps}; rounds {np.round(rounds['ops'], 4).tolist()}): "
+                  f"what sets the time: {setter}; {b[0] / dev_ms:.2f} of its bound on the device")
+            probes = [f"{pl}: {med[pl]:.4f} / {by_pass_total(calls[pl], 20):.4f}" for pl in plans]
+            print(f"    every schedule, bit-equal; back to back (median) / device ms: {'; '.join(probes)}")
+            if "raw" in med:
+                print(f"    the host's layers, back to back (median ms a call): the C entry point "
+                      f"alone {med['raw']:.4f}, fwht._rows {med[chosen]:.4f}, fwht.hd_precondition "
+                      f"{med['fwht']:.4f}, ops.hd_precondition {med['ops']:.4f}")
+                del out
             if n == K and after:
                 entries["hd_precondition"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                   bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
-    del x, s, got, hmat
+            del got
+        del x, s
+    del hmat
+    torch.cuda.empty_cache()
 
     # K4 sparse_assign at every launch shape of both paths (each path's p and
     # m): a step's r = 3 sets of K = 10; K-means++'s candidates (r = 1,
@@ -233,7 +350,7 @@ def main() -> None:
     for p, mm in [(P, m), (P_LR, m_lr)]:
         idx = sample_indices(prng.fold_in(key, 12 + p), BATCH, p, mm, device=dev)
         vals0 = torch.from_numpy(rng.normal(size=(BATCH, mm)).astype(np.float32)).to(dev)
-        for r, kk in [(N_INIT, K), (1, 5), (1, 1), (3, 16)]:
+        for r, kk in [(N_INIT, K), (1, K), (1, 5), (1, 1), (3, 16)]:
             vals = vals0.clone()
             centers = torch.from_numpy(rng.normal(size=(r, kk, p)).astype(np.float32)).to(dev)
             tie = (3, 7) if kk >= 8 else (1, kk - 1)
@@ -321,6 +438,8 @@ def main() -> None:
                 by_cluster.append(f"C={plan[0]}{f' + {plan[2]} register passes' if plan[2] else ''} "
                                   f"(p={p}) {ms:.4f} ms, {b[0] / ms:.2f} of its bound")
             if (n, p, after) == (PCA_K, P_LR, True):     # the unmix that phase 7 launches
+                print(f"    device time alone (torch.profiler) "
+                      f"{by_pass_total(lambda: ops.hd_precondition(x, s, signs_after=after), 20):.4f} ms")
                 entries["hd_precondition_chunked"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                     library_ms=lib_ms)
@@ -381,19 +500,6 @@ def main() -> None:
         order, want_starts = spmm_mod.column_buckets(idx, p)
         return (torch.equal(starts, want_starts) and torch.equal(pairs[:, 0], order // idx.shape[1])
                 and torch.equal(pairs[:, 1].view(torch.float32), vals.reshape(-1)[order.long()]))
-
-    def by_pass(fn, reps):
-        """Device ms a call of each kernel ``fn`` launches, by torch.profiler."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        passes = {}
-        for e in prof.key_averages():
-            name = re.search(r"::(\w+)[(<]", e.key)
-            if e.device_type == DeviceType.CUDA and name:
-                passes[name.group(1)] = e.self_device_time_total / reps / 1e3
-        return ", ".join(f"{k} {v:.4f}" for k, v in sorted(passes.items(), key=lambda kv: -kv[1]))
 
     # K5 spmm and K6 spmm_t at the low-rank path's shapes, at a ragged n, and at
     # an l that is not a multiple of 32 (float4 lanes) or of 4 (one float a lane)
@@ -622,6 +728,47 @@ def main() -> None:
     check(cos[:4].min() >= 1 - 1e-4, "low-rank components differ between the card and the CPU")
     del eng_card, eng_cpu, lr_card, lr_cpu, st_card, st_cpu
 
+    # the front door: fit_many(Plan(backend="batch", gamma=0.1), [mean, PCA(4),
+    # K-means(4)]) on 2000 rows of p = 1000 near 4 centers along planted
+    # directions of distinct weight (so the top eigenpairs are well apart)
+    rng4 = np.random.default_rng(4)
+    u4, _ = np.linalg.qr(rng4.normal(size=(1000, 4)))
+    lab4 = rng4.integers(0, 4, 2000)
+    x4 = (5 * np.array([9.0, 6.0, 4.0, 2.5])[lab4, None] * u4.T[lab4]
+          + 0.5 * rng4.normal(size=(2000, 1000))).astype(np.float32)
+
+    def front(device):
+        plan = api.Plan(backend="batch", gamma=0.1)
+        cons = [api.SparsifiedMean(plan, key=3, device=device),
+                api.SparsifiedPCA(4, plan, key=3, device=device),
+                api.SparsifiedKMeans(4, plan, key=3, device=device)]
+        api.fit_many(plan, cons, x4)
+        return cons
+
+    ops.reset_counts()
+    (mean_g, pca_g, km_g), (mean_c, pca_c, km_c) = front("cuda"), front("cpu")
+    counts = ops.launch_counts()
+    check(all(counts[name] > 0 for name in PATH8),
+          f"the front door on the card did not launch every kernel of its path: {counts}")
+    check(torch.equal(km_g.labels_.cpu(), km_c.labels_) and km_g.n_iter_ == km_c.n_iter_,
+          "Lloyd's labels or iterations differ between the card and the CPU")
+    comps_g, comps_c = pca_g.components_.cpu().numpy(), pca_c.components_.numpy()
+    comps_g = comps_g * np.sign(np.sum(comps_g * comps_c, axis=1, keepdims=True))
+    for name, a, b_, rtol in [("mean", mean_g.mean_, mean_c.mean_, 1e-5),
+                              ("PCA eigenvalues", pca_g.explained_variance_,
+                               pca_c.explained_variance_, 1e-5),
+                              ("PCA components (signs aligned)", comps_g, comps_c, 0),
+                              ("K-means centers", km_g.centers_, km_c.centers_, 1e-5)]:
+        a = a.cpu().numpy() if torch.is_tensor(a) else a
+        b_ = b_.numpy() if torch.is_tensor(b_) else b_
+        print(f"  front door {name}: max |card - cpu| {np.abs(a - b_).max():.3g} "
+              f"(rtol {rtol:g}, atol 1e-5)")
+        check(np.allclose(a, b_, rtol=rtol, atol=1e-5), f"front door {name} differs between the "
+                                                         f"card and the CPU")
+    print(f"  front door: Lloyd's labels equal on the card and the CPU, {km_g.n_iter_} iterations; "
+          f"launches on the card {counts}")
+    del mean_g, pca_g, km_g, mean_c, pca_c, km_c
+
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
     src = VectorStreamSource(p=P, batch=BATCH, seed=0)
@@ -815,6 +962,231 @@ def main() -> None:
     for e in kernel_rows[:10]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:100]}")
     del state, x
+
+    # ------------------------------------------------------------ 8 front door
+    print(f"== 8 the front door at full width: p={P}, {STEPS * BATCH} rows on the card, "
+          f"Plan(gamma={GAMMA}, batch_size={BATCH}), batch then stream", flush=True)
+    del src
+    t8 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n8, m = STEPS * BATCH, round(GAMMA * P)
+    src = VectorStreamSource(p=P, batch=BATCH, seed=0)      # its planted U and λ
+    gen = torch.Generator(device=dev).manual_seed(8)
+    u8, lam8 = torch.from_numpy(src._u).to(dev), torch.from_numpy(src._lam).to(dev)
+    x8 = (torch.randn((n8, src.k), generator=gen, device=dev) * lam8) @ u8.T
+    x8.add_(torch.randn((n8, P), generator=gen, device=dev), alpha=0.05)
+    mix_means = torch.randn((K, P), generator=gen, device=dev) * (SEP / math.sqrt(P))
+    mix_labels = torch.randint(0, K, (n8,), generator=gen, device=dev)
+    xm = mix_means[mix_labels]
+    xm.add_(torch.randn((n8, P), generator=gen, device=dev))
+    del u8, lam8, mix_means
+    torch.cuda.synchronize()
+    plan8 = api.Plan(backend="batch", gamma=GAMMA, batch_size=BATCH)
+    planted = src._lam.astype(np.float64) ** 2
+    fits = {}
+    ops.reset_counts()
+    sa_mod.sparse_assign.by_shape.clear()
+    for backend in ("batch", "stream"):
+        pl = plan8.replace(backend=backend)
+        cons = [api.SparsifiedMean(pl, key=1), api.SparsifiedCov(pl, key=1),
+                api.SparsifiedPCA(PCA_K, pl, key=1),
+                api.SparsifiedKMeans(K, pl, key=1, n_init=N_INIT, max_iter=100)]
+        t0 = time.perf_counter()
+        run = api.fit_many(pl, cons, x8, finalize=False).sync()
+        t_fit = time.perf_counter() - t0
+        times = []
+        for c in cons:        # K-means last: the launches after ``before`` are Lloyd's
+            before = dict(ops.launch_counts())
+            k4_before = sa_mod.sparse_assign.by_shape[(1, K, m)]
+            t0 = time.perf_counter()
+            c.finalize()
+            torch.cuda.synchronize()
+            times.append(f"{type(c).__name__} {time.perf_counter() - t0:.3f}")
+        km8 = cons[3]
+        lloyd = {k_: v - before[k_] for k_, v in ops.launch_counts().items() if v > before[k_]}
+        k4_lloyd = sa_mod.sparse_assign.by_shape[(1, K, m)] - k4_before
+        print(f"  {backend}: ingest ({run.n_sketches} sketches shared by 4 consumers) {t_fit:.3f} s; "
+              f"finalize (s): "
+              f"{', '.join(times)}; Lloyd {km8.n_iter_} iterations in the best of {N_INIT} restarts, "
+              f"{k4_lloyd} K4 launches at (r=1, K={K}) over the {n8} retained rows; the K-means "
+              f"finalize launched {lloyd}")
+        check(run.n_sketches == STEPS and run.count == n8, f"{backend}: {run.n_sketches} sketches "
+                                                           f"of {run.count} rows")
+        check(k4_lloyd >= km8.n_iter_ + 1, f"{backend}: K4 did not run Lloyd's assignment")
+        check(lloyd.get("spmm_t", 0) >= km8.n_iter_, f"{backend}: K6 did not run Lloyd's update")
+        for name, t in [("mean", cons[0].mean_), ("cov", cons[1].cov_),
+                        ("components", cons[2].components_), ("eigenvalues", cons[2].explained_variance_),
+                        ("centers", km8.centers_), ("objective", km8.objective_)]:
+            check(bool(torch.isfinite(t).all()), f"{backend}: {name} is not finite")
+        comps = cons[2].components_.double().cpu().numpy()
+        q, _ = np.linalg.qr(comps.T)
+        sine = float(np.sqrt(max(0.0, 1.0 - np.linalg.svd(q.T @ src._u.astype(np.float64),
+                                                          compute_uv=False).min() ** 2)))
+        evals = cons[2].explained_variance_.cpu().numpy()
+        print(f"    top-{PCA_K} subspace vs planted: sine {sine:.4f} (< 0.35); eigenvalues "
+              f"{np.round(evals, 2).tolist()} vs planted {np.round(planted, 2).tolist()} (10 %)")
+        check(sine < 0.35, f"{backend}: the top-{PCA_K} subspace is off the planted one")
+        check(bool(np.all(np.abs(evals - planted) <= 0.1 * planted)),
+              f"{backend}: an eigenvalue is more than 10% off its planted value")
+        fits[backend] = cons
+    (mb, cb, pb, kb), (ms_, cs, ps, ks) = fits["batch"], fits["stream"]
+    comps_b, comps_s = pb.components_, ps.components_
+    comps_s = comps_s * torch.sign(torch.sum(comps_s * comps_b, dim=1, keepdim=True))
+    for name, a, b_ in [("mean", ms_.mean_, mb.mean_), ("covariance", cs.cov_, cb.cov_),
+                        ("components (signs aligned)", comps_s, comps_b),
+                        ("eigenvalues", ps.explained_variance_, pb.explained_variance_)]:
+        rel = ((a - b_).abs().max() / b_.abs().max()).item()
+        print(f"  stream against batch, {name}: max |stream - batch| / max |batch| {rel:.3g} (1e-5)")
+        check(rel <= 1e-5, f"stream and batch disagree on the {name}")
+    check(torch.equal(ks.centers_, kb.centers_) and torch.equal(ks.labels_, kb.labels_),
+          "Lloyd on the same sketches gave other centers or labels on the two backends")
+    # where a Lloyd iteration's time goes: one restart of 20 iterations on the
+    # retained sketch under torch.profiler, device time by entry against the
+    # host's clock
+    s_km = kb._reducer.concat()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        it20 = kmeans_mod.sparse_kmeans_core(s_km.values, s_km.indices, s_km.p, K, prng.PRNGKey(5),
+                                             n_init=1, max_iter=20,
+                                             assign_fn=ops.kernel_assign_fn())[3]
+        torch.cuda.synchronize()
+        t_lloyd = time.perf_counter() - t0
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"  one Lloyd restart ({int(it20)} iterations, K-means++ seeding and the transposition "
+          f"included) under torch.profiler: {t_lloyd * 1e3:.1f} ms on the host's clock, {total:.1f} ms "
+          f"of device time (device share {total / (t_lloyd * 1e3):.3f}); the largest:")
+    for e in rows[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:100]}")
+    del s_km, prof, rows
+    del fits, ms_, cs, ps, ks, mb, pb, kb, comps_b, comps_s
+    torch.cuda.empty_cache()
+
+    # cov_original: two K2 unmixes of (16384, 16384) and the 1 GiB transpose
+    # between them; bit-equal to the same two unmixes by the plain butterfly,
+    # and near the rows' empirical second moment (spectral norms by 30 steps of
+    # power iteration on the symmetric matrices)
+    def spectral(a):
+        v = torch.randn(a.shape[0], generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        for _ in range(30):
+            v = a @ v
+            v /= v.norm()
+        return (a @ v).norm().item()
+
+    k2_before = fwht.hd_precondition.launches
+    t0 = time.perf_counter()
+    c_orig = cb.cov_original()
+    torch.cuda.synchronize()
+    t_orig = time.perf_counter() - t0
+    k2_orig = fwht.hd_precondition.launches - k2_before
+    plain = sketch_mod.unmix_dense(sketch_mod.unmix_dense(cb.cov_, cb.spec_, impl="ref").T,
+                                   cb.spec_, impl="ref")
+    check(torch.equal(c_orig, plain), "cov_original is not bit-equal to the plain unmixes")
+    del plain
+    c_emp = x8.T @ x8 / n8
+    rel = spectral(c_orig - c_emp) / spectral(c_emp)
+    print(f"  cov_original {t_orig:.3f} s ({k2_orig} K2 launches of ({P}, {P})), bit-equal to the "
+          f"plain unmixes; spectral distance to the rows' empirical second moment {rel:.4f} of its "
+          f"norm (< 0.15)")
+    check(k2_orig == 2 and tuple(c_orig.shape) == (P, P), "cov_original did not take two K2 launches")
+    check(bool(torch.isfinite(c_orig).all()) and rel < 0.15, "cov_original is off the empirical one")
+    del c_orig, c_emp, cb, x8
+    torch.cuda.empty_cache()
+
+    # Lloyd on the mixture: accuracy, and a second fit bit for bit; the dense
+    # K-means on the same rows shows the separation is what SEP says
+    km_fits = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        km_fits.append(api.SparsifiedKMeans(K, plan8, key=2, n_init=N_INIT, max_iter=100).fit(xm))
+        torch.cuda.synchronize()
+        t_km = time.perf_counter() - t0
+    acc_sparse = kmeans_mod.clustering_accuracy(km_fits[0].labels_, mix_labels, K)
+    t0 = time.perf_counter()
+    dense = kmeans_mod.kmeans(xm, K, prng.PRNGKey(2), n_init=N_INIT, max_iter=100)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    acc_dense = kmeans_mod.clustering_accuracy(dense.assignments, mix_labels, K)
+    print(f"  mixture of {K} Gaussians (means ≈ {SEP * math.sqrt(2):.1f} σ apart): Lloyd on the sketch "
+          f"{t_km:.3f} s a fit, {km_fits[0].n_iter_} iterations, accuracy {acc_sparse:.4f} (≥ 0.95); "
+          f"dense K-means {t_dense:.3f} s, accuracy {acc_dense:.4f} (≥ 0.99)")
+    check(acc_dense >= 0.99, "the mixture is not separated as SEP says: dense K-means misses")
+    check(acc_sparse >= 0.95, "Lloyd on the sketch misses the mixture")
+    a_, b_ = km_fits
+    check(torch.equal(a_.centers_, b_.centers_) and torch.equal(a_.labels_, b_.labels_)
+          and a_.n_iter_ == b_.n_iter_, "two Lloyd fits on the card are not bit-identical")
+    del b_, dense, xm, mix_labels
+    launches8 = ops.launch_counts()
+    peak8 = torch.cuda.max_memory_allocated()
+    print(f"  launches on the front door: {launches8}; K4's by (r, K, m): "
+          f"{dict(sa_mod.sparse_assign.by_shape)}; peak memory {peak8 / 2**30:.2f} GiB")
+    check(all(launches8[name] > 0 for name in PATH8),
+          f"a kernel of the front door never launched: {launches8}")
+
+    # Lloyd's two kernels at the shape they ran at, against their plain
+    # versions (these launches are not the path's): on the mixture's retained
+    # sketch (n8 rows of m), its fitted labels and centers, the center update
+    # (K6's walk and the integer counts) bit-equal to the CPU's scatter-add in
+    # row order, and K4 at (r = 1, K) over every row, with a tie planted as in
+    # phase 3 (two equal centers, 256 rows on them)
+    s_mx = a_._reducer.concat()
+    labels_mx = a_.labels_.to(torch.int32)
+    t0 = time.perf_counter()
+    sums, counts = ops.cluster_sums(s_mx.values, s_mx.indices, labels_mx, K, s_mx.p)
+    torch.cuda.synchronize()
+    t_upd = time.perf_counter() - t0
+    sums_ref, counts_ref = ref.ref_cluster_sums(s_mx.values.cpu(), s_mx.indices.cpu(),
+                                                labels_mx.cpu(), K, s_mx.p)
+    check(torch.equal(sums.cpu(), sums_ref) and torch.equal(counts.cpu(), counts_ref),
+          f"Lloyd's update at ({n8} rows, m={m}, K={K}) is not bit-equal to the CPU's scatter-add")
+    check(int(counts_ref.sum()) == n8 * m, "the update's counts do not add up to n·m")
+    del sums, counts, sums_ref, counts_ref
+    vals = s_mx.values.clone()
+    centers = a_.centers_pre_.clone()
+    tie = (3, 7)
+    centers[tie[1]] = centers[tie[0]]
+    vals[:256] = centers[tie[0]][s_mx.indices[:256].long()]
+    d, a4 = ops.sparse_assign(vals, s_mx.indices, centers)
+    torch.cuda.synchronize()
+    d_ref, a_ref = ref.ref_sparse_assign(vals, s_mx.indices, centers)
+    rel = ((d - d_ref).abs() / d_ref.abs().clamp(min=1e-30)).max().item()
+    top2 = torch.topk(d_ref, 2, dim=-1, largest=False).values
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 0].abs()
+    check(bool(torch.all(a4[:256] == tie[0])), "K4 in Lloyd's shape: a tie did not go to the first index")
+    check(torch.equal(a4[clear], a_ref[clear]), "K4 in Lloyd's shape: argmin differs from the plain version")
+    check(rel <= 1e-5, f"K4 in Lloyd's shape: relative distance error {rel:.3g} above 1e-5")
+    print(f"  Lloyd's kernels at their shape on the mixture's sketch ({n8} rows, m={m}, K={K}): the "
+          f"center update ({t_upd * 1e3:.1f} ms, the transposition included) bit-equal to the CPU's "
+          f"scatter-add; K4 (r=1) relative distance error {rel:.3g} (1e-5), argmin equal on "
+          f"{int(clear.sum())} rows without a near-tie, the planted tie to the first index")
+    del s_mx, labels_mx, vals, centers, d, a4, d_ref, a_ref, top2, clear, km_fits, a_
+    torch.cuda.empty_cache()
+
+    # the low-rank estimator folds the sketches the engine folds: the same
+    # RangeState and top-8, bit for bit
+    plan_lr8 = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, cov_path="lowrank",
+                        rank=ELL)
+    src_lr = VectorStreamSource(p=P_LR, batch=BATCH, seed=0)
+    t0 = time.perf_counter()
+    est_lr = api.SparsifiedPCA(PCA_K, plan_lr8, key=1).fit_stream(src_lr, 2)
+    torch.cuda.synchronize()
+    t_est = time.perf_counter() - t0
+    eng = api.make_engine(plan_lr8, P_LR, 1, src_lr)
+    res_lr = eng.run(2)
+    st_e, st_k = est_lr._reducer.state, eng.state.lowrank
+    check(isinstance(st_e, lowrank.RangeState), "the low-rank estimator holds no RangeState")
+    check(all(torch.equal(getattr(st_e, f), getattr(st_k, f)) for f in ("y", "diag", "sum_w", "count")),
+          "the low-rank estimator's RangeState differs from the engine's")
+    top_e, top_k = est_lr.cov_lowrank_.top(PCA_K), res_lr.cov_lowrank.top(PCA_K)
+    check(all(torch.equal(a, b_) for a, b_ in zip(top_e, top_k)),
+          "the low-rank estimator's top-8 differs from the engine's")
+    print(f"  low-rank SparsifiedPCA(8, rank={ELL}).fit_stream at p={P_LR}, 2 steps: {t_est:.2f} s; "
+          f"RangeState and top-{PCA_K} bit-equal to make_engine(...).run(2); phase 8 took "
+          f"{time.perf_counter() - t8:.1f} s")
+    del est_lr, eng, res_lr, st_e, st_k, top_e, top_k
 
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"

@@ -1,9 +1,30 @@
-"""repro_torch.api — the front door over the compression pipeline.
+"""repro_torch.api — one front door over the compression pipeline.
 
-A :class:`Plan` picks how a sketch job runs; :func:`make_engine` builds the
-streaming engine from it::
+A :class:`Plan` picks how a sketch job runs (``backend="batch" | "stream"``,
+kernel ``impl``, batch geometry); the estimator classes —
+:class:`SparsifiedMean`, :class:`SparsifiedCov`, :class:`SparsifiedPCA`,
+:class:`SparsifiedKMeans` — share one ``SketchSpec``-derived key discipline
+(``sketch.batch_key(spec, step, shard)``) and a ``fit / partial_fit /
+finalize / transform`` contract, on the card unless ``device="cpu"`` is
+asked for. Backends fold the same per-(step, shard) sketches, so flipping
+``Plan.backend`` re-runs the same job to float summation order (1e-5)::
 
-    from repro_torch.api import Plan, make_engine
+    from repro_torch.api import Plan, SparsifiedPCA
+
+    plan = Plan(backend="batch", gamma=0.05, batch_size=2048)
+    p1 = SparsifiedPCA(8, plan, key=0).fit(x)
+    p2 = SparsifiedPCA(8, plan.replace(backend="stream"), key=0).fit(x)
+
+One compression pass can feed every consumer at once: :func:`fit_many`
+sketches each (step, shard) chunk once and fans it out::
+
+    pca = SparsifiedPCA(8, plan, key=0)
+    km = SparsifiedKMeans(10, plan, key=0)
+    fit_many(plan, [pca, km], x)     # one sketch pass, both fitted
+
+For unbounded sources, :func:`make_engine` builds the streaming engine from
+the same Plan::
+
     from repro_torch.data.pipeline import VectorStreamSource
     from repro_torch.stream import StreamKMeansConfig
 
@@ -20,23 +41,27 @@ and, where the (p, p) accumulator would not fit, the low-rank path::
     comps_pre, evals = eng.run(8).cov_lowrank.top(8)
     comps = sketch.unmix_dense(comps_pre, eng.spec)   # repro_torch.core.sketch
 
-The estimator classes of the reference (``SparsifiedMean/Cov/PCA/KMeans``,
-``fit_many``) are not ported yet.
+``backend="sharded"``, refinement (``refine``, ``fit_refine``,
+``fit_many(refine=)``, ``lowrank_method="fd"``), checkpoints
+(``checkpoint``, ``restore``, ``restore_run``) and :class:`GradCompressor`
+are not ported yet: they raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
-import numpy as np
-
+from repro_torch.api.estimators import (  # noqa: F401
+    GradCompressor,
+    SketchCursor,
+    SketchedEstimator,
+    SparsifiedCov,
+    SparsifiedKMeans,
+    SparsifiedMean,
+    SparsifiedPCA,
+    as_key,
+)
+from repro_torch.api.fused import SharedSketchRun, fit_many, restore_run  # noqa: F401
 from repro_torch.api.plan import BACKENDS, Plan  # noqa: F401
-from repro_torch.utils import prng
 from repro_torch.utils.device import not_ported
-
-
-def as_key(key) -> np.ndarray:
-    """Accept an int seed or threefry key data (uint32[2])."""
-    if isinstance(key, (int, np.integer)):
-        return prng.PRNGKey(int(key))
-    return np.asarray(key, dtype=np.uint32)
 
 
 def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
@@ -53,7 +78,9 @@ def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
     if plan.backend == "sharded":
         raise not_ported("Plan(backend='sharded')", "Sharded backend")
     if plan.backend == "batch":
-        raise not_ported("Plan(backend='batch')", "Estimator front door")
+        raise ValueError(
+            'make_engine needs backend "stream" or "sharded", got \'batch\'; '
+            "for in-memory data use the estimator classes directly")
     if plan.mesh is not None:
         raise not_ported("Plan(mesh=...)", "Sharded backend")
     if plan.cov_path == "lowrank" and plan.lowrank_method == "fd":

@@ -1,10 +1,11 @@
 """The execution :class:`Plan` — one config object selecting how a sketch job runs.
 
 The same fields and validation as the reference's ``repro.api.Plan``. This
-package runs ``backend="stream"`` through :func:`repro_torch.api.make_engine`,
-with the dense, compact or low-rank (``lowrank_method="range"``) covariance
-path; the other backends and refinement passes raise ``NotImplementedError``
-there until they are ported.
+package runs ``backend="batch"`` and ``"stream"`` through the estimators of
+:mod:`repro_torch.api`, and ``"stream"`` through
+:func:`repro_torch.api.make_engine`, with the dense, compact or low-rank
+(``lowrank_method="range"``) covariance path; the sharded backend and
+refinement passes raise ``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ BACKENDS: tuple[str, ...] = ("batch", "stream", "sharded")
 class Plan:
     """How a sketched-estimation job executes.
 
-    backend:    "batch", "stream" or "sharded" (only "stream" runs here so far).
+    backend:    "batch", "stream" or "sharded" ("sharded" is not ported yet).
     gamma / m:  sketch size — fraction kept (validated to (0, 1]) or absolute
                 coordinate count; exactly one is required.
     transform:  ROS preconditioner ("hadamard" or "dct").
@@ -88,3 +89,7 @@ class Plan:
         """The SketchSpec this plan induces at dimensionality ``p``."""
         return sketch.make_spec(p, key, gamma=self.gamma, m=self.m,
                                 transform=self.transform)
+
+    def step_shard(self, chunk: int) -> tuple[int, int]:
+        """Map a linear chunk index to its (step, shard) key coordinates."""
+        return divmod(chunk, self.n_shards)

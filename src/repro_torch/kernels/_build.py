@@ -8,7 +8,9 @@ rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,7 +28,7 @@ _I = ctypes.c_int
 # C signatures of the entry points, by library
 SIGNATURES = {
     "hadamard": {
-        "hd_precondition_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+        "hd_precondition_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P),
         "sketch_fused_f32": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
         "hd_precondition_chunked_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P),
         "sketch_cluster_f32": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
@@ -131,7 +133,38 @@ def require(t, dtype, ndim: int, what: str, device=None) -> None:
 
 
 def stream_of(t) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
+    """The handle of PyTorch's current stream on ``t``'s device: read through
+    torch's private ``_cuda_getCurrentRawStream`` where the build has it
+    (checked on torch 2.11 for CUDA 12.8), which builds no ``torch.cuda.Stream``
+    (a few microseconds a launch), else through the public
+    ``torch.cuda.current_stream``."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(t.device).cuda_stream
+    return raw(t.device.index)
+
+
+def on_device(t):
+    """A context that makes ``t``'s card the current one for a launch: nothing
+    when it already is (the usual case, which then costs no device switch)."""
+    import torch
+
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of the card at ``device``, asked once."""
+    import torch
+
+    return _sm_count(torch.device(device).index or 0)

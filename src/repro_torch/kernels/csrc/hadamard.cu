@@ -56,6 +56,18 @@
 // intermediate nor a gather pass touches device memory. (Writing results back
 // to their owners' chunks and gathering across blocks, the first design, cost
 // more than the composition it replaces: PERF.md §6.)
+// K2 with few rows. One block a row leaves most SMs idle when a call has fewer
+// rows than the card has SMs (the finalize unmixes: 3 calls of at most 10
+// rows at p = 2^14), and each row's stages run serially in its one block. So
+// there the cluster kernel above takes the whole row too, in smaller chunks
+// (2^11 to 2^13 values a block, C·2^CL = p <= 2^15): a row's loads, stages
+// and writes spread over C SMs. fwht.split_plan picks (C, CL) from (n, p, the
+// SM count, C_max): 2^11-value blocks, larger ones only where C_max caps C, so
+// only the (C, CL) it can pick are built. The result is the same butterfly in
+// the same order, bit-equal to the one-block kernel.
+// Each instantiation's attributes (its dynamic shared memory, a cluster size
+// above 8) are set once a device, at its first launch, not at every launch.
+//
 // C_max is the largest C for which cudaOccupancyMaxActiveClusters places a
 // cluster of 132 KiB blocks (hadamard_max_cluster; 16 needs the non-portable
 // cluster size). Above C_max·2^15 (up to 2^30) the cluster kernel runs first
@@ -91,6 +103,21 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Run set() (a kernel's cudaFuncSetAttribute calls) once a device: ``done``
+// holds a bit for each device it succeeded on. Two threads may both run it
+// the first time, which is harmless.
+template <typename F>
+cudaError_t once_per_device(unsigned& done, F set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit && (__atomic_load_n(&done, __ATOMIC_ACQUIRE) & bit)) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) __atomic_fetch_or(&done, bit, __ATOMIC_RELEASE);
+  return err;
 }
 
 // Shape of a row of 2^LOG_P floats: each of T threads holds E elements.
@@ -192,8 +219,11 @@ template <int MODE, int LOG_P>
 int launch_p(const float* x, const float* signs, const int* idx, float* out, int n, int m,
              float scale, cudaStream_t stream) {
   using G = Geom<LOG_P>;
-  cudaError_t err = cudaFuncSetAttribute(hadamard_rows<MODE, LOG_P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  static unsigned done = 0;
+  cudaError_t err = once_per_device(done, [] {
+    return cudaFuncSetAttribute(hadamard_rows<MODE, LOG_P>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  });
   if (err != cudaSuccess) return (int)err;
   hadamard_rows<MODE, LOG_P><<<n, G::T, G::SMEM, stream>>>(x, signs, idx, out, m, scale);
   return (int)cudaGetLastError();
@@ -217,7 +247,8 @@ int launch(const float* x, const float* signs, const int* idx, float* out, int n
 // K3: one cluster of C = 2^LOG_C blocks transforms one segment of C·2^CL
 // floats; segment g = blockIdx.x / C, and block r of the cluster holds its
 // chunk r of 2^CL floats (CL = 14: 66 KiB, two blocks an SM, so one block's
-// loads overlap the other's stages; CL = 15: 132 KiB, one). MODE
+// loads overlap the other's stages; CL = 15: 132 KiB, one; CL = 11 … 13: K2's
+// split of a row of at most 2^15 values when a call has few rows). MODE
 // kSignsBefore / kSignsAfter / kGather: the segment is a whole row (seg_mask
 // 0); kChunkSigns / kChunkPlain: one segment of a longer row, g & seg_mask its
 // place there, no scale.
@@ -329,12 +360,15 @@ hadamard_cluster(const float* __restrict__ x, const float* __restrict__ signs,
 
 template <int MODE, int LOG_C, int CL>
 cudaError_t cluster_attrs() {
-  auto kernel = hadamard_cluster<MODE, LOG_C, CL>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Geom<CL>::SMEM);
-  if (err == cudaSuccess && LOG_C > 3)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
+  static unsigned done = 0;
+  return once_per_device(done, [] {
+    auto kernel = hadamard_cluster<MODE, LOG_C, CL>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Geom<CL>::SMEM);
+    if (err == cudaSuccess && LOG_C > 3)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  });
 }
 
 template <int LOG_C, int CL>
@@ -368,12 +402,14 @@ int launch_cluster_c(const float* x, const float* signs, const int* idx, float* 
 }
 
 // the cluster kernel on segments of 2^(chunk_log + log_c) floats; the chunk
-// modes (a segment of a longer row) only with chunk_log 15
+// modes (a segment of a longer row) only with chunk_log 15, the gather mode
+// with 14 or 15, and K2's split (chunk_log 11 … 13) for rows of at most 2^15
 template <int MODE>
 int launch_cluster(const float* x, const float* signs, const int* idx, float* out,
                    long long segments, int log_c, int chunk_log, int m, float scale,
                    int seg_mask, cudaStream_t s) {
   constexpr bool kWhole = MODE == kSignsBefore || MODE == kSignsAfter || MODE == kGather;
+  constexpr bool kSplit = MODE == kSignsBefore || MODE == kSignsAfter;
   if (segments < 1 || (segments << log_c) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
 #define CLUSTER_CASE(LC, CL)                                                              \
   if (log_c == LC && chunk_log == CL)                                                     \
@@ -381,6 +417,11 @@ int launch_cluster(const float* x, const float* signs, const int* idx, float* ou
   CLUSTER_CASE(1, 15) CLUSTER_CASE(2, 15) CLUSTER_CASE(3, 15) CLUSTER_CASE(4, 15)
   if constexpr (kWhole) {
     CLUSTER_CASE(1, 14) CLUSTER_CASE(2, 14) CLUSTER_CASE(3, 14) CLUSTER_CASE(4, 14)
+  }
+  if constexpr (kSplit) {
+    CLUSTER_CASE(1, 11) CLUSTER_CASE(2, 11) CLUSTER_CASE(3, 11) CLUSTER_CASE(4, 11)
+    CLUSTER_CASE(1, 12) CLUSTER_CASE(2, 12) CLUSTER_CASE(3, 12)
+    CLUSTER_CASE(1, 13) CLUSTER_CASE(2, 13)
   }
 #undef CLUSTER_CASE
   return (int)cudaErrorInvalidValue;
@@ -452,11 +493,23 @@ int launch_stride(float* y, const float* signs, long long groups, int log_p, int
 
 }  // namespace
 
+// K2: H·(d ⊙ x), or d ⊙ (H·x), for p = 2^log_p <= 2^15: one block a row
+// (log_c 0), or a row split over a cluster of 2^log_c blocks of 2^chunk_log
+// values (chunk_log 11 … 13, chunk_log + log_c = log_p).
 extern "C" int hd_precondition_f32(const float* x, const float* signs, float* out, int n,
-                                   int log_p, int signs_after, float scale, void* stream) {
+                                   int log_p, int signs_after, float scale, int log_c,
+                                   int chunk_log, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (signs_after) return launch<kSignsAfter>(x, signs, nullptr, out, n, log_p, 0, scale, s);
-  return launch<kSignsBefore>(x, signs, nullptr, out, n, log_p, 0, scale, s);
+  if (log_c == 0) {
+    if (signs_after) return launch<kSignsAfter>(x, signs, nullptr, out, n, log_p, 0, scale, s);
+    return launch<kSignsBefore>(x, signs, nullptr, out, n, log_p, 0, scale, s);
+  }
+  if (n < 1 || log_p > kChunkLog || chunk_log < 11 || chunk_log > 13 || log_c < 1 ||
+      chunk_log + log_c != log_p)
+    return (int)cudaErrorInvalidValue;
+  return signs_after
+      ? launch_cluster<kSignsAfter>(x, signs, nullptr, out, n, log_c, chunk_log, 0, scale, 0, s)
+      : launch_cluster<kSignsBefore>(x, signs, nullptr, out, n, log_c, chunk_log, 0, scale, 0, s);
 }
 
 extern "C" int sketch_fused_f32(const float* x, const float* signs, const int* idx, float* out,

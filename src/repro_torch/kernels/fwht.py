@@ -3,7 +3,10 @@
 Replace the TPU kernels ``repro.kernels.fwht.hd_precondition`` (K2, one row
 in one tile, p ≤ 2^15) and ``hd_precondition_chunked`` (K3, 2^15 < p ≤ 2^27),
 both in ``csrc/hadamard.cu``. K2 holds one row per block in shared memory,
-which caps p at 2^15. K3 holds a row in a thread-block cluster of C blocks,
+which caps p at 2^15; where a call has fewer rows than the card has SMs (the
+finalize unmixes), it splits each row over a cluster of C blocks of 2^11 to
+2^13 values instead, so a row's work spreads over C SMs: :func:`split_plan`
+is that schedule. K3 holds a row in a thread-block cluster of C blocks,
 2^14 values each (two blocks an SM) where the row fits such a cluster, else
 2^15, so up to C_max·2^15 (C_max, the largest cluster the card places, is
 :func:`max_cluster`: 16 on an H100 80GB HBM3) the transform is one read and
@@ -38,6 +41,10 @@ CHUNK_LOGS = (14, 15)
 CHUNK_LOG = 15
 CLUSTER_SIZES = (2, 4, 8, 16)
 REGISTER_BITS = 5
+# K2's split of a row of p <= 2^15 values (csrc/hadamard.cu, chunk_log 11 … 13):
+# the chunk sizes it is built for, and the one split_plan takes where it can
+SPLIT_CHUNK_LOGS = (11, 12, 13)
+SPLIT_CHUNK_LOG = 11
 
 
 def scale_for(p: int) -> float:
@@ -77,6 +84,26 @@ def chunk_plan(p: int, max_cluster: int) -> tuple[int, int, int]:
     return cluster, chunk_log, -(-rest // REGISTER_BITS)
 
 
+def split_plan(n: int, p: int, sms: int, max_cluster: int) -> tuple[int, int] | None:
+    """K2's schedule for n rows of p ≤ 2^15: None for one block a row, else
+    (cluster, chunk_log), a row split over a cluster of ``cluster`` blocks of
+    2^chunk_log values.
+
+    A row is split where the call has fewer rows than the card has SMs
+    (``sms``), so one block a row would leave SMs idle and run each row's
+    stages serially: into chunks of 2^SPLIT_CHUNK_LOG values, or larger ones
+    where that would take a cluster above ``max_cluster`` (C_max). Rows of
+    at most 2^SPLIT_CHUNK_LOG values are not split.
+    """
+    log_p = check_p(p)
+    if n >= sms or log_p <= SPLIT_CHUNK_LOG:
+        return None
+    chunk_log = max(SPLIT_CHUNK_LOG, log_p - (max_cluster.bit_length() - 1))
+    if chunk_log not in SPLIT_CHUNK_LOGS:
+        return None
+    return 1 << (log_p - chunk_log), chunk_log
+
+
 @functools.cache
 def _max_cluster(index: int) -> int:
     with torch.cuda.device(index):
@@ -105,21 +132,36 @@ def hd_precondition(x: torch.Tensor, signs: torch.Tensor,
                     signs_after: bool = False) -> torch.Tensor:
     """(n, p) → (n, p): H·(signs ⊙ x), or signs ⊙ (H·x) with ``signs_after``.
 
-    K2 up to p = 2^15, K3 above it, up to 2^27.
+    K2 up to p = 2^15 (on :func:`split_plan`'s schedule), K3 above it, up to 2^27.
     """
     if x.shape[-1] > MAX_P_SINGLE:
         return hd_precondition_chunked(x, signs, signs_after)
     if x.device.type == "cpu":
         return _ref.ref_hd_precondition(x, signs, signs_after)
+    n, p = x.shape
+    plan = split_plan(n, p, _build.sm_count(x.device), max_cluster(x.device))
+    return _rows(x, signs, signs_after, plan)
+
+
+def _rows(x: torch.Tensor, signs: torch.Tensor, signs_after: bool,
+          plan: tuple[int, int] | None) -> torch.Tensor:
+    """K2's launch on ``plan``, :func:`split_plan`'s schedule: one block a row
+    (None), or each row over a cluster of (cluster, chunk_log)."""
     _check(x, signs)
     n, p = x.shape
     log_p = check_p(p)
+    cluster, chunk_log = plan or (1, log_p)
+    if cluster > 1 and (chunk_log not in SPLIT_CHUNK_LOGS or cluster << chunk_log != p
+                        or n * cluster >= 1 << 31):
+        raise ValueError(f"K2 cannot split rows of {p} into {cluster} chunks of 2^{chunk_log}")
     out = torch.empty_like(x)
     if n:
         lib = _build.library("hadamard")
-        with torch.cuda.device(x.device):
+        with _build.on_device(x):
             err = lib.hd_precondition_f32(x.data_ptr(), signs.data_ptr(), out.data_ptr(),
                                           n, log_p, int(signs_after), scale_for(p),
+                                          cluster.bit_length() - 1,
+                                          chunk_log if cluster > 1 else 0,
                                           _build.stream_of(x))
         _build.check(err, "hd_precondition")
         hd_precondition.launches += 1
@@ -151,7 +193,7 @@ def _chunked(x: torch.Tensor, signs: torch.Tensor, signs_after: bool,
     out = torch.empty_like(x)
     if n:
         lib = _build.library("hadamard")
-        with torch.cuda.device(x.device):
+        with _build.on_device(x):
             err = lib.hd_precondition_chunked_f32(x.data_ptr(), signs.data_ptr(),
                                                   out.data_ptr(), n, p.bit_length() - 1,
                                                   int(signs_after), scale_for(p),

@@ -109,6 +109,35 @@ def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Te
     return _ref.ref_sparse_assign(values, indices, centers)
 
 
+def kernel_assign_fn(mode: str = "auto"):
+    """Lloyd's ``assign_fn`` (``core.kmeans``): (n, K) distances by K4."""
+
+    def fn(values, indices, centers):
+        return sparse_assign(values, indices, centers, mode=mode)[0]
+
+    return fn
+
+
+def cluster_columns(values: torch.Tensor, indices: torch.Tensor, p: int, mode: str = "auto"):
+    """What :func:`cluster_sums` reuses across a fit's iterations: K6's
+    transposition of the rows, once (None where the plain version runs)."""
+    if not _on_card(mode, values):
+        return None
+    return _spmm.transpose_columns(values.contiguous(), indices.contiguous(), p)
+
+
+def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tensor, k: int,
+                 p: int, columns=None, mode: str = "auto"):
+    """(sums, counts) (K, p) of each cluster's kept values, coordinate by
+    coordinate — Lloyd's center update: on the card K6's walk for the sums
+    and an integer histogram for the counts (bit-identical from run to run),
+    the plain scatter-add in row order elsewhere."""
+    if _use_kernel("cluster_sums", mode, values):
+        return _spmm.cluster_sums(values.contiguous(), indices.contiguous(), labels, k, p,
+                                  columns)
+    return _ref.ref_cluster_sums(values, indices, labels, k, p)
+
+
 def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor,
          mode: str = "auto") -> torch.Tensor:
     """T (n, l) = W @ dense — project compact sparse rows onto l columns."""

@@ -46,6 +46,22 @@ def ref_sparse_assign(values: torch.Tensor, indices: torch.Tensor,
     return d, torch.argmin(d, dim=1).to(torch.int32)
 
 
+def ref_cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tensor,
+                     k: int, p: int):
+    """(sums, counts), each (K, p) float32: over the rows labelled k, the sum
+    and the count of the kept values at each coordinate — Lloyd's center
+    update on compact rows (paper Eq. 39), the reference's scatter-add in row
+    order. Oracle for ``kernels.spmm.cluster_sums`` (K6's walk on the labels'
+    one-hot columns)."""
+    flat = (labels.long()[:, None] * p + indices.long()).reshape(-1)
+    v = values.to(torch.float32).reshape(-1)
+    sums = torch.zeros(k * p, dtype=torch.float32, device=values.device)
+    counts = torch.zeros(k * p, dtype=torch.float32, device=values.device)
+    sums.index_add_(0, flat, v)
+    counts.index_add_(0, flat, torch.ones_like(v))
+    return sums.reshape(k, p), counts.reshape(k, p)
+
+
 def spmm_out_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     """The spmm promotion rule: operands promote jointly, and accumulation and
     output are at least float32 (the reference's ``promoted_dtypes``)."""

@@ -43,7 +43,7 @@ def sketch_fused(x: torch.Tensor, signs: torch.Tensor,
     log_p = fwht.check_p(p)
     if n and m:
         lib = _build.library("hadamard")
-        with torch.cuda.device(x.device):
+        with _build.on_device(x):
             err = lib.sketch_fused_f32(x.data_ptr(), signs.data_ptr(), indices.data_ptr(),
                                        out.data_ptr(), n, log_p, m, fwht.scale_for(p),
                                        _build.stream_of(x))
@@ -83,7 +83,7 @@ def _cluster(x: torch.Tensor, signs: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"{n} rows of {p} are too many blocks for one launch; split the rows")
     if n and m:
         lib = _build.library("hadamard")
-        with torch.cuda.device(x.device):
+        with _build.on_device(x):
             err = lib.sketch_cluster_f32(x.data_ptr(), signs.data_ptr(), indices.data_ptr(),
                                          out.data_ptr(), n, cluster.bit_length() - 1, chunk_log,
                                          m, fwht.scale_for(p), _build.stream_of(x))

@@ -44,7 +44,7 @@ def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Te
         ld = -(-r * k // 4) * 4
         ct = torch.empty((p, ld), dtype=torch.float32, device=values.device)
         lib = _build.library("sparse_assign")
-        with torch.cuda.device(values.device):
+        with _build.on_device(values):
             err = lib.sparse_assign_f32(values.data_ptr(), indices.data_ptr(), c3.data_ptr(),
                                         ct.data_ptr(), dists.data_ptr(), amin.data_ptr(),
                                         n, m, r, k, p, ld, _build.stream_of(values))

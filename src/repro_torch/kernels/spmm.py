@@ -31,18 +31,25 @@ repeated calls are bit-identical. With ``col_sums=True`` the same launch also
 returns each column's Σv and Σv² (the range-finder's ``sum_w`` and ``diag``),
 just as reproducible.
 
+:func:`cluster_sums` is K6 applied to Lloyd's center update: the rows'
+indices stay the same across a fit's iterations, so their transposition is
+built once (:func:`transpose_columns`) and each iteration walks it against the
+labels' one-hot columns (:func:`spmm_t_columns`), in row order, so the sums
+are bit-reproducible where float atomics would not be. The counts are
+integers, which :func:`cluster_counts` adds exactly in any order.
+
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernel or raise.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels._build import sm_count
 
 
 def _check_rows(values: torch.Tensor, indices: torch.Tensor):
@@ -113,16 +120,6 @@ def spmm_plan(n: int, p: int, ell: int, sms: int, splits: int | None = None) -> 
     return SpmmPlan(splits, span, smem, tiles * splits)
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device: torch.device) -> int:
-    """The SMs of the card at ``device``, asked once."""
-    return _sm_count(torch.device(device).index or 0)
-
-
 def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
     """T (n, l) = W @ dense for compact sparse rows W and dense (p, l): the
     windowed kernel on :func:`spmm_plan`'s plan where :func:`windows_pay`,
@@ -151,7 +148,7 @@ def _launch(values, indices, dense, plan: SpmmPlan | None):
     words = 1 + n + (splits * n * ell if splits > 1 else 0) if plan else 0
     scratch = torch.empty(words, dtype=torch.int32, device=values.device)
     lib = _build.library("spmm")
-    with torch.cuda.device(values.device):
+    with _build.on_device(values):
         err = lib.spmm_f32(values.data_ptr(), indices.data_ptr(), dense.data_ptr(),
                            out.data_ptr(), scratch.data_ptr(), n, m, p, ell, _vec4(dense, out),
                            splits, span, _build.stream_of(values))
@@ -218,7 +215,7 @@ def transpose_columns(values: torch.Tensor, indices: torch.Tensor, p: int):
     fast, rows, words = transpose_plan(n, m, p)
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     lib = _build.library("spmm")
-    with torch.cuda.device(dev):
+    with _build.on_device(values):
         err = lib.transpose_columns_f32(values.data_ptr(), indices.data_ptr(), scratch.data_ptr(),
                                         starts.data_ptr(), pairs.data_ptr(), n, m, p, rows,
                                         int(fast), _build.stream_of(values))
@@ -250,7 +247,7 @@ def _spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor, p: int
     first, starts = entries(values, indices, p)
     pairs, order = (first, None) if first.ndim == 2 else (None, first)
     lib = _build.library("spmm")
-    with torch.cuda.device(values.device):
+    with _build.on_device(values):
         err = lib.spmm_t_f32(pairs.data_ptr() if pairs is not None else None, values.data_ptr(),
                              order.data_ptr() if order is not None else None,
                              starts.data_ptr(), t.data_ptr(), out.data_ptr(),
@@ -270,6 +267,64 @@ def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
     result, launched = _spmm_t(values, indices, t, p, col_sums, transpose_columns)
     spmm_t.launches += launched
     return result
+
+
+def spmm_t_columns(pairs: torch.Tensor, starts: torch.Tensor, t: torch.Tensor,
+                   p: int) -> torch.Tensor:
+    """Y (p, l) = Wᵀ @ t over W's transposition ``(pairs, starts)`` from
+    :func:`transpose_columns`: K6's walk alone, for a caller that multiplies
+    one W by many t (W's n rows are t's rows)."""
+    ell = t.shape[1]
+    if t.device.type == "cpu":
+        rows = pairs[:, 0].long()
+        cols = torch.repeat_interleave(torch.arange(p), starts[1:] - starts[:-1])
+        y = torch.zeros((p, ell), dtype=torch.float32)
+        return y.index_add_(0, cols, pairs[:, 1].view(torch.float32)[:, None] * t[rows])
+    _build.require(pairs, torch.int32, 2, "pairs")
+    _build.require(starts, torch.int32, 1, "starts", device=pairs.device)
+    _build.require(t, torch.float32, 2, "t", device=pairs.device)
+    if starts.shape[0] != p + 1:
+        raise ValueError(f"starts has {starts.shape[0]} offsets, need p + 1 = {p + 1}")
+    out = torch.empty((p, ell), dtype=torch.float32, device=t.device)
+    if not (p and ell):
+        return out
+    if pairs.shape[0] == 0:
+        return out.zero_()
+    lib = _build.library("spmm")
+    with _build.on_device(t):
+        err = lib.spmm_t_f32(pairs.data_ptr(), None, None, starts.data_ptr(), t.data_ptr(),
+                             out.data_ptr(), None, None, p, 1, ell, _vec4(t, out),
+                             _build.stream_of(t))
+    _build.check(err, "spmm_t")
+    spmm_t.launches += 1
+    return out
+
+
+def cluster_counts(indices: torch.Tensor, labels: torch.Tensor, k: int, p: int) -> torch.Tensor:
+    """(K, p) float32: how many rows labelled k kept each coordinate — an
+    integer histogram of ``labels·p + indices`` (int32 where K·p allows), exact
+    whatever order the card adds in."""
+    dtype = torch.int32 if k * p < 2**31 else torch.int64
+    flat = (labels.to(dtype)[:, None] * p + indices.to(dtype)).reshape(-1)
+    counts = torch.zeros(k * p, dtype=torch.int32, device=indices.device)
+    counts.index_add_(0, flat, torch.ones(1, dtype=torch.int32, device=indices.device)
+                      .expand(flat.numel()))
+    return counts.view(k, p).to(torch.float32)
+
+
+def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tensor,
+                 k: int, p: int, columns=None):
+    """(sums, counts) (K, p) float32 of the kept values of the rows labelled
+    k (labels (n,) in [0, K)): the sums Wᵀ·onehot by K6's walk over the rows'
+    transposition ``columns`` ((pairs, starts) from :func:`transpose_columns`,
+    built here if not given), each column summed in row order as
+    ``kernels.ref.ref_cluster_sums`` sums it; the counts by
+    :func:`cluster_counts`."""
+    if values.device.type == "cpu":
+        return _ref.ref_cluster_sums(values, indices, labels, k, p)
+    pairs, starts = columns if columns is not None else transpose_columns(values, indices, p)
+    onehot = torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
+    return spmm_t_columns(pairs, starts, onehot, p).T, cluster_counts(indices, labels, k, p)
 
 
 def spmm_t_from_buckets(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,

@@ -15,7 +15,8 @@ and applied once. Finalize uses the Thm-4 / Thm-6 formulas of
   per-coordinate running means in the preconditioned domain (the online form
   of Eq. 39), with ``r`` center hypotheses folded side by side and the best
   kept at finalize. The assignment is the K4 kernel (``kernels.ops``), one
-  launch for all r hypotheses.
+  launch for all r hypotheses, and so is the reassignment count
+  (:func:`kmeans_reassigned`).
 """
 from __future__ import annotations
 
@@ -125,6 +126,17 @@ def kmeans_apply(state: KMeansState, delta, decay: float = 1.0) -> KMeansState:
         state.centers,
     )
     return KMeansState(centers, new_counts, state.obj + obj, state.count + n)
+
+
+def kmeans_reassigned(state: KMeansState, batch: SparseRows, prev_assign: torch.Tensor,
+                      impl: str = "auto") -> torch.Tensor:
+    """(r,) int32 — how many of the batch's rows change nearest center across
+    one apply: labels under ``state.centers`` (post-update, one K4 launch for
+    all r hypotheses) against ``prev_assign``, the (r, n) labels
+    :func:`kmeans_delta_with_assign` took pre-update. The mini-batch
+    convergence signal."""
+    _, a1 = ops.sparse_assign(batch.values, batch.indices, state.centers, mode=impl)
+    return torch.sum(a1 != prev_assign, dim=1).to(torch.int32)
 
 
 def kmeans_finalize(state: KMeansState):

@@ -44,10 +44,13 @@ def to_arrays(state, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def from_arrays(arrs: dict, prefix: str = "", device="cpu"):
+def from_arrays(arrs: dict, prefix: str = "", device="cpu", kinds: tuple[str, ...] | None = None):
     """The :func:`to_arrays` inverse, kind detected from the key prefix; None
-    when ``arrs`` holds no state under ``prefix``."""
+    when ``arrs`` holds no state under ``prefix``. ``kinds`` restricts the
+    detection (a dict holding a moment and a km state names the slot it loads)."""
     for name, (cls, fields, optional) in KINDS.items():
+        if kinds is not None and name not in kinds:
+            continue
         head = f"{prefix}{name}."
         if any(key.startswith(head) for key in arrs):
             vals = []

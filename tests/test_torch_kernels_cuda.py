@@ -66,6 +66,28 @@ def test_hd_precondition_matches_plain(dev, n, p, signs_after):
     assert torch.max(torch.abs(got - want)).item() <= 1e-5
 
 
+@pytest.mark.parametrize("n", [1, 3, 10, 200, 4096])
+@pytest.mark.parametrize("lp", range(11, 16))
+def test_hd_precondition_split_matches_plain(dev, n, lp):
+    """K2's rows split over a cluster, on every (cluster, chunk) the card
+    builds for p = 2^12 … 2^15 (rows of 2^11 values are not split), and on
+    split_plan's choice for p = 2^11 … 2^15, in both sign modes: bit-equal to
+    the plain butterfly, whatever the row count."""
+    p = 1 << lp
+    c_max = fwht.max_cluster(dev)
+    x, s, _ = _case(n, p, 1, dev, seed=lp)
+    plans = [(p >> cl, cl) for cl in fwht.SPLIT_CHUNK_LOGS if 2 <= p >> cl <= c_max]
+    assert plans or lp <= fwht.SPLIT_CHUNK_LOG
+    for signs_after in (False, True):
+        want = ref.ref_hd_precondition(x, s, signs_after=signs_after)
+        for plan in plans:
+            got = fwht._rows(x, s, signs_after, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (plan, signs_after)
+        got = fwht.hd_precondition(x, s, signs_after=signs_after)
+        assert torch.equal(got, want), fwht.split_plan(n, p, spmm.sm_count(dev), c_max)
+
+
 K3_SHAPES = [(64, 1 << 16), (10, 1 << 16), (3, 1 << 17), (2, 1 << 21)] + [
     (n, 1 << lp) for n in (1, 10, 777) for lp in range(16, 21)]
 
@@ -404,3 +426,36 @@ def test_spmm_t_bit_equal_to_bucket_walk(dev, n, p, m, ell):
         new = spmm.spmm_t(vals, idx, t, p, col_sums=True)
         assert all(torch.equal(a, b) for a, b in zip(new, old))
     assert torch.equal(spmm.spmm_t(vals, idx, t, p), old[0])
+
+
+def test_lloyd_update_is_bit_reproducible(dev):
+    """Lloyd's center update on the card (K6's walk over the rows'
+    transposition, built once, and the counts' integer histogram) is
+    bit-identical from call to call and equals
+    the plain scatter-add in row order on the CPU bit for bit; a whole
+    sparse_kmeans_core fit on the card repeats its centers, labels and
+    iteration count exactly."""
+    from repro_torch.core import kmeans
+    from repro_torch.utils import prng
+
+    n, p, m, k = 4096, 16384, 819, 10
+    rng = np.random.default_rng(5)
+    idx = np.sort(np.argsort(rng.random((n, p)), axis=1)[:, :m], axis=1).astype(np.int32)
+    vals = rng.normal(size=(n, m)).astype(np.float32)
+    labels = rng.integers(0, k, n).astype(np.int32)
+    v, i, a = (torch.from_numpy(t).to(dev) for t in (vals, idx, labels))
+    cols = ops.cluster_columns(v, i, p)
+    first = ops.cluster_sums(v, i, a, k, p, cols)
+    again = ops.cluster_sums(v, i, a, k, p, cols)
+    plain = ref.ref_cluster_sums(*(torch.from_numpy(t) for t in (vals, idx, labels)), k, p)
+    for got, same, want in zip(first, again, plain):
+        assert torch.equal(got, same) and torch.equal(got.cpu(), want)
+    # rows near k planted centers, each keeping every 20th coordinate
+    centers = rng.normal(size=(k, m))
+    v = torch.from_numpy((centers[labels] + 0.1 * rng.normal(size=(n, m))).astype(np.float32))
+    v = v.to(dev)
+    i = torch.arange(m, dtype=torch.int32, device=dev)[None].repeat(n, 1) * (p // m)
+    fits = [kmeans.sparse_kmeans_core(v, i, p, k, prng.PRNGKey(7), n_init=2, max_iter=30,
+                                      assign_fn=ops.kernel_assign_fn()) for _ in range(2)]
+    for f1, f2 in zip(*fits):
+        assert torch.equal(f1, f2)

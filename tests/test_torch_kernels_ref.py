@@ -219,3 +219,24 @@ def test_spmm_plan_fits_and_fills_the_card(sms, n, m, p, ell):
     assert fixed.splits == 1 and fixed.span >= p
     assert spmm.windows_pay(m, p) == (m >= p / 32)
     assert spmm.windows_pay(3277, 65536) and not spmm.windows_pay(655, 65536)
+
+
+@pytest.mark.parametrize("sms,max_cluster", [(132, 16), (132, 8), (78, 16)])
+@pytest.mark.parametrize("n", [1, 3, 10, 77, 131, 132, 4096, 16384])
+def test_split_plan_spreads_few_rows_over_clusters(sms, max_cluster, n):
+    """K2's schedule: a call with fewer rows than SMs splits each row of more
+    than 2^11 values over a cluster of 2^11-value blocks (larger ones where
+    that cluster would exceed C_max); otherwise one block a row. Every split
+    covers the row and is one the kernel is built for."""
+    for lp in range(0, 16):
+        p = 1 << lp
+        plan = fwht.split_plan(n, p, sms, max_cluster)
+        if n >= sms or lp <= fwht.SPLIT_CHUNK_LOG:
+            assert plan is None
+            continue
+        cluster, chunk_log = plan
+        assert cluster << chunk_log == p and 2 <= cluster <= max_cluster
+        assert chunk_log in fwht.SPLIT_CHUNK_LOGS
+        assert chunk_log == max(fwht.SPLIT_CHUNK_LOG, lp - max_cluster.bit_length() + 1)
+    with pytest.raises(ValueError):
+        fwht.split_plan(3, 1 << 16, sms, max_cluster)

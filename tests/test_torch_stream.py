@@ -97,10 +97,12 @@ def test_launcher_runs_on_cpu():
 def test_options_not_ported_raise():
     src = VectorStreamSource(p=64, batch=8)
     plan = api.Plan(backend="stream", gamma=0.25, batch_size=8)
-    for bad in (plan.replace(backend="batch"), plan.replace(backend="sharded"),
-                plan.replace(refine_passes=1)):
+    for bad in (plan.replace(backend="sharded"), plan.replace(refine_passes=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.make_engine(bad, 64, 0, src, device="cpu")
+    # the batch backend runs through the estimators, as in the reference
+    with pytest.raises(ValueError, match="estimator classes"):
+        api.make_engine(plan.replace(backend="batch"), 64, 0, src, device="cpu")
     # the engine's low-rank path is the range-finder only, as the reference's
     with pytest.raises(ValueError, match="lowrank_method='fd'"):
         api.make_engine(plan.replace(cov_path="lowrank", rank=4, lowrank_method="fd"), 64, 0,
