@@ -33,14 +33,22 @@ Phases, in order; any failure exits non-zero:
               the CPU with the plain versions (same seed, same masks): the
               dense path at p = 1000, the low-rank path at p = 40000, and the
               front door, fit_many(Plan(backend="batch", gamma=0.1), [mean,
-              PCA(4), K-means(4)]) at p = 1000 (Lloyd's labels equal).
+              PCA(4), K-means(4)]) at p = 1000 (Lloyd's labels equal); the
+              engine's replay(passes=2) (low-rank with K-means) and fit_refine
+              (PCA, minibatch K-means) at p = 1000: refined subspaces within a
+              principal-angle sine of 1e-5, refined labels equal.
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
               (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
               path (K1, K2, K4) must have launched, the outputs must be finite,
               and the top-8 subspace and eigenvalues must match the source's
               planted ones.
-6. costs    — the step's largest costs that are not kernels.
+6. costs    — the step's largest costs that are not kernels, and what each
+              fold's repeatable form costs a step against the float
+              scatter-add it replaces on the card (Σw, the K-means sums, the
+              compact covariance at m/p = 0.005, summed by key, and at 0.05,
+              by chunked products), each held against its plain version and
+              the compact routes repeated bit for bit.
 7. lowrank  — the second path at full width: Plan(cov_path="lowrank",
               rank=128), p = 65536, 8 steps of 4096 rows, streaming K-means
               (K = 10, r = 3), then cov_lowrank.top(8) unmixed; every kernel of
@@ -64,9 +72,35 @@ Phases, in order; any failure exits non-zero:
               rows; and the low-rank
               SparsifiedPCA at p = 65536, whose RangeState and top-8 must be
               bit-equal to make_engine(...).run(2) on the same source.
+9. resume   — phase 5's Plan, source and K-means with track_reassignments:
+              one step folded twice from the same state and batch is
+              bit-identical (cov_path "dense" and "compact"); run(8) with a
+              checkpoint every 4 steps, restore_state in a fresh engine,
+              run(16, state=, start_step=8): mean, cov and centers bit-equal to
+              phase 5's run, reassign_total the sum of both legs' counts; the
+              checkpoint's bytes, write and restore seconds; fit_many over
+              SparsifiedPCA(8) and minibatch SparsifiedKMeans(10) on phase 8's
+              rows, checkpointed after 8 of 16 chunks, restore_run into fresh
+              consumers and continued: bit-equal to the uninterrupted run.
+10. refine  — fit_many(Plan(stream, cov_path="lowrank", rank=24), [PCA(8),
+              minibatch K-means(10)], phase 8's rows, refine=2): 16 sketches
+              a pass, the refined subspace no farther from phase 8's dense
+              components than the one-pass one, the K-means objective under
+              each pass's frozen centers not increasing, a repeat
+              bit-identical; at p = 65536, l = 128, 8 steps staged on the card
+              (phase 7's planted U and λ): the fold-twice probe at this shape,
+              run_scanned bit-equal to run over 2 steps, run_scanned then
+              replay_scanned(passes=2) with K-means (K = 10, r = 3) under
+              phase 7's gates, a repeat bit-identical, every kernel launched;
+              SparsifiedPCA(8) with lowrank_method="fd", rank=32 on 16,384 of
+              phase 8's rows: its sketch against the port's FD on the CPU
+              and a float64 FD on the same sketches, and FD's deterministic
+              bound; each of phase 10's three paths gated on its kernels.
 
-Then one JSON line listing every kernel, the card's line again, and the result
-line ``{"ok": true, "device": {...}}`` last.
+Then one JSON line listing every kernel (launches: its path's run in phase 5
+or 7; launches_by_phase: that count and phase 9's and phase 10's paths' own),
+the card's line again, and the result line
+``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -74,8 +108,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,12 +129,22 @@ P_LR, ELL, STEPS_LR = 65536, 128, 8
 # columns of K6's check past the grid's y limit
 P_BIG = 1 << 25
 READ_LR = (2, 4, STEPS_LR)
-PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign")
+# the dense stream: the sketch, the unmixes, the K-means assignment (K4) and
+# the K-means sums (K6's transposition and walk)
+PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm_t", "transpose_columns")
 PATH2 = ("sketch_fused_cluster", "hd_precondition_chunked", "sparse_assign", "spmm", "spmm_t",
          "transpose_columns")
 # the front door (phase 8): the sketch, the unmixes (cov_original's two of
 # (16384, 16384) among them), Lloyd's assignment (K4) and its center update (K6)
 PATH8 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm_t", "transpose_columns")
+# phases 9 and 10 together run every kernel: K1 and K2 at p = 16384; the
+# cluster sketch, K3, K5 at p = 65536; K4 and K6 at both. Phase 9 resumes the
+# dense stream
+PATH9 = PATH1
+# phase 10: fit_many(refine=2) at p = 16384 (low-rank PCA and minibatch
+# K-means), Frequent Directions; the p = 65536 replay takes PATH2
+PATH10_REFINE = PATH1 + ("spmm",)
+PATH_FD = ("sketch_fused", "hd_precondition", "spmm_t", "transpose_columns")
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -137,6 +183,69 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def same_bits(a, b) -> list[str]:
+    """The fields in which two engine states differ in any bit."""
+    import dataclasses
+
+    import torch
+
+    out = []
+    for slot in ("moments", "kmeans", "lowrank"):
+        x, y = getattr(a, slot), getattr(b, slot)
+        for f in dataclasses.fields(x) if x is not None else ():
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if u is not None and not torch.equal(u, v):
+                out.append(f"{slot}.{f.name}")
+    for i, (u, v) in enumerate(zip(a.reassign or (), b.reassign or ())):
+        if not torch.equal(u, v):
+            out.append(f"reassign[{i}]")
+    return out
+
+
+def subspace_sine(a, b) -> float:
+    """Largest principal-angle sine between the row spaces of a and b, as
+    ‖(I − QaQaᵀ)Qb‖₂ over float64 orthonormal bases (it resolves angles near
+    1e-7, where √(1 − cos²) of float32 rows stops near 1e-3)."""
+    qa = np.linalg.qr(np.asarray(a.cpu(), np.float64).T)[0]
+    qb = np.linalg.qr(np.asarray(b.cpu(), np.float64).T)[0]
+    return float(np.linalg.norm(qb - qa @ (qa.T @ qb), 2))
+
+
+def planted_gates(comps, evals, n_rows, p, u, lam, ell, what: str, eigenvalues: bool = True) -> None:
+    """Which planted directions a range-finder of width ``ell`` resolves
+    after ``n_rows`` rows, and the gates on them: one entry of the Thm-6
+    estimate has std σ = v/(γ√n), v = tr(C)/p; the sketch Y' = S'·Ω then
+    carries a noise bulk with singular values near σ√p(√p + √l), against
+    λ²√l for a planted direction, so the edge in λ² units falls as 1/√n. The
+    subspace of the directions whose λ² is at least 5× that edge must match
+    the planted one (sine < 0.35) and, with ``eigenvalues``, their
+    eigenvalues be within 10 % (PERF.md, §6)."""
+    planted = lam.astype(np.float64) ** 2
+    u = u.astype(np.float64)
+    v = (planted.sum() + 0.05 ** 2 * p) / p
+    sigma = v / (GAMMA * math.sqrt(n_rows))
+    edge = sigma * math.sqrt(p) * (math.sqrt(p) + math.sqrt(ell)) / math.sqrt(ell)
+    k_res = int(np.sum(planted >= 5 * edge))
+    check(k_res >= 3, f"{what}: only {k_res} planted directions are resolvable at n={n_rows}")
+    comps_np = comps.double().cpu().numpy()
+    comps_np /= np.linalg.norm(comps_np, axis=1, keepdims=True)
+    best = np.abs(comps_np @ u).max(axis=0)
+    q, _ = np.linalg.qr(comps_np[:k_res].T)
+    s = float(np.sqrt(max(0.0, 1.0 - np.linalg.svd(q.T @ u[:, :k_res], compute_uv=False).min() ** 2)))
+    ev = evals.cpu().numpy()
+    print(f"  {what}, n={n_rows}: range-finder noise edge λ² ≈ {edge:.2f}; gating on the {k_res} "
+          f"planted directions with λ² ≥ {5 * edge:.1f}")
+    print(f"    λ²/edge of each planted direction {np.round(planted / edge, 2).tolist()}; its best "
+          f"|cos| with the top-{len(comps_np)} components {np.round(best, 4).tolist()}")
+    print(f"    top-{k_res} subspace vs planted: sine of largest principal angle {s:.4f} (< 0.35)")
+    print(f"    eigenvalues {np.round(ev, 2).tolist()} vs planted {np.round(planted, 2).tolist()}; "
+          f"|error|/edge of the gated ones {np.round(np.abs(ev[:len(planted)] - planted)[:k_res] / edge, 2).tolist()}")
+    check(s < 0.35, f"{what}: the top-{k_res} subspace at n={n_rows} is off the planted one: sine {s:.3f}")
+    if eigenvalues:
+        check(bool(np.all(np.abs(ev[:k_res] - planted[:k_res]) <= 0.1 * planted[:k_res])),
+              f"{what}: a resolvable eigenvalue at n={n_rows} is more than 10% off its planted value")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -172,6 +281,8 @@ def main() -> None:
     from repro_torch.kernels import sparse_assign as sa_mod
     from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.stream import StreamKMeansConfig
+    from repro_torch.stream import accumulators as kmeans_acc
+    from repro_torch.train import checkpoint as ckpt_mod
     from repro_torch.utils import prng
 
     # ----------------------------------------------------------------- 2 build
@@ -769,6 +880,44 @@ def main() -> None:
           f"launches on the card {counts}")
     del mean_g, pca_g, km_g, mean_c, pca_c, km_c
 
+    # refinement: the engine's replay (low-rank with K-means) and fit_refine
+    # (PCA, minibatch K-means) on the card against the same on the CPU
+    def small_refine(device):
+        plan = api.Plan(backend="stream", gamma=0.1, batch_size=64, cov_path="lowrank", rank=16)
+        eng = api.make_engine(plan, 1000, prng.PRNGKey(3), VectorStreamSource(p=1000, batch=64, seed=0),
+                              kmeans=StreamKMeansConfig(k=4, n_init=2), device=device)
+        eng.run(3)
+        res = eng.replay(3, passes=2)
+        s = eng._sketch_local(torch.from_numpy(VectorStreamSource(p=1000, batch=64, seed=0).batch_at(9))
+                              .to(device), 9, 0)
+        labels = kmeans_acc.kmeans_assign(res.centers_pre, s)
+        plan_e = plan.replace(batch_size=200)
+        pca = api.SparsifiedPCA(4, plan_e, key=3, device=device).fit_refine(x4, passes=2)
+        km = api.SparsifiedKMeans(4, plan_e.replace(cov_path="dense", rank=None), key=3,
+                                  algorithm="minibatch", device=device).fit_refine(x4, passes=2)
+        return res, labels, pca, km
+
+    ops.reset_counts()
+    (res_g, lab_g, pca_g, km_g), (res_c, lab_c, pca_c, km_c) = small_refine("cuda"), small_refine("cpu")
+    counts = ops.launch_counts()
+    check(all(counts[name] > 0 for name in ("sketch_fused", "hd_precondition", "sparse_assign",
+                                            "spmm", "spmm_t", "transpose_columns")),
+          f"the refinement on the card did not launch every kernel of its path: {counts}")
+    s_replay = subspace_sine(res_g.cov_lowrank.top(4)[0], res_c.cov_lowrank.top(4)[0])
+    s_pca = subspace_sine(pca_g.components_, pca_c.components_)
+    print(f"  replay(passes=2) at p=1000: refined top-4 subspace card vs cpu, sine {s_replay:.3g}; "
+          f"fit_refine(passes=2): PCA sine {s_pca:.3g} (both ≤ 1e-5); refined labels equal: replay "
+          f"{torch.equal(lab_g.cpu(), lab_c)}, minibatch K-means "
+          f"{torch.equal(km_g.predict(x4).cpu(), km_c.predict(x4))}; reassigned by the rebuilds "
+          f"{km_g.refine_reassign_counts_.tolist()} (cpu {km_c.refine_reassign_counts_.tolist()})")
+    check(s_replay <= 1e-5 and s_pca <= 1e-5, "refined subspaces differ between the card and the CPU")
+    check(torch.equal(lab_g.cpu(), lab_c) and torch.equal(km_g.predict(x4).cpu(), km_c.predict(x4)),
+          "refined labels differ between the card and the CPU")
+    check(res_g.refine_reassigned == res_c.refine_reassigned and np.array_equal(
+        km_g.refine_reassign_counts_, km_c.refine_reassign_counts_),
+        "refinement reassignment counts differ between the card and the CPU")
+    del res_g, lab_g, pca_g, km_g, res_c, lab_c, pca_c, km_c
+
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
     src = VectorStreamSource(p=P, batch=BATCH, seed=0)
@@ -821,7 +970,9 @@ def main() -> None:
         t_src, t_dev = t_src + t1 - t0, t_dev + time.perf_counter() - t1
     print(f"  a step: host source + copy {t_src / 3 * 1e3:.1f} ms, device update {t_dev / 3 * 1e3:.1f} ms; "
           f"device share {t_dev / (t_src + t_dev):.3f}")
+    t_update = t_dev / 3 * 1e3
     del state, x
+    res5 = {name: getattr(res, name) for name in ("mean", "cov", "centers")}   # phase 9's reference
 
     # ----------------------------------------------------------------- 6 costs
     print("== 6 the step's costs outside the kernels", flush=True)
@@ -847,6 +998,74 @@ def main() -> None:
     for step in range(3):
         src.batch_at(step)
     print(f"  host source batch_at ({BATCH}, {P}): {(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+    # the folds that repeat bit for bit, a step at phase 5's shapes, against
+    # the float scatter-adds (index_add_, atomics on the card) they replace;
+    # each held against its plain version on the same inputs
+    idx5 = sample_indices(key, BATCH, P, m, device=dev)
+    vals5 = torch.randn((BATCH, m), device=dev)
+    lab5 = torch.randint(0, K, (N_INIT, BATCH), device=dev, dtype=torch.int32)
+    w5 = SparseRows(vals5, idx5, P).to_dense()
+    cs, cs_plain = ops.column_sums(vals5, idx5, P), ref.ref_column_sums(vals5.cpu(), idx5.cpu(), P)
+    err_cs = max((a.cpu() - b).abs().max().item() / b.abs().max().item() for a, b in zip(cs, cs_plain))
+    err_ws = (w5.sum(0).cpu() - cs_plain[0]).abs().max().item() / cs_plain[0].abs().max().item()
+    km, km_plain = (ops.cluster_sums(vals5, idx5, lab5, K, P),
+                    ref.ref_cluster_sums(vals5.cpu(), idx5.cpu(), lab5.cpu(), K, P))
+    km_same = all(torch.equal(a.cpu(), b) for a, b in zip(km, km_plain))
+    print(f"  K6's column sums (Σv, Σv²) at ({BATCH}, {m}, p={P}): |err|/max against the CPU's "
+          f"scatter-add {err_cs:.3g} (1e-5); the dense batch's column sums {err_ws:.3g} (1e-5); the "
+          f"r={N_INIT} K-means sums and counts bit-equal to the CPU's scatter-add: {km_same}")
+    check(err_cs <= 1e-5 and err_ws <= 1e-5, "a column sum is off its plain version")
+    check(km_same, "the r-hypothesis K-means sums differ from their plain version")
+    del cs, cs_plain, km, km_plain
+    costs = [("Σw on the dense path: the dense batch's column sums",
+              time_ms(lambda: w5.sum(0), 10), "index_add_",
+              time_ms(lambda: ref.ref_column_sums(vals5, idx5, P), 10)),
+             ("Σw elsewhere (compact path, FD): K6's column sums",
+              time_ms(lambda: ops.column_sums(vals5, idx5, P), 10), "index_add_",
+              time_ms(lambda: ref.ref_column_sums(vals5, idx5, P), 10)),
+             (f"the K-means sums of r={N_INIT} hypotheses: K6's walk over {N_INIT * K} label "
+              f"columns and the integer histogram",
+              time_ms(lambda: ops.cluster_sums(vals5, idx5, lab5, K, P), 10),
+              "index_add_ of sums and counts",
+              time_ms(lambda: ref.ref_cluster_sums(vals5, idx5, lab5, K, P), 10))]
+    del w5
+    print(f"  the repeatable folds a step ({BATCH} rows, m={m}, p={P}) beside the device update "
+          f"({t_update:.1f} ms; 1 % = {t_update / 100:.2f} ms):")
+    for name, t_new, old, t_old in costs:
+        flag = "  ABOVE 1 % of the update" if t_new - t_old > t_update / 100 else ""
+        print(f"    {name}: {t_new:.3f} ms, against {old} {t_old:.3f} ms: {t_new - t_old:+.3f} ms{flag}")
+    # the compact covariance on each side of COMPACT_KEYED_FILL: the sum by
+    # key at a fill the path exists for, the chunked products at phase 5's;
+    # each repeated bit for bit and against the n·m² scatter-add it replaces
+    # (timed on at most 1024 rows and scaled)
+    for gamma_c in (0.005, GAMMA):
+        m_c = round(gamma_c * P)
+        idx_c = sample_indices(key, BATCH, P, m_c, device=dev)
+        vals_c = torch.randn((BATCH, m_c), device=dev)
+        keyed = m_c <= estimators.COMPACT_KEYED_FILL * P
+        route = "summed by key (sort, K6's segment walk)" if keyed else "chunked fp32 products"
+        k6 = spmm_mod.spmm_t.launches
+        first = estimators._scatter_outer(vals_c, idx_c, P)
+        walked = spmm_mod.spmm_t.launches > k6
+        again = estimators._scatter_outer(vals_c, idx_c, P)
+        rows_p = min(BATCH, 1024)
+        plain_c = estimators._scatter_outer_plain(vals_c[:rows_p], idx_c[:rows_p], P)
+        part = estimators._scatter_outer(vals_c[:rows_p], idx_c[:rows_p], P)
+        err_c = (part - plain_c).abs().max().item() / plain_c.abs().max().item()
+        del part, plain_c
+        t_c = time_ms(lambda: estimators._scatter_outer(vals_c, idx_c, P), 3, warmup=1)
+        t_c_plain = time_ms(lambda: estimators._scatter_outer_plain(vals_c[:rows_p], idx_c[:rows_p], P),
+                            2, warmup=1) * BATCH / rows_p
+        same_c = torch.equal(first, again)
+        print(f"    the compact covariance at m={m_c} (m/p={m_c / P:.4f}), {route}: {t_c:.2f} ms "
+              f"(the dense path's product {gemm:.2f} ms); the n·m² scatter-add it replaces "
+              f"{t_c_plain:.2f} ms (timed on {rows_p} rows, scaled); repeats bit for bit {same_c}; "
+              f"|err|/max against the scatter-add on {rows_p} rows {err_c:.3g} (1e-5)")
+        check(same_c, f"the compact covariance at m={m_c} does not repeat bit for bit")
+        check(err_c <= 1e-5, f"the compact covariance at m={m_c} is off its plain version")
+        check(walked == keyed, f"the compact covariance at m={m_c} took the wrong route")
+        del idx_c, vals_c, first, again
+    del idx5, vals5, lab5
     del eng, res, pca, src
     torch.cuda.empty_cache()
 
@@ -900,41 +1119,12 @@ def main() -> None:
           "low-rank PCA output is not finite")
     check(tuple(comps.shape) == (PCA_K, P_LR) and tuple(res.centers.shape) == (K, P_LR),
           f"shapes {tuple(comps.shape)}, {tuple(res.centers.shape)}")
-    # Which planted directions the range-finder can resolve after n rows: one
-    # entry of the Thm-6 estimate has std σ = v/(γ√n), v = tr(C)/p; the sketch
-    # Y' = S'·Ω then carries a noise bulk with singular values near
-    # σ√p(√p + √l), against λ²√l for a planted direction, so the edge in λ²
-    # units falls as 1/√n. At each reading, gate the subspace of the directions
-    # whose λ² is at least 5× that edge. Their eigenvalues' errors are of the
-    # edge's own size, not a fraction of λ², so the 10 % eigenvalue gate is
-    # read at the full n only (PERF.md, §6).
-    planted = src._lam.astype(np.float64) ** 2
-    u = src._u.astype(np.float64)
-    v = (planted.sum() + 0.05 ** 2 * P_LR) / P_LR
+    # the planted directions the range-finder resolves at each reading; their
+    # eigenvalues' errors are of the noise edge's own size, not a fraction of
+    # λ², so the 10 % eigenvalue gate is read at the full n only
     for n_rows, comps_n, evals_n in readings:
-        sigma = v / (GAMMA * math.sqrt(n_rows))
-        edge = sigma * math.sqrt(P_LR) * (math.sqrt(P_LR) + math.sqrt(ELL)) / math.sqrt(ELL)
-        k_res = int(np.sum(planted >= 5 * edge))
-        comps_np = comps_n.double().cpu().numpy()
-        comps_np /= np.linalg.norm(comps_np, axis=1, keepdims=True)
-        best = np.abs(comps_np @ u).max(axis=0)
-        q, _ = np.linalg.qr(comps_np[:k_res].T)
-        cosines = np.linalg.svd(q.T @ u[:, :k_res], compute_uv=False)
-        sine = float(np.sqrt(max(0.0, 1.0 - cosines.min() ** 2)))
-        ev = evals_n.cpu().numpy()
-        print(f"  n={n_rows}: range-finder noise edge λ² ≈ {edge:.2f}; gating on the {k_res} "
-              f"planted directions with λ² ≥ {5 * edge:.1f}")
-        print(f"    λ²/edge of each planted direction {np.round(planted / edge, 2).tolist()}; its best "
-              f"|cos| with the top-{PCA_K} components {np.round(best, 4).tolist()}")
-        print(f"    top-{k_res} subspace vs planted: sine of largest principal angle {sine:.4f} (< 0.35)")
-        print(f"    eigenvalues {np.round(ev, 2).tolist()} vs planted {np.round(planted, 2).tolist()}; "
-              f"|error|/edge of the gated ones {np.round(np.abs(ev - planted)[:k_res] / edge, 2).tolist()}")
-        check(k_res >= 3, f"only {k_res} planted directions are resolvable at n={n_rows}")
-        check(sine < 0.35, f"low-rank top-{k_res} subspace at n={n_rows} is off the planted one: "
-                           f"sine {sine:.3f}")
-    # ev and k_res are the last reading's, after all STEPS_LR steps
-    check(bool(np.all(np.abs(ev[:k_res] - planted[:k_res]) <= 0.1 * planted[:k_res])),
-          f"a resolvable low-rank eigenvalue at n={rows} is more than 10% off its planted value")
+        planted_gates(comps_n, evals_n, n_rows, P_LR, src._u, src._lam, ELL, "low-rank",
+                      eigenvalues=n_rows == rows)
     state, t_src, t_dev = eng.state, 0.0, 0.0
     for step in range(STEPS_LR, STEPS_LR + 2):
         t0 = time.perf_counter()
@@ -1062,6 +1252,7 @@ def main() -> None:
     for e in rows[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:100]}")
     del s_km, prof, rows
+    comps8 = pb.components_.clone()     # phase 10's dense reference (key 1, the same sketches)
     del fits, ms_, cs, ps, ks, mb, pb, kb, comps_b, comps_s
     torch.cuda.empty_cache()
 
@@ -1093,7 +1284,7 @@ def main() -> None:
           f"norm (< 0.15)")
     check(k2_orig == 2 and tuple(c_orig.shape) == (P, P), "cov_original did not take two K2 launches")
     check(bool(torch.isfinite(c_orig).all()) and rel < 0.15, "cov_original is off the empirical one")
-    del c_orig, c_emp, cb, x8
+    del c_orig, c_emp, cb        # x8 stays for phases 9 and 10
     torch.cuda.empty_cache()
 
     # Lloyd on the mixture: accuracy, and a second fit bit for bit; the dense
@@ -1188,6 +1379,316 @@ def main() -> None:
           f"{time.perf_counter() - t8:.1f} s")
     del est_lr, eng, res_lr, st_e, st_k, top_e, top_k
 
+    # ---------------------------------------------------------------- 9 resume
+    print(f"== 9 resume: phase 5's Plan and source, p={P}, K={K}, r={N_INIT}, "
+          f"track_reassignments=True", flush=True)
+    t9 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plan9 = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH)
+    src9 = VectorStreamSource(p=P, batch=BATCH, seed=0)
+
+    def engine9(cov_path="dense"):
+        return api.make_engine(plan9.replace(cov_path=cov_path), P, prng.PRNGKey(1), src9,
+                               kmeans=StreamKMeansConfig(k=K, n_init=N_INIT, track_reassignments=True))
+
+    # the probe: one step folded twice from the same state and batch, the
+    # same bits (Σw by the dense batch's column sums or K6, the K-means sums
+    # on K6, the compact covariance at m/p = 0.05 by chunked products); the
+    # compact path folds into the same state layout
+    eng9 = engine9()
+    st0 = eng9.init_state()
+    x9 = eng9.host_global_batch(None, 0)
+    for cov_path, e in (("dense", eng9), ("compact", engine9("compact"))):
+        diff = same_bits(e.update(st0, x9, 0), e.update(st0, x9, 0))
+        print(f"  one step ({BATCH}, {P}), m={m}, cov_path={cov_path!r}, folded twice from the same "
+              f"state and batch: {'bit-identical' if not diff else 'DIFFERS in ' + str(diff)}")
+        check(not diff, f"a {cov_path} fold does not repeat bit for bit: {diff}")
+    del st0, x9
+    tmp9 = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        leg1 = eng9.run(STEPS // 2, checkpoint_dir=os.path.join(tmp9, "engine"),
+                        checkpoint_every=STEPS // 4)
+        torch.cuda.synchronize()
+        t_leg1 = time.perf_counter() - t0
+        eng9b = engine9()
+        t0 = time.perf_counter()
+        state, next_step = eng9b.restore_state(os.path.join(tmp9, "engine"))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        check(next_step == STEPS // 2, f"restore_state resumed at step {next_step}")
+        t0 = time.perf_counter()
+        leg2 = eng9b.run(STEPS, state=state, start_step=next_step)
+        torch.cuda.synchronize()
+        t_leg2 = time.perf_counter() - t0
+        launches9 = ops.launch_counts()
+        ck_dir = ckpt_mod.latest_step_dir(os.path.join(tmp9, "engine"))
+        ck_bytes = sum(os.path.getsize(os.path.join(ck_dir, f)) for f in os.listdir(ck_dir))
+        t0 = time.perf_counter()
+        eng9b.save_state(os.path.join(tmp9, "again"), STEPS)
+        t_write = time.perf_counter() - t0
+        same = {name: torch.equal(getattr(leg2, name), res5[name]) for name in res5}
+        total = leg1.reassign_counts.sum(0) + leg2.reassign_counts.sum(0)
+        print(f"  run({STEPS // 2}) with a checkpoint every {STEPS // 4} steps {t_leg1:.2f} s; "
+              f"restore_state {t_restore:.2f} s (next_step {next_step}); run({STEPS}, "
+              f"start_step={next_step}) {t_leg2:.2f} s; bit-equal to phase 5's run: {same}")
+        print(f"  reassign_total {leg2.reassign_total.tolist()} = leg 1's {leg1.reassign_counts.sum(0).tolist()}"
+              f" + leg 2's {leg2.reassign_counts.sum(0).tolist()}; per step (best of r) "
+              f"{np.concatenate([leg1.reassign_counts, leg2.reassign_counts]).min(1).tolist()}")
+        print(f"  the checkpoint: {ck_bytes} bytes ({ck_bytes / 2**30:.3f} GiB), written in "
+              f"{t_write:.2f} s, restored in {t_restore:.2f} s")
+        print(f"  launches on the resume path: {launches9}")
+        check(all(same.values()), f"the resumed run is not bit-equal to phase 5's: {same}")
+        check(np.array_equal(leg2.reassign_total, total), "reassign_total is not the legs' sum")
+        check(all(launches9[name] > 0 for name in PATH9), f"a kernel of the path never launched: "
+                                                          f"{launches9}")
+        del eng9, eng9b, state, leg1, leg2, res5
+
+        # the fused run over phase 8's rows, stopped after 8 of 16 chunks
+        def consumers9():
+            return [api.SparsifiedPCA(PCA_K, plan9, key=1),
+                    api.SparsifiedKMeans(K, plan9, key=1, algorithm="minibatch")]
+
+        t0 = time.perf_counter()
+        full = consumers9()
+        api.fit_many(plan9, full, x8)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = api.fit_many(plan9, consumers9(), x8[:STEPS // 2 * BATCH], finalize=False)
+        run.checkpoint(os.path.join(tmp9, "fused"))
+        t_ck = time.perf_counter() - t0
+        resumed = consumers9()
+        t0 = time.perf_counter()
+        run = api.restore_run(os.path.join(tmp9, "fused"), plan9, resumed)
+        run.partial_fit(x8[STEPS // 2 * BATCH:]).finalize()
+        torch.cuda.synchronize()
+        t_res = time.perf_counter() - t0
+        same = {"components": torch.equal(resumed[0].components_, full[0].components_),
+                "eigenvalues": torch.equal(resumed[0].explained_variance_, full[0].explained_variance_),
+                "centers": torch.equal(resumed[1].centers_, full[1].centers_),
+                "reassign_counts": np.array_equal(resumed[1].reassign_counts_,
+                                                  full[1].reassign_counts_)}
+        print(f"  fit_many over SparsifiedPCA({PCA_K}) and SparsifiedKMeans({K}, minibatch), "
+              f"{STEPS * BATCH} rows on the card: uninterrupted {t_full:.2f} s; 8 chunks and the "
+              f"checkpoint {t_ck:.2f} s; restore_run and the other 8 {t_res:.2f} s; bit-equal: {same}")
+        check(all(same.values()), f"the resumed fused run is not bit-equal: {same}")
+        del full, run, resumed
+    finally:
+        shutil.rmtree(tmp9, ignore_errors=True)
+    print(f"  phase 9: {time.perf_counter() - t9:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+
+    # --------------------------------------------------------------- 10 refine
+    print(f"== 10 refine: fit_many(refine=2) at p={P}; replay_scanned at p={P_LR}, l={ELL}; "
+          f"Frequent Directions", flush=True)
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    plan10 = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, cov_path="lowrank", rank=24)
+
+    def consumers10():
+        return [api.SparsifiedPCA(PCA_K, plan10, key=1),
+                api.SparsifiedKMeans(K, plan10, key=1, algorithm="minibatch")]
+
+    one = consumers10()
+    api.fit_many(plan10, one, x8)
+    fits10 = []
+    for _ in range(2):
+        cons = consumers10()
+        objs = []
+        end_pass = cons[1]._refine_pass_end
+
+        def record(f, last, signal, _end=end_pass, _km=cons[1], _objs=objs):
+            _objs.append(float(_km._r2.obj))     # the objective under pass f's frozen centers
+            _end(f, last, signal)
+
+        cons[1]._refine_pass_end = record
+        k1 = ops.launch_counts()["sketch_fused"]
+        t0 = time.perf_counter()
+        api.fit_many(plan10, cons, x8, refine=2)
+        torch.cuda.synchronize()
+        fits10.append((cons, objs, ops.launch_counts()["sketch_fused"] - k1,
+                       time.perf_counter() - t0))
+    (pca10, km10), objs, n_sk, t_ref = fits10[0]
+    s_one, s_ref = subspace_sine(one[0].components_, comps8), subspace_sine(pca10.components_, comps8)
+    rel = [(b_ - a) / abs(a) for a, b_ in zip(objs, objs[1:])]
+    print(f"  fit_many(refine=2) over SparsifiedPCA({PCA_K}, rank=24) and SparsifiedKMeans({K}, "
+          f"minibatch): {t_ref:.2f} s, {n_sk} sketches (16 forward, 16 each of 2 passes and the "
+          f"measurement pass)")
+    print(f"  top-{PCA_K} sine to phase 8's dense components: one-pass {s_one:.4g}, refined "
+          f"{s_ref:.4g}; subspace change a pass {pca10.refine_subspace_change_.tolist()}")
+    print(f"  the sketched K-means objective under each pass's frozen centers {objs} (relative "
+          f"steps {[f'{r:.3g}' for r in rel]}); rows reassigned by the rebuilds "
+          f"{km10.refine_reassign_counts_.tolist()}")
+    check(n_sk == 4 * STEPS, f"{n_sk} sketches: the replay did not share one sketch a chunk")
+    check(s_ref <= s_one, "the refined subspace is farther from the dense one than the one-pass")
+    check(all(r <= 1e-6 for r in rel), "the K-means objective rose between refinement passes")
+    (pca_b, km_b), objs_b, _, _ = fits10[1]
+    same = (torch.equal(pca10.components_, pca_b.components_)
+            and torch.equal(pca10.explained_variance_, pca_b.explained_variance_)
+            and torch.equal(km10.centers_, km_b.centers_) and objs == objs_b
+            and np.array_equal(km10.refine_reassign_counts_, km_b.refine_reassign_counts_))
+    print(f"  a second identical refine: bit-identical {same}")
+    check(same, "two identical refines on the card differ")
+    del one, fits10, pca10, km10, pca_b, km_b
+    launches10_refine = ops.launch_counts()
+    print(f"  launches of the three fit_many runs: {launches10_refine}")
+    check(all(launches10_refine[name] > 0 for name in PATH10_REFINE),
+          f"a kernel of the p={P} refinement never launched: {launches10_refine}")
+    ops.reset_counts()
+
+    # p = 65536: 8 steps staged on the card (phase 7's planted U and λ,
+    # phase 8's generator), the engine's scanned run and replay
+    src10 = VectorStreamSource(p=P_LR, batch=BATCH, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    u10, lam10 = torch.from_numpy(src10._u).to(dev), torch.from_numpy(src10._lam).to(dev)
+    xs = torch.empty((STEPS_LR, 1, BATCH, P_LR), device=dev)
+    for t in range(STEPS_LR):
+        torch.matmul(torch.randn((BATCH, src10.k), generator=gen, device=dev) * lam10, u10.T,
+                     out=xs[t, 0])
+        xs[t, 0].add_(torch.randn((BATCH, P_LR), generator=gen, device=dev), alpha=0.05)
+    del u10, lam10
+    plan_lr = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, cov_path="lowrank", rank=ELL)
+    eng10 = api.make_engine(plan_lr, P_LR, prng.PRNGKey(1), lambda seed, step, shard: xs[step, shard],
+                            kmeans=StreamKMeansConfig(k=K, n_init=N_INIT))
+    st0 = eng10.init_state()
+    diff = same_bits(eng10.update(st0, xs[0], 0), eng10.update(st0, xs[0], 0))
+    print(f"  one step ({BATCH}, {P_LR}), l={ELL}, folded twice from the same state and batch: "
+          f"{'bit-identical' if not diff else 'DIFFERS in ' + str(diff)}")
+    check(not diff, f"a low-rank fold does not repeat bit for bit: {diff}")
+    eng10.run_scanned(xs[:2])
+    scanned = eng10.state
+    eng10.run(2)
+    diff = same_bits(scanned, eng10.state)
+    print(f"  run_scanned(xs[:2]) against run(2) over the same rows: "
+          f"{'bit-equal' if not diff else 'DIFFERS in ' + str(diff)}")
+    check(not diff, f"run_scanned and run differ: {diff}")
+    del st0, scanned
+    launches10_replay = ops.launch_counts()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res_one = eng10.run_scanned(xs)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_r = eng10.replay_scanned(xs, passes=2)
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    launches10b = ops.launch_counts()
+    res_r2 = eng10.replay_scanned(xs, passes=2)
+    n10 = STEPS_LR * BATCH
+    comps_r = sketch_mod.unmix_dense(res_r.cov_lowrank.top(PCA_K)[0], eng10.spec)
+    print(f"  run_scanned {t_scan:.2f} s; replay_scanned(passes=2) with K-means {t_replay:.2f} s; "
+          f"launches {launches10b}; reassigned by rebuild 1: {res_r.refine_reassigned}")
+    planted_gates(sketch_mod.unmix_dense(res_one.cov_lowrank.top(PCA_K)[0], eng10.spec),
+                  res_one.cov_lowrank.eigenvalues, n10, P_LR, src10._u, src10._lam, ELL, "one pass")
+    planted_gates(comps_r, res_r.cov_lowrank.eigenvalues, n10, P_LR, src10._u, src10._lam, ELL,
+                  "refined (2 passes)")
+    same = (torch.equal(res_r.cov_lowrank.eigenvalues, res_r2.cov_lowrank.eigenvalues)
+            and torch.equal(res_r.cov_lowrank.components_pre, res_r2.cov_lowrank.components_pre)
+            and torch.equal(res_r.centers_pre, res_r2.centers_pre)
+            and torch.equal(res_r.kmeans_obj, res_r2.kmeans_obj))
+    print(f"  a repeated replay_scanned: bit-identical {same}")
+    check(same, "two replays on the card differ")
+    for name in ("mean", "centers", "kmeans_obj"):
+        check(bool(torch.isfinite(getattr(res_r, name)).all()), f"refined {name} is not finite")
+    check(all(launches10b[name] > 0 for name in PATH2),
+          f"a kernel of the p={P_LR} replay never launched: {launches10b}")
+    del eng10, xs, res_one, res_r, res_r2, comps_r
+    launches10_replay = {name: n + launches10_replay[name] for name, n in ops.launch_counts().items()}
+    ops.reset_counts()
+
+    # Frequent Directions on 16,384 of phase 8's rows: the card's sketch B
+    # against the port's FD on the CPU and against a float64 FD written here
+    # (each shrink by the eigenpairs of the (2l, 2l) Gram matrix), both fed
+    # the same sketches; and Liberty's bound 0 ≼ S − BᵀB ≼ ‖W‖²/l
+    n_fd, ell_fd = STEPS // 4 * BATCH, 32
+    x_fd = x8[:n_fd]
+    plan_fd = api.Plan(gamma=GAMMA, batch_size=BATCH, cov_path="lowrank", lowrank_method="fd",
+                       rank=ell_fd)
+    t0 = time.perf_counter()
+    fd = api.SparsifiedPCA(PCA_K, plan_fd, key=1).fit(x_fd)
+    torch.cuda.synchronize()
+    t_fd = time.perf_counter() - t0
+    launches_fd = ops.launch_counts()
+    s_all = torch.zeros((P, P), device=dev)
+    fro2 = 0.0
+    st_cpu = lowrank.fd_init(P, ell_fd)
+    b64 = torch.zeros((ell_fd, P), dtype=torch.float64, device=dev)
+    t_cpu = 0.0
+    for j in range(n_fd // BATCH):
+        s_j = sketch_mod.sketch(x_fd[j * BATCH:(j + 1) * BATCH], fd.spec_,
+                                batch_key=sketch_mod.batch_key(fd.spec_, j, 0))
+        w = s_j.to_dense()
+        s_all.addmm_(w.T, w)
+        fro2 += float((w.double() ** 2).sum())
+        t0 = time.perf_counter()
+        st_cpu = lowrank.fd_update(st_cpu, SparseRows(s_j.values.cpu(), s_j.indices.cpu(), P))
+        t_cpu += time.perf_counter() - t0
+        w = w.double()
+        for r in range(0, BATCH, ell_fd):
+            a = torch.cat([b64, w[r:r + ell_fd]])
+            ev, u = torch.linalg.eigh(a @ a.T)             # ascending: σ² and A's left vectors
+            ev, u = ev.flip(0), u.flip(1)
+            keep = torch.clamp(ev[:ell_fd] - ev[ell_fd].clamp(min=0), min=0)
+            b64 = (torch.sqrt(keep / ev[:ell_fd].clamp(min=1e-300))[:, None] * u[:, :ell_fd].T) @ a
+    del w, a
+    b_fd = fd._reducer.state.sketch
+    gap = torch.linalg.eigvalsh(s_all - b_fd.T @ b_fd)
+    del s_all
+
+    def gram_err(b, want):
+        """max |bᵀb − wantᵀwant| / max |wantᵀwant|, in float64 on the card."""
+        g = want.double().to(dev)
+        g = g.T @ g
+        top = g.abs().max().item()
+        b = b.double().to(dev)
+        g.addmm_(b.T, b, alpha=-1.0)
+        return g.abs().max().item() / top
+
+    err_cpu, err_64 = gram_err(b_fd, st_cpu.sketch), gram_err(b_fd, b64)
+    err_side = max((fd._reducer.state.diag.cpu() - st_cpu.diag).abs().max().item()
+                   / st_cpu.diag.abs().max().item(),
+                   (fd._reducer.state.sum_w.cpu() - st_cpu.sum_w).abs().max().item()
+                   / st_cpu.sum_w.abs().max().item())
+    tr_b = float((b_fd.double() ** 2).sum())
+    comps = fd.components_.double().cpu().numpy()
+    q, _ = np.linalg.qr(comps.T)
+    s_fd = float(np.sqrt(max(0.0, 1.0 - np.linalg.svd(q.T @ src._u.astype(np.float64),
+                                                        compute_uv=False).min() ** 2)))
+    print(f"  SparsifiedPCA({PCA_K}, lowrank_method='fd', rank={ell_fd}).fit on {n_fd} rows: "
+          f"{t_fd:.2f} s ({n_fd // ell_fd} SVD-shrinks of ({2 * ell_fd}, {P})); the same folds "
+          f"on the CPU {t_cpu:.2f} s; launches {launches_fd}")
+    print(f"  BᵀB against the port's FD on the CPU: |err|/max {err_cpu:.3g} (1e-4); against a "
+          f"float64 FD on the same sketches {err_64:.3g} (1e-4); diag and Σw against the CPU's "
+          f"{err_side:.3g} (1e-5); ‖B‖_F² {tr_b:.6g} of ‖W‖_F² {fro2:.6g}")
+    print(f"  S − BᵀB spans [{gap.min().item():.4g}, {gap.max().item():.4g}] against the bound "
+          f"[0, ‖W‖²/l = {fro2 / ell_fd:.4g}]")
+    print(f"  FD against the planted model: top-{PCA_K} sine {s_fd:.4f}, eigenvalues "
+          f"{np.round(fd.explained_variance_.cpu().numpy(), 2).tolist()} vs planted "
+          f"{np.round(src._lam.astype(np.float64) ** 2, 2).tolist()} (not gated: at this γ and l "
+          f"each shrink takes more from a direction than the planted signal adds, in the JAX "
+          f"package too: tests/test_torch_fd.py, PERF.md §6)")
+    check(bool(torch.isfinite(fd.components_).all()), "FD components are not finite")
+    check(err_cpu <= 1e-4, f"FD's sketch on the card is off the CPU's: {err_cpu:.3g}")
+    check(err_64 <= 1e-4, f"FD's sketch on the card is off the float64 FD's: {err_64:.3g}")
+    check(err_side <= 1e-5, f"FD's diag or Σw on the card is off the CPU's: {err_side:.3g}")
+    check(gap.min().item() >= -1e-2 * fro2 / ell_fd and gap.max().item() <= fro2 / ell_fd * (1 + 1e-3),
+          "FD breaks its deterministic bound 0 ≼ S − BᵀB ≼ ‖W‖²/l")
+    check(all(launches_fd[name] > 0 for name in PATH_FD),
+          f"a kernel of the FD path never launched: {launches_fd}")
+    del fd, x_fd, b_fd, gap, x8, st_cpu, b64
+    torch.cuda.synchronize()
+    launches10 = {name: launches10_refine[name] + launches10_replay[name] + launches_fd[name]
+                  for name in launches_fd}
+    print(f"  launches in phase 10: {launches10}")
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -1201,9 +1702,16 @@ def main() -> None:
                         launches_lr),
                "spmm_t": ("src/repro_torch/kernels/csrc/spmm.cu", "src/repro/kernels/spmm.py:219",
                           launches_lr)}
-    # launches: each kernel's count on its own path's run (phase 5 or phase 7)
+    # launches: each kernel's count on its own path's run (phase 5 or phase
+    # 7); launches_by_phase: that count again and each later path's own,
+    # each read just after its reset
+    later = {"9 resume": launches9, "10 refine": launches10_refine,
+             "10 scan and replay": launches10_replay, "10 fd": launches_fd}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=counts[name], **entries[name])
+                    launches=counts[name],
+                    launches_by_phase={"5" if counts is launches else "7": counts[name],
+                                       **{ph: c[name] for ph, c in later.items()}},
+                    **entries[name])
                for name, (source, replaces, counts) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,11 +41,19 @@ and, where the (p, p) accumulator would not fit, the low-rank path::
     comps_pre, evals = eng.run(8).cov_lowrank.top(8)
     comps = sketch.unmix_dense(comps_pre, eng.spec)   # repro_torch.core.sketch
 
-``backend="sharded"``, refinement (``refine``, ``fit_refine``,
-``fit_many(refine=)``, ``lowrank_method="fd"``), checkpoints
-(``checkpoint``, ``restore``, ``restore_run``) and :class:`GradCompressor`
-are not ported yet: they raise ``NotImplementedError`` naming their ROADMAP
-item.
+A fit resumes and refines: ``est.checkpoint(dir)`` / ``est.restore(dir)``
+and ``run.checkpoint(dir)`` / :func:`restore_run` continue an interrupted
+pass bit for bit (either package's checkpoints), and ``fit_refine`` /
+``refine`` / ``fit_many(..., refine=q)`` replay the pass to sharpen the
+low-rank PCA basis (power iteration) and minibatch K-means centers (two-pass
+Alg. 2)::
+
+    plan = Plan(backend="stream", gamma=0.05, batch_size=4096,
+                cov_path="lowrank", rank=24)
+    pca = SparsifiedPCA(8, plan, key=0).fit_refine(x, passes=2)
+
+``backend="sharded"`` and :class:`GradCompressor` are not ported yet: they
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -88,8 +96,6 @@ def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
             "the engine's low-rank path sums the linear range-finder delta; "
             "lowrank_method='fd' (order-dependent shrink) is estimator-layer "
             "only — use lowrank_method='range'")
-    if plan.refine_passes:
-        raise not_ported("Plan(refine_passes=...)", "Low-rank FD and refinement")
     return StreamEngine(plan.spec(p, as_key(key)), source, n_shards=plan.n_shards,
                         track_cov=track_cov, kmeans=kmeans, impl=plan.impl,
                         cov_path=plan.cov_path, rank=plan.rank, device=device)

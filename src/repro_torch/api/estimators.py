@@ -21,9 +21,12 @@ summation order (1e-5). The same keys, masks and folds as the reference's
 ``state_arrays()`` loads into the other's estimator and continues.
 
 Estimators run on ``device`` ("cuda" by default; "cpu" on request): rows are
-moved there chunk by chunk. ``backend="sharded"``, refinement, checkpoints
-and ``lowrank_method="fd"`` raise ``NotImplementedError`` naming their item of
-ROADMAP.md's Queue 1.
+moved there chunk by chunk. A fit checkpoints and restores (``checkpoint`` /
+``restore``, the reference's on-disk layout, so either package continues the
+other's), and replays its pass to refine (``refine`` / ``fit_refine``: power
+iteration for the low-rank PCA, two-pass Alg. 2 for minibatch K-means;
+``repro_torch.refine``). ``backend="sharded"`` raises ``NotImplementedError``
+naming its item of ROADMAP.md's Queue 1.
 
 Fitted attributes follow the sklearn trailing-underscore convention; estimates
 come back in the ORIGINAL domain (eigenvectors / means / centers unmixed by
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import lowrank as lowrank_mod
+from repro_torch import refine as refine_mod
 from repro_torch.api.plan import Plan
 from repro_torch.core import estimators as est
 from repro_torch.core import kmeans as km
@@ -47,13 +51,10 @@ from repro_torch.core.sketch import batch_key
 from repro_torch.kernels import ops
 from repro_torch.stream import accumulators as acc
 from repro_torch.stream import state as state_mod
+from repro_torch.train import checkpoint as checkpoint_mod
 from repro_torch.utils import prng
 from repro_torch.utils.device import not_ported, resolve_device
 from repro_torch.utils.prng import fold_in_str
-
-_REFINE_ITEM = "Low-rank FD and refinement"
-_CHECKPOINT_ITEM = "Engine replay, scan and checkpoints"
-
 
 def as_key(key) -> np.ndarray:
     """Accept an int seed or threefry key data (uint32[2]) — the one
@@ -91,7 +92,7 @@ def _moment_backend(name: str):
 @_moment_backend("batch")
 def _reduce_batch(r: "_MomentReducer"):
     s_all = r.concat()
-    mean = est.mean_estimator(s_all)
+    mean = est.mean_estimator(s_all, impl=r.plan.impl)
     cov = est.cov_estimator(s_all, path=r.plan.cov_path) if r.track_cov else None
     return mean, cov, torch.tensor(s_all.n, dtype=torch.int32)
 
@@ -113,8 +114,9 @@ class _MomentReducer:
     "batch" backend (and Lloyd K-means, which passes ``keep_sketch=True``
     because Alg. 1 clusters the retained sketch) holds sketches past their
     chunk; "stream" folds each into the constant-memory accumulator. With
-    ``cov_path="lowrank"`` the O(rank·p) range-finder state replaces the
-    (p, p) accumulator on both backends.
+    ``cov_path="lowrank"`` the O(rank·p) range-finder state (or, with
+    ``lowrank_method="fd"``, the Frequent-Directions sketch, folded in (step,
+    shard) order) replaces the (p, p) accumulator on both backends.
     """
 
     def __init__(self, plan: Plan, spec: sketch_mod.SketchSpec, track_cov: bool,
@@ -129,8 +131,11 @@ class _MomentReducer:
             if plan.rank > spec.p_pad:
                 raise ValueError(f"rank={plan.rank} exceeds p_pad={spec.p_pad}; "
                                  "a low-rank sketch must be narrower than p")
-            self._omega = lowrank_mod.omega(spec.key, spec.p_pad, plan.rank, device=device)
-            self.state = lowrank_mod.range_init(spec.p_pad, plan.rank, device=device)
+            if plan.lowrank_method == "range":
+                self._omega = lowrank_mod.omega(spec.key, spec.p_pad, plan.rank, device=device)
+                self.state = lowrank_mod.range_init(spec.p_pad, plan.rank, device=device)
+            else:
+                self.state = lowrank_mod.fd_init(spec.p_pad, plan.rank, device=device)
         else:
             # moment state only where reduce() will read it (K-means never does)
             self.state = (acc.moment_init(spec.p_pad, track_cov=track_cov, device=device)
@@ -142,11 +147,14 @@ class _MomentReducer:
         return "dense" if self.plan.cov_path == "lowrank" else self.plan.cov_path
 
     def fold(self, s: SparseRows, step: int, shard: int) -> None:
-        if self.lowrank:
+        if self.lowrank and self.plan.lowrank_method == "fd":
+            self.state = lowrank_mod.fd_update(self.state, s, impl=self.plan.impl)
+        elif self.lowrank:
             self.state = lowrank_mod.range_update(self.state, s, self._omega,
                                                   impl=self.plan.impl)
         elif self.state is not None:
-            self.state = est.stream_update(self.state, s, cov_path=self._moment_cov_path)
+            self.state = est.stream_update(self.state, s, cov_path=self._moment_cov_path,
+                                           impl=self.plan.impl)
         if self.keep_sketch:
             self.parts.append(s)
 
@@ -162,6 +170,9 @@ class _MomentReducer:
         st = self.state
         if int(st.count) == 0:
             raise RuntimeError("no batches folded yet — call fit()/partial_fit() first")
+        if self.plan.lowrank_method == "fd":
+            return (lowrank_mod.fd_finalize_mean(st, self.spec.m),
+                    lowrank_mod.fd_finalize(st, self.spec.m), st.count)
         return (lowrank_mod.range_finalize_mean(st, self.spec.m),
                 lowrank_mod.range_finalize(st, self.spec.m, self._omega), st.count)
 
@@ -246,6 +257,20 @@ class SketchCursor:
             for i in range(0, x.shape[0], bs):
                 self.fold_rows(_rows_on(x[i:i + bs], self.device, dtype))
 
+    def position(self) -> dict:
+        """Where the pass stands — p, the chunk counter, rows, sketches and
+        rows per chunk — as a checkpoint's JSON ``extra`` records it."""
+        return {"p": int(self.spec.p), "chunk": self.chunk, "count": self.count,
+                "n_sketches": self.n_sketches, "chunk_rows": list(self.chunk_rows)}
+
+    def resume(self, extra: dict) -> None:
+        """Bind the spec and continue at a recorded :meth:`position`."""
+        self.ensure_spec(int(extra["p"]))
+        self.chunk = int(extra["chunk"])
+        self.count = int(extra["count"])
+        self.n_sketches = int(extra["n_sketches"])
+        self.chunk_rows = [int(r) for r in extra["chunk_rows"]]
+
     def sync(self) -> None:
         """Block until the last folded chunk's sketch is computed — the ingest
         barrier to time the fold pass against."""
@@ -287,9 +312,6 @@ class SketchedEstimator:
     def __init__(self, plan: Plan, key=0, *, device="cuda"):
         if plan.backend == "sharded":
             raise not_ported("Plan(backend='sharded')", "Sharded backend")
-        if (plan.cov_path == "lowrank" and plan.lowrank_method == "fd"
-                and self._track_cov and self._needs_moments):
-            raise not_ported("Plan(lowrank_method='fd')", _REFINE_ITEM)
         self.plan = plan
         self.key = as_key(key)
         self.device = resolve_device(device)
@@ -378,17 +400,115 @@ class SketchedEstimator:
     def _finalize(self) -> None:
         raise NotImplementedError
 
-    def refine(self, *args, **kwargs):
-        raise not_ported(f"{type(self).__name__}.refine", _REFINE_ITEM)
+    # ---------------------------------------------------------- refinement --
+    # Second-pass replay refinement (repro_torch.refine): subclasses that
+    # support it override _refine_supported/_refine_check and the _refine_*
+    # fold hooks of repro_torch.refine.replay; the base class owns refine().
 
-    def fit_refine(self, *args, **kwargs):
-        raise not_ported(f"{type(self).__name__}.fit_refine", _REFINE_ITEM)
+    def _refine_supported(self) -> bool:
+        return False
 
-    def checkpoint(self, *args, **kwargs):
-        raise not_ported(f"{type(self).__name__}.checkpoint", _CHECKPOINT_ITEM)
+    def _refine_check(self) -> None:
+        raise ValueError(
+            f"{type(self).__name__} has no second-pass refinement: its "
+            "estimator is already exact given the sketch (nothing a replay "
+            "could sharpen). fit_refine applies to SparsifiedPCA on the "
+            "lowrank 'range' path and to minibatch SparsifiedKMeans")
 
-    def restore(self, *args, **kwargs):
-        raise not_ported(f"{type(self).__name__}.restore", _CHECKPOINT_ITEM)
+    def _refine_needs_signal(self) -> bool:
+        return False
+
+    def _refine_metric(self) -> float:
+        """The latest pass's convergence measurement (smaller = settled),
+        read by the ``tol=`` loop."""
+        raise NotImplementedError
+
+    def _refine_tol_check(self) -> None:
+        """Subclass hook: reject ``tol=`` when the convergence signal is off."""
+
+    def _resolve_passes(self, passes: int | None) -> int:
+        if passes is None:
+            passes = self.plan.refine_passes or 1
+        if passes < 1:
+            raise ValueError(f"refinement needs passes >= 1, got {passes}")
+        return int(passes)
+
+    def refine(self, x=None, passes: int | None = None, *, tol: float | None = None,
+               max_passes: int = 16, source=None, steps: int | None = None,
+               seed: int | None = None) -> "SketchedEstimator":
+        """Replay the FITTED pass more times and sharpen the fit.
+
+        ``x`` must be the array ``fit`` consumed (re-chunked at the cursor's
+        recorded boundaries and re-masked identically; the row count is
+        checked), or ``source`` / ``steps`` / ``seed`` the stream
+        ``fit_stream`` pulled. ``passes`` defaults to ``plan.refine_passes``
+        (or 1). Repeat calls resume: ``refine(x); refine(x)`` ≡
+        ``refine(x, passes=2)``, with ``refine_passes_`` accumulating.
+
+        ``tol=`` refines until converged instead: single resuming passes run
+        until the per-pass measurement — ``refine_subspace_change_[-1]`` for
+        PCA, ``refine_reassign_fraction_[-1]`` for minibatch K-means (which
+        needs ``track_reassignments=True``) — drops to ``tol`` or
+        ``max_passes`` is reached; ``refine_converged_`` says which.
+        """
+        self._refine_check()
+        if not self._fitted:
+            raise RuntimeError("refine() replays a fitted estimator — call "
+                               "fit()/fit_stream() first, or use fit_refine()")
+        if tol is not None:
+            if passes is not None:
+                raise ValueError("pass a fixed passes= OR an adaptive tol=, not both")
+            if tol <= 0:
+                raise ValueError(f"tol must be > 0, got {tol}")
+            if max_passes < 1:
+                raise ValueError(f"max_passes must be >= 1, got {max_passes}")
+            self._refine_tol_check()
+        chunk_rows = None
+        if x is not None:
+            n = int((x if torch.is_tensor(x) else np.asarray(x)).shape[0])
+            if n != self.count_:
+                raise ValueError(
+                    f"refine(x) got {n} rows but the fitted pass folded "
+                    f"{self.count_}; the replay must regenerate the SAME "
+                    "chunks — pass the array fit() consumed")
+            chunk_rows = list(self._cursor.chunk_rows)
+        src = None
+        if source is not None:
+            from repro_torch.stream.engine import normalize_source
+
+            src = normalize_source(source)
+        kw = dict(data=x, source=src, steps=steps, seed=seed, chunk_rows=chunk_rows,
+                  device=self.device)
+        if tol is None:
+            refine_mod.run_refine(self.plan, self.spec_, [self], self._resolve_passes(passes),
+                                  **kw)
+            return self
+        # one resuming pass at a time, watching the convergence measurement
+        self.refine_converged_ = False
+        for _ in range(int(max_passes)):
+            refine_mod.run_refine(self.plan, self.spec_, [self], 1, **kw)
+            if self._refine_metric() <= tol:
+                self.refine_converged_ = True
+                break
+        return self
+
+    def fit_refine(self, x=None, passes: int | None = None, *, tol: float | None = None,
+                   max_passes: int = 16, source=None, steps: int | None = None,
+                   seed: int | None = None) -> "SketchedEstimator":
+        """One-pass fit, then replay refinement (see :meth:`refine`): an
+        in-memory ``x`` is fit then re-chunked a pass; a ``source`` is
+        streamed once then replayed a pass."""
+        self._refine_check()
+        if (x is None) == (source is None):
+            raise ValueError("fit_refine needs exactly one of x or source=")
+        if x is not None:
+            self.fit(x)
+        else:
+            if steps is None:
+                raise ValueError("fit_refine(source=...) needs steps=")
+            self.fit_stream(source, steps=steps, seed=seed)
+        return self.refine(x, passes, tol=tol, max_passes=max_passes, source=source,
+                           steps=steps, seed=seed)
 
     # ------------------------------------------------------------- utility --
 
@@ -442,9 +562,9 @@ class SketchedEstimator:
                                "importing snapshot state")
         r = self._reducer
         self.count_ = int(arrs["count"])
-        # the reducer holds a moment or range state; the km kind belongs to
-        # SparsifiedKMeans' own slot (its override loads it)
-        st = state_mod.from_arrays(arrs, device=self.device, kinds=("moment", "range"))
+        # the reducer holds a moment, range or fd state; the km kind belongs
+        # to SparsifiedKMeans' own slot (its override loads it)
+        st = state_mod.from_arrays(arrs, device=self.device, kinds=("moment", "range", "fd"))
         if st is not None:
             r.state = st
         if "parts.values" in arrs:
@@ -455,6 +575,29 @@ class SketchedEstimator:
             for n in np.asarray(arrs["parts.rows"]).tolist():
                 r.parts.append(SparseRows(values[i:i + n], indices[i:i + n], self.spec_.p_pad))
                 i += n
+
+    # Checkpoint/restore: the fold state plus the cursor counters, through
+    # train.checkpoint. restore() rebinds the spec from (plan, key, p) and
+    # resumes the chunk cursor, so partial_fit after restore() continues the
+    # interrupted pass bit for bit.
+
+    def checkpoint(self, ckpt_dir: str, *, keep_last: int = 3) -> "SketchedEstimator":
+        """Write the fold state and the ingest cursor to ``ckpt_dir`` (atomic)."""
+        if self.spec_ is None:
+            raise RuntimeError("nothing folded yet — nothing to checkpoint")
+        cur = self._cursor
+        checkpoint_mod.save_arrays(ckpt_dir, cur.chunk, self.state_arrays(),
+                                   extra=cur.position(), keep_last=keep_last)
+        return self
+
+    def restore(self, ckpt_dir: str) -> "SketchedEstimator":
+        """Reset, rebind the spec, and load the latest checkpoint under
+        ``ckpt_dir`` (either package's): ingest continues where it stopped."""
+        arrs, extra = checkpoint_mod.load_arrays(ckpt_dir)
+        self.reset()
+        self._cursor.resume(extra)
+        self.load_state_arrays(arrs)
+        return self
 
 
 # ----------------------------------------------------------- the estimators --
@@ -514,14 +657,15 @@ class SparsifiedPCA(SketchedEstimator):
     """Principal components from the sketched covariance (paper §V).
 
     With ``Plan(cov_path="lowrank", rank=l)`` the (p, p) covariance accumulator
-    is replaced by the O(l·p) range-finder state on every backend — same
-    fit/finalize contract, and the factored eigenmodel is kept on
+    ``fit/finalize`` contract, and the factored eigenmodel is kept on
     ``cov_lowrank_``. Pick l ≥ 4·n_components ("range" finalizes l/2
-    eigenpairs from the 2×-oversampled sketch).
+    eigenpairs from the 2×-oversampled sketch; "fd" finalizes all l).
 
     Fitted: ``components_`` ((n_components, p), original domain, rows are PCs),
     ``explained_variance_`` (eigenvalues, descending), ``mean_``, ``count_``,
-    ``cov_lowrank_`` (:class:`repro_torch.lowrank.LowRankCov` | None).
+    ``cov_lowrank_`` (:class:`repro_torch.lowrank.LowRankCov` | None), and
+    after :meth:`refine` ``refine_passes_`` and ``refine_subspace_change_``
+    ((passes,) largest principal-angle sine between consecutive power bases).
     """
 
     _track_cov = True
@@ -534,7 +678,8 @@ class SparsifiedPCA(SketchedEstimator):
         if spec.m < 2:
             raise ValueError(f"PCA needs m >= 2 (Thm B4 covariance), got m={spec.m}")
         if self.plan.cov_path == "lowrank":
-            model_rank = self.plan.rank // 2
+            model_rank = (self.plan.rank // 2 if self.plan.lowrank_method == "range"
+                          else self.plan.rank)
             if self.n_components > model_rank:
                 raise ValueError(
                     f"n_components={self.n_components} exceeds the rank-{model_rank} "
@@ -554,6 +699,8 @@ class SparsifiedPCA(SketchedEstimator):
         self.explained_variance_ = evals
         self.mean_ = self._unmix_vec(mean_pre)
         self.count_ = int(n)
+        self.refine_passes_ = 0           # refine() overwrites after its replay
+        self.refine_subspace_change_ = None
 
     def transform(self, x) -> torch.Tensor:
         """Project rows onto the fitted components (original domain, uncentered
@@ -562,6 +709,59 @@ class SparsifiedPCA(SketchedEstimator):
 
     def result(self) -> pca_mod.PCAResult:
         return pca_mod.PCAResult(self.components_, self.explained_variance_, self.mean_)
+
+    # ---------------------------------------------------------- refinement --
+    # Power iteration against the regenerable source (repro_torch.refine.power):
+    # each pass replays every (step, shard) sketch and accumulates Y = S·Q
+    # through the same RangeState delta as the first pass (K5/K6, Q in Ω's
+    # place).
+
+    def _refine_supported(self) -> bool:
+        return self.plan.cov_path == "lowrank" and self.plan.lowrank_method == "range"
+
+    def _refine_check(self) -> None:
+        if self.plan.cov_path != "lowrank":
+            raise ValueError(
+                "fit_refine sharpens the lowrank range-finder's subspace; "
+                f"cov_path={self.plan.cov_path!r} accumulates the full "
+                "covariance exactly, so its eigendecomposition has no "
+                "refinement gap — use Plan(cov_path='lowrank', rank=l)")
+        if self.plan.lowrank_method != "range":
+            raise ValueError(
+                "lowrank_method='fd' has no replayable linear operator (the "
+                "SVD-shrink fold is order-dependent); power-iteration "
+                "refinement needs lowrank_method='range'")
+
+    def _refine_pass_begin(self, f: int) -> None:
+        if f == 0 and not self.refine_passes_:
+            # the first basis is orth of the already-folded first-pass state;
+            # a repeat refine() resumes from self._rq instead
+            self._rq = refine_mod.power_orth(self._reducer.state, self._reducer._omega,
+                                             self.spec_.m)
+            self._rchanges: list[float] = []
+        self._rstate = lowrank_mod.range_init(self.spec_.p_pad, self.plan.rank,
+                                              device=self.device)
+
+    def _refine_fold(self, s: SparseRows, step: int, shard: int) -> None:
+        self._rstate = lowrank_mod.range_update(self._rstate, s, self._rq, impl=self.plan.impl)
+
+    def _refine_pass_end(self, f: int, last: bool, signal: bool) -> None:
+        q_new = refine_mod.power_orth(self._rstate, self._rq, self.spec_.m)
+        # watched on the top-n_components columns, the subspace kept
+        r = self.n_components
+        self._rchanges.append(refine_mod.subspace_change(q_new[:, :r], self._rq[:, :r]))
+        self._rq_prev, self._rq = self._rq, q_new
+
+    def _refine_end(self, passes: int) -> None:
+        self.cov_lowrank_ = refine_mod.power_finalize(self._rstate, self._rq_prev, self.spec_.m)
+        comps_pre, evals = self.cov_lowrank_.top(self.n_components)
+        self.components_ = self._unmix(comps_pre)
+        self.explained_variance_ = evals
+        self.refine_passes_ += passes    # cumulative across repeat refine()s
+        self.refine_subspace_change_ = np.asarray(self._rchanges)
+
+    def _refine_metric(self) -> float:
+        return float(self.refine_subspace_change_[-1])
 
 
 class SparsifiedKMeans(SketchedEstimator):
@@ -585,7 +785,10 @@ class SparsifiedKMeans(SketchedEstimator):
 
     Fitted: ``centers_`` ((k, p), original domain), ``centers_pre_``,
     ``objective_``, ``labels_``, ``n_iter_`` (lloyd), ``count_``,
-    ``reassign_counts_`` / ``reassign_fraction_`` ((steps,) arrays; minibatch).
+    ``reassign_counts_`` / ``reassign_fraction_`` ((steps,) arrays; minibatch),
+    and after :meth:`refine` (minibatch, undecayed: two-pass Alg. 2)
+    ``refine_passes_`` and ``refine_reassign_counts_`` /
+    ``refine_reassign_fraction_`` (rows each rebuild reassigned).
     """
 
     _track_cov = False
@@ -692,6 +895,9 @@ class SparsifiedKMeans(SketchedEstimator):
         self.centers_pre_ = centers_pre
         self.centers_ = self._unmix(centers_pre)
         self.objective_ = obj
+        self.refine_passes_ = 0           # refine() overwrites after its replay
+        self.refine_reassign_counts_ = None
+        self.refine_reassign_fraction_ = None
 
     def predict(self, x) -> torch.Tensor:
         """Nearest-center labels for new rows (sketched with a one-shot mask)."""
@@ -722,6 +928,84 @@ class SparsifiedKMeans(SketchedEstimator):
             cnts = np.asarray(arrs["km.reassign_counts"])
             rows = np.asarray(arrs["km.reassign_rows"]).tolist()
             self._reassign_history = [(cnts[i], int(rows[i])) for i in range(len(rows))]
+
+    # ---------------------------------------------------------- refinement --
+    # Two-pass (Alg. 2) replay refinement (repro_torch.refine.kmeans2): each
+    # pass re-assigns every replayed row against FROZEN pass-start centers
+    # (the best first-pass hypothesis) and rebuilds the centers from those
+    # assignments. The count of rows the LAST rebuild reassigned is only seen
+    # one replay later, so with track_reassignments one trailing
+    # measurement-only replay runs (its rebuild discarded; it also makes
+    # objective_ the objective of the final centers).
+
+    def _refine_supported(self) -> bool:
+        return self.algorithm == "minibatch" and self.decay == 1.0
+
+    def _refine_check(self) -> None:
+        if self.algorithm != "minibatch":
+            raise ValueError(
+                "algorithm='lloyd' retains the sketch and already iterates "
+                "assignment/update to a fixed point on it — there is no "
+                "second-pass gap to close; two-pass refinement applies to "
+                "the streaming algorithm='minibatch' fold")
+        if self.decay < 1.0:
+            raise ValueError(
+                "two-pass refinement rebuilds centers as a UNIFORM mean over "
+                "the whole replayed history, which would resurrect exactly the "
+                "stale rows a decay= fit deliberately forgets; refine the "
+                "undecayed fit, or keep the decayed one-pass centers "
+                "(decay-weighted rebuilds are a ROADMAP item)")
+
+    def _refine_needs_signal(self) -> bool:
+        return self.track_reassignments
+
+    def _refine_pass_begin(self, f: int) -> None:
+        if f == 0 and not self.refine_passes_:
+            # a fresh refinement freezes the best first-pass hypothesis; a
+            # repeat refine() resumes from self._rc, the last rebuild
+            self._rc, _ = acc.kmeans_finalize(self._km_state)
+            self._rc_prev = None
+            self._rflips: list[tuple[int, int]] = []
+        self._r2 = refine_mod.kmeans2_init(self.k, self.spec_.p_pad, device=self.device)
+
+    def _refine_fold(self, s: SparseRows, step: int, shard: int) -> None:
+        self._r2 = refine_mod.kmeans2_apply(
+            self._r2, refine_mod.kmeans2_delta(s, self._rc, self._rc_prev, impl=self.plan.impl))
+
+    def _refine_pass_end(self, f: int, last: bool, signal: bool) -> None:
+        if self._rc_prev is not None:
+            # flips between c_{f-1} and c_f = rows reassigned by rebuild f
+            self._rflips.append((int(self._r2.flips), int(self._r2.count)))
+        self._robj = self._r2.obj
+        if signal:
+            # every rebuild so far is measured: a resumed refine() must not
+            # count the last one again
+            self._rc_prev = None
+        else:
+            self._rc_prev = self._rc
+            self._rc = refine_mod.kmeans2_centers(self._r2, self._rc)
+
+    def _refine_end(self, passes: int) -> None:
+        self.centers_pre_ = self._rc
+        self.centers_ = self._unmix(self._rc)
+        self.objective_ = self._robj
+        self.refine_passes_ += passes    # cumulative across repeat refine()s
+        if self._rflips:
+            cnt = np.array([c for c, _ in self._rflips])
+            rows = np.array([max(r, 1) for _, r in self._rflips])
+            self.refine_reassign_counts_ = cnt
+            self.refine_reassign_fraction_ = cnt / rows
+
+    def _refine_tol_check(self) -> None:
+        if not self.track_reassignments:
+            raise ValueError(
+                "refine(tol=) watches the reassigned-row fraction of each "
+                "rebuild, which track_reassignments=False turned off — "
+                "re-construct with track_reassignments=True or use a fixed "
+                "passes=")
+
+    def _refine_metric(self) -> float:
+        return float(self.refine_reassign_fraction_[-1])
 
 
 class GradCompressor:

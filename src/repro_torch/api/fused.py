@@ -15,6 +15,12 @@ separate fits on both backends while sketching once a chunk::
     km = SparsifiedKMeans(10, plan, key=0)
     run = fit_many(plan, [pca, km], x)      # one sketch pass, both fitted
     pca.components_; km.centers_            # identical to separate fits
+
+``run.checkpoint(dir)`` writes every consumer's fold state and the one shared
+cursor (``format: "fused-run-v1"``, the reference's layout); :func:`restore_run`
+resumes the pass bit for bit. ``fit_many(..., refine=q)`` replays the pass q
+times for every consumer that refines, one regenerated sketch a chunk shared
+by all of them.
 """
 from __future__ import annotations
 
@@ -23,10 +29,11 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from repro_torch import refine as refine_mod
 from repro_torch.api.estimators import SketchCursor, SketchedEstimator, as_key, torch_dtype
 from repro_torch.api.plan import Plan
 from repro_torch.core import sketch as sketch_mod
-from repro_torch.utils.device import not_ported
+from repro_torch.train import checkpoint
 
 # Plan fields that determine WHAT the shared sketch is (spec + chunk→key
 # mapping). Consumers must agree with the driving plan on these; the backend
@@ -86,12 +93,66 @@ class SharedSketchRun:
                 c.finalize()
         return self
 
-    def checkpoint(self, *args, **kwargs):
-        raise not_ported("SharedSketchRun.checkpoint", "Engine replay, scan and checkpoints")
+    def checkpoint(self, ckpt_dir: str, *, keep_last: int = 3) -> "SharedSketchRun":
+        """Checkpoint the shared pass — every consumer's fold state
+        (``SketchedEstimator.state_arrays``, under ``c<i>/``) and the ONE
+        shared cursor — atomically through ``train.checkpoint``;
+        :func:`restore_run` resumes it bit for bit."""
+        cur = self.cursor
+        if cur.spec is None:
+            raise RuntimeError("nothing folded yet — nothing to checkpoint")
+        arrays: dict = {}
+        for i, c in enumerate(self.consumers):
+            for name, v in c.state_arrays().items():
+                arrays[f"c{i}/{name}"] = v
+        extra = {"format": "fused-run-v1", "n_consumers": len(self.consumers),
+                 **cur.position()}
+        checkpoint.save_arrays(ckpt_dir, cur.chunk, arrays, extra=extra, keep_last=keep_last)
+        return self
 
 
-def restore_run(*args, **kwargs):
-    raise not_ported("restore_run", "Engine replay, scan and checkpoints")
+def restore_run(ckpt_dir: str, plan: Plan,
+                consumers: Sequence[SketchedEstimator]) -> SharedSketchRun:
+    """Rebuild a :class:`SharedSketchRun` from its latest checkpoint (either
+    package's).
+
+    ``consumers`` are freshly constructed estimators in the checkpointed run's
+    order, with the same plans and keys, on one device. The shared cursor
+    resumes at the saved chunk, so the next ``partial_fit`` folds under the
+    (step, shard) mask keys the uninterrupted pass would have used.
+    """
+    arrays, extra = checkpoint.load_arrays(ckpt_dir)
+    if extra.get("format") != "fused-run-v1":
+        raise ValueError(f"{ckpt_dir} is not a fused-run checkpoint "
+                         f"(format={extra.get('format')!r})")
+    consumers = tuple(consumers)
+    if len(consumers) != int(extra["n_consumers"]):
+        raise ValueError(f"checkpoint holds {extra['n_consumers']} consumers, "
+                         f"got {len(consumers)}")
+    key0 = as_key(consumers[0].key)
+    for i, c in enumerate(consumers):
+        _check_consumer(plan, c, i, key0)
+    cursor = _shared_cursor(plan, consumers, key0)
+    cursor.resume(extra)
+    for i, c in enumerate(consumers):
+        prefix = f"c{i}/"
+        c.load_state_arrays({k[len(prefix):]: v for k, v in arrays.items()
+                             if k.startswith(prefix)})
+    return SharedSketchRun(consumers, cursor)
+
+
+def _shared_cursor(plan: Plan, consumers, key0) -> SketchCursor:
+    """One cursor on the consumers' device, every consumer reset onto it."""
+    devices = {c.device for c in consumers}
+    if len(devices) > 1:
+        raise ValueError(f"the consumers live on {sorted(map(str, devices))}; a shared "
+                         "pass sketches on one device")
+    cursor = SketchCursor(plan, key0, consumers[0].device)
+    for c in consumers:
+        c.reset()
+        c._cursor = cursor      # adopt the shared pass (reset() detaches again)
+        cursor.register(c)
+    return cursor
 
 
 def _check_consumer(plan: Plan, c: SketchedEstimator, i: int, key0) -> None:
@@ -130,7 +191,12 @@ def fit_many(plan: Plan, consumers: Sequence[SketchedEstimator], data=None, *,
         ``steps`` steps × ``plan.n_shards`` shards, like ``estimator.fit_stream``.
     finalize: pass False to stop after ingest (keep feeding via
         ``run.partial_fit``; call ``run.finalize()`` when done).
-    refine: second-pass refinement, not ported yet (raises).
+    refine: after finalize, replay refinement (``repro_torch.refine``) on
+        every consumer that supports it — power iteration for the low-rank
+        range PCA, two-pass Alg. 2 for minibatch K-means. ``True`` takes
+        ``plan.refine_passes`` (or 1), an int the pass count. Each pass
+        regenerates every (step, shard) sketch ONCE and fans it out to all
+        refiners. Needs ``finalize=True``.
     scan: the reference's ``lax.scan`` ingest. The same validation (in-memory
         data, consumers whose folds stream); the ingest is this host loop,
         which gives the same sketches and folds.
@@ -142,8 +208,9 @@ def fit_many(plan: Plan, consumers: Sequence[SketchedEstimator], data=None, *,
         raise ValueError("provide exactly one of data or source=")
     if source is not None and steps is None:
         raise ValueError("source= needs steps=")
-    if refine:
-        raise not_ported("fit_many(refine=...)", "Low-rank FD and refinement")
+    if refine and not finalize:
+        raise ValueError("refine= replays a FINALIZED first pass; drop "
+                         "finalize=False (or refine later via estimator.refine)")
     for i, c in enumerate(consumers):
         if not isinstance(c, SketchedEstimator):
             raise TypeError(f"consumers[{i}] is {type(c).__name__}, expected a "
@@ -151,10 +218,14 @@ def fit_many(plan: Plan, consumers: Sequence[SketchedEstimator], data=None, *,
     key0 = as_key(consumers[0].key)
     for i, c in enumerate(consumers):
         _check_consumer(plan, c, i, key0)
-    devices = {c.device for c in consumers}
-    if len(devices) > 1:
-        raise ValueError(f"the consumers live on {sorted(map(str, devices))}; a shared "
-                         "pass sketches on one device")
+    refiners: tuple[SketchedEstimator, ...] = ()
+    if refine:
+        refiners = tuple(c for c in consumers if c._refine_supported())
+        if not refiners:
+            raise ValueError(
+                "refine= given but no consumer supports second-pass "
+                "refinement (SparsifiedPCA with cov_path='lowrank'/"
+                "lowrank_method='range', or minibatch SparsifiedKMeans)")
     if scan:
         if data is None:
             raise ValueError("scan=True stages in-memory data; source= ingest is "
@@ -165,20 +236,25 @@ def fit_many(plan: Plan, consumers: Sequence[SketchedEstimator], data=None, *,
                 "(batch-backend moments and Lloyd K-means retain their sketches); drop "
                 "scan=True or switch those consumers to stream/minibatch/lowrank folds")
 
-    cursor = SketchCursor(plan, key0, consumers[0].device)
-    for c in consumers:
-        c.reset()
-        c._cursor = cursor      # adopt the shared pass (reset() detaches again)
-        cursor.register(c)
+    cursor = _shared_cursor(plan, consumers, key0)
+    src = None
     if data is not None:
         cursor.partial_fit(data)
     else:
         from repro_torch.stream.engine import normalize_source
 
-        cursor.fold_source(normalize_source(source), steps, seed)
+        src = normalize_source(source)
+        cursor.fold_source(src, steps, seed)
 
     run = SharedSketchRun(consumers, cursor)
-    if finalize:
-        run.finalize()
+    if not finalize:
+        return run
+    run.finalize()
+    if refiners:
+        passes = (plan.refine_passes or 1) if refine is True else int(refine)
+        refine_mod.run_refine(plan, cursor.spec, refiners, passes, data=data, source=src,
+                              steps=steps, seed=seed,
+                              chunk_rows=list(cursor.chunk_rows) if data is not None else None,
+                              device=cursor.device)
     return run
 

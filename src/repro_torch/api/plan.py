@@ -4,8 +4,9 @@ The same fields and validation as the reference's ``repro.api.Plan``. This
 package runs ``backend="batch"`` and ``"stream"`` through the estimators of
 :mod:`repro_torch.api`, and ``"stream"`` through
 :func:`repro_torch.api.make_engine`, with the dense, compact or low-rank
-(``lowrank_method="range"``) covariance path; the sharded backend and
-refinement passes raise ``NotImplementedError`` until they are ported.
+(``lowrank_method="range"``; the estimators also ``"fd"``) covariance path,
+and ``refine_passes`` for ``fit_refine`` / ``fit_many(refine=True)``; the
+sharded backend raises ``NotImplementedError`` until it is ported.
 """
 from __future__ import annotations
 
@@ -37,7 +38,9 @@ class Plan:
     rank:       sketch width of the low-rank path (required there).
     lowrank_method: "range" or "fd" (the engine takes "range" only, as the
                 reference's does).
-    refine_passes: second-pass replay refinements (not ported yet).
+    refine_passes: the default number of replay refinements of
+                ``fit_refine`` / ``fit_many(refine=True)`` (0: one-pass fits;
+                ``fit_refine`` then runs 1).
     dtype:      input rows are cast to this before sketching.
     """
 

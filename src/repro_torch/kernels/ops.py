@@ -131,11 +131,39 @@ def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tens
     """(sums, counts) (K, p) of each cluster's kept values, coordinate by
     coordinate — Lloyd's center update: on the card K6's walk for the sums
     and an integer histogram for the counts (bit-identical from run to run),
-    the plain scatter-add in row order elsewhere."""
+    the plain scatter-add in row order elsewhere. ``labels`` (r, n) gives
+    (r, K, p) each, r labellings of the rows in one walk (the streaming
+    K-means hypotheses)."""
     if _use_kernel("cluster_sums", mode, values):
         return _spmm.cluster_sums(values.contiguous(), indices.contiguous(), labels, k, p,
                                   columns)
     return _ref.ref_cluster_sums(values, indices, labels, k, p)
+
+
+def column_sums(values: torch.Tensor, indices: torch.Tensor, p: int, mode: str = "auto"):
+    """(Σv, Σv²) (p,) float32 over each column's kept entries — the moment
+    folds' Σw and the diagonal of Σ w wᵀ. On the card K6 with no product
+    columns (its transposition, then a walk that only sums), bit-identical
+    from run to run where a float scatter-add would add by atomics; the plain
+    scatter-add elsewhere."""
+    if _use_kernel("spmm_t", mode, values) and values.device.type == "cuda":
+        values = values.to(torch.float32)
+        t = values.new_empty((values.shape[0], 0))
+        _, sum_v, sum_v2 = _spmm.spmm_t(values.contiguous(), indices.contiguous(), t, p,
+                                        col_sums=True)
+        return sum_v, sum_v2
+    return _ref.ref_column_sums(values, indices, p)
+
+
+def segment_sums(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
+                 mode: str = "auto") -> torch.Tensor:
+    """(S,) float32 sums of ``values[order[k]]`` over each run [starts[s],
+    starts[s + 1]) of a stable sort by key (the compact covariance's sum by
+    key): on the card K6's walk over flat positions, bit-identical from run to
+    run; the plain scatter-add in k order elsewhere."""
+    if _use_kernel("spmm_t", mode, values, path="segments"):
+        return _spmm.segment_sums(values.contiguous(), order.contiguous(), starts.contiguous())
+    return _ref.ref_segment_sums(values, order, starts)
 
 
 def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor,

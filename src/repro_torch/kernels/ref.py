@@ -51,15 +51,40 @@ def ref_cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.
     """(sums, counts), each (K, p) float32: over the rows labelled k, the sum
     and the count of the kept values at each coordinate — Lloyd's center
     update on compact rows (paper Eq. 39), the reference's scatter-add in row
-    order. Oracle for ``kernels.spmm.cluster_sums`` (K6's walk on the labels'
-    one-hot columns)."""
-    flat = (labels.long()[:, None] * p + indices.long()).reshape(-1)
-    v = values.to(torch.float32).reshape(-1)
-    sums = torch.zeros(k * p, dtype=torch.float32, device=values.device)
-    counts = torch.zeros(k * p, dtype=torch.float32, device=values.device)
+    order. ``labels`` (r, n) labels the rows under r hypotheses at once: then
+    (r, K, p) each. Oracle for ``kernels.spmm.cluster_sums`` (K6's walk on the
+    labels' one-hot columns)."""
+    lab = labels.long().reshape(-1, values.shape[0])                 # (r, n)
+    r = lab.shape[0]
+    lab = lab + torch.arange(r, device=lab.device)[:, None] * k
+    flat = (lab[:, :, None] * p + indices.long()[None]).reshape(-1)
+    v = values.to(torch.float32)[None].expand(r, -1, -1).reshape(-1)
+    sums = torch.zeros(r * k * p, dtype=torch.float32, device=values.device)
+    counts = torch.zeros(r * k * p, dtype=torch.float32, device=values.device)
     sums.index_add_(0, flat, v)
     counts.index_add_(0, flat, torch.ones_like(v))
-    return sums.reshape(k, p), counts.reshape(k, p)
+    shape = tuple(labels.shape[:-1]) + (k, p)
+    return sums.reshape(shape), counts.reshape(shape)
+
+
+def ref_column_sums(values: torch.Tensor, indices: torch.Tensor, p: int):
+    """(Σv, Σv²) over each column's kept entries, (p,) float32 each: a
+    scatter-add in row order (the reference's ``.at[].add``)."""
+    flat = indices.reshape(-1).long()
+    v = values.to(torch.float32).reshape(-1)
+    zeros = torch.zeros((p,), dtype=torch.float32, device=values.device)
+    return zeros.index_add(0, flat, v), zeros.index_add(0, flat, v * v)
+
+
+def ref_segment_sums(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor):
+    """(S,) float32: Σ values[order[k]] over each segment k ∈ [starts[s],
+    starts[s + 1]), added in k order — oracle for
+    ``kernels.spmm.segment_sums`` (K6's walk over flat positions)."""
+    segs = starts.shape[0] - 1
+    seg = torch.repeat_interleave(torch.arange(segs, device=values.device),
+                                  (starts[1:] - starts[:-1]).long())
+    out = torch.zeros((segs,), dtype=torch.float32, device=values.device)
+    return out.index_add_(0, seg, values.to(torch.float32)[order.long()])
 
 
 def spmm_out_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:

@@ -300,16 +300,46 @@ def spmm_t_columns(pairs: torch.Tensor, starts: torch.Tensor, t: torch.Tensor,
     return out
 
 
+def segment_sums(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """(S,) float32: segment s sums ``values[order[k]]`` over k in
+    [starts[s], starts[s + 1]) — K6's walk over flat positions with no product
+    columns, a warp a segment, its lanes' shares added in a fixed tree: the
+    same bits from run to run. ``values`` (N,) float32, ``order`` (N,) and
+    ``starts`` (S + 1,) int32 (a stable sort by key and its runs)."""
+    if values.device.type == "cpu":
+        return _ref.ref_segment_sums(values, order, starts)
+    _build.require(values, torch.float32, 1, "values")
+    _build.require(order, torch.int32, 1, "order", device=values.device)
+    _build.require(starts, torch.int32, 1, "starts", device=values.device)
+    segs = starts.shape[0] - 1
+    sums = torch.empty((2, max(segs, 0)), dtype=torch.float32, device=values.device)
+    if segs <= 0 or order.shape[0] == 0:
+        return sums[0].zero_()
+    lib = _build.library("spmm")
+    with _build.on_device(values):
+        err = lib.spmm_t_f32(None, values.data_ptr(), order.data_ptr(), starts.data_ptr(), None,
+                             None, sums[0].data_ptr(), sums[1].data_ptr(), segs, 1, 0, 0,
+                             _build.stream_of(values))
+    _build.check(err, "spmm_t")
+    spmm_t.launches += 1
+    return sums[0]
+
+
 def cluster_counts(indices: torch.Tensor, labels: torch.Tensor, k: int, p: int) -> torch.Tensor:
     """(K, p) float32: how many rows labelled k kept each coordinate — an
     integer histogram of ``labels·p + indices`` (int32 where K·p allows), exact
-    whatever order the card adds in."""
-    dtype = torch.int32 if k * p < 2**31 else torch.int64
-    flat = (labels.to(dtype)[:, None] * p + indices.to(dtype)).reshape(-1)
-    counts = torch.zeros(k * p, dtype=torch.int32, device=indices.device)
+    whatever order the card adds in. ``labels`` (r, n) counts r labellings of
+    the rows side by side: (r, K, p)."""
+    n = indices.shape[0]
+    lab = labels.reshape(-1, n)
+    r = lab.shape[0]
+    dtype = torch.int32 if r * k * p < 2**31 else torch.int64
+    lab = lab.to(dtype) + torch.arange(r, dtype=dtype, device=lab.device)[:, None] * k
+    flat = (lab[:, :, None] * p + indices.to(dtype)[None]).reshape(-1)
+    counts = torch.zeros(r * k * p, dtype=torch.int32, device=indices.device)
     counts.index_add_(0, flat, torch.ones(1, dtype=torch.int32, device=indices.device)
                       .expand(flat.numel()))
-    return counts.view(k, p).to(torch.float32)
+    return counts.view(tuple(labels.shape[:-1]) + (k, p)).to(torch.float32)
 
 
 def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tensor,
@@ -319,12 +349,20 @@ def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tens
     transposition ``columns`` ((pairs, starts) from :func:`transpose_columns`,
     built here if not given), each column summed in row order as
     ``kernels.ref.ref_cluster_sums`` sums it; the counts by
-    :func:`cluster_counts`."""
+    :func:`cluster_counts`. ``labels`` (r, n) labels the rows under r
+    hypotheses in one walk over r·K columns: (r, K, p) each."""
     if values.device.type == "cpu":
         return _ref.ref_cluster_sums(values, indices, labels, k, p)
+    n = values.shape[0]
+    lab = labels.long().reshape(-1, n)
+    r = lab.shape[0]
+    cols = lab + torch.arange(r, device=lab.device)[:, None] * k       # (r, n) in [0, r·K)
     pairs, starts = columns if columns is not None else transpose_columns(values, indices, p)
-    onehot = torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
-    return spmm_t_columns(pairs, starts, onehot, p).T, cluster_counts(indices, labels, k, p)
+    onehot = torch.zeros((n, r * k), dtype=torch.float32, device=values.device)
+    onehot.scatter_(1, cols.T, 1.0)
+    shape = tuple(labels.shape[:-1]) + (k, p)
+    sums = spmm_t_columns(pairs, starts, onehot, p).T.reshape(shape)
+    return sums, cluster_counts(indices, labels, k, p)
 
 
 def spmm_t_from_buckets(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,

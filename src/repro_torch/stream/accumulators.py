@@ -16,7 +16,8 @@ and applied once. Finalize uses the Thm-4 / Thm-6 formulas of
   of Eq. 39), with ``r`` center hypotheses folded side by side and the best
   kept at finalize. The assignment is the K4 kernel (``kernels.ops``), one
   launch for all r hypotheses, and so is the reassignment count
-  (:func:`kmeans_reassigned`).
+  (:func:`kmeans_reassigned`); the sums are K6's walk over r·K label columns
+  (``ops.cluster_sums``), so a fold repeats bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -86,12 +87,11 @@ def kmeans_delta_with_assign(state: KMeansState, batch: SparseRows, impl: str = 
     values, indices = batch.values, batch.indices
     r, k, p = state.centers.shape
     d, assign = ops.sparse_assign(values, indices, state.centers, mode=impl)   # (r, n, K)
-    offs = torch.arange(r, device=values.device)[:, None, None] * (k * p)
-    flat = (offs + assign.long()[:, :, None] * p + indices.long()[None]).reshape(-1)
-    vals = values.to(torch.float32)[None].expand(r, -1, -1).reshape(-1)
-    sums = torch.zeros(r * k * p, dtype=torch.float32, device=values.device)
-    sums = sums.index_add_(0, flat, vals).reshape(r, k, p)
-    cnts = torch.bincount(flat, minlength=r * k * p).to(torch.int32).reshape(r, k, p)
+    # every hypothesis' sums in one walk of K6 over r·K label columns on the
+    # card (each column in row order, as the CPU's scatter-add), the counts
+    # by an integer histogram: the same bits from run to run
+    sums, cnts = ops.cluster_sums(values, indices, assign, k, p, mode=impl)   # (r, K, p)
+    cnts = cnts.to(torch.int32)
     obj = torch.min(d, dim=2).values.sum(dim=1).to(torch.float32)
     n = torch.tensor(values.shape[0], dtype=torch.int32, device=values.device)
     return (sums, cnts, obj, n), assign

@@ -17,6 +17,16 @@ setting, §IV–V estimators, §VI K-means):
 ``n_shards`` logical shards per step are folded one after another: every
 shard's delta is taken against the step-start state, the deltas are summed and
 applied once, as the reference's sharded engine does with a psum.
+
+The loop is an explicit-state fold, resumable from any step: ``run`` writes
+the state every ``checkpoint_every`` steps (``save_state``), and
+``restore_state`` reads it back into ``run(state=, start_step=)``; the
+(seed, step, shard) contract regenerates everything else. ``run_scanned``
+folds a stream already staged on the device, and ``replay`` /
+``replay_scanned`` refine a finished pass (power iteration on the low-rank
+basis, two-pass Alg.-2 K-means; ``repro_torch.refine``). On the card every
+fold repeats bit for bit, so a resumed or replayed run equals the
+uninterrupted one exactly.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import lowrank as lowrank_mod
+from repro_torch import refine as refine_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
@@ -36,8 +47,6 @@ from repro_torch.utils.device import not_ported, resolve_device
 from repro_torch.utils.prng import fold_in_str
 
 Source = Callable[[int, int, int], Any]  # (seed, step, shard) -> (b, p) array
-
-_ENGINE_ITEM = "Engine replay, scan and checkpoints"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +73,18 @@ class EngineState:
 
     Exactly one of ``moments`` / ``lowrank`` accumulates the second moment and
     the Thm-4 mean (RangeState carries sum_w and count itself).
+
+    ``reassign`` (present iff ``StreamKMeansConfig.track_reassignments``) is a
+    ``(total, last)`` pair of (r,) int32 counters: rows whose nearest center
+    changed across an apply, over the run and in the last folded step.
+    Serialization and merge: ``stream.state.engine_to_arrays`` /
+    ``engine_from_arrays`` / ``engine_merge``.
     """
 
     moments: acc.MomentState | None
     kmeans: acc.KMeansState | None
     lowrank: lowrank_mod.RangeState | None = None
+    reassign: tuple | None = None  # ((r,) int32 total, (r,) int32 last step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +99,12 @@ class StreamResult:
     centers_pre: torch.Tensor | None = None    # preconditioned domain, (K, p_pad)
     kmeans_obj: torch.Tensor | None = None
     cov_lowrank: lowrank_mod.LowRankCov | None = None  # cov_path="lowrank"
+    refine_passes: int = 0                  # replay() passes folded into this
+    refine_reassigned: tuple | None = None  # rows reassigned by rebuilds 1..q-1
+    # the K-means drift signal (StreamKMeansConfig.track_reassignments):
+    reassign_total: np.ndarray | None = None   # (r,) over the run
+    reassign_last: np.ndarray | None = None    # (r,) of the last folded step
+    reassign_counts: np.ndarray | None = None  # (steps, r) a step (run() only)
 
 
 def normalize_source(source) -> Source:
@@ -130,8 +152,7 @@ class StreamEngine:
     rank: sketch width l of the "lowrank" path (required there).
     device: where the state lives and the work runs ("cuda" by default).
 
-    ``mesh`` and K-means reassignment tracking are not ported yet and raise
-    ``NotImplementedError``.
+    ``mesh`` is not ported yet and raises ``NotImplementedError``.
     """
 
     def __init__(self, spec: sketch_mod.SketchSpec, source, *, n_shards: int = 1,
@@ -143,8 +164,6 @@ class StreamEngine:
         if cov_path not in ("dense", "compact", "lowrank"):
             raise ValueError(
                 f"cov_path must be 'dense', 'compact' or 'lowrank', got {cov_path!r}")
-        if kmeans is not None and kmeans.track_reassignments:
-            raise not_ported("StreamKMeansConfig(track_reassignments=True)", _ENGINE_ITEM)
         if track_cov and spec.m < 2:
             raise ValueError(f"track_cov needs m >= 2, got m={spec.m}; "
                              "raise gamma/m or pass track_cov=False")
@@ -172,18 +191,33 @@ class StreamEngine:
 
     # ------------------------------------------------------------ plumbing --
 
+    @property
+    def _track(self) -> bool:
+        return self.kmeans is not None and self.kmeans.track_reassignments
+
     def _sketch_local(self, x: torch.Tensor, step: int, shard: int) -> SparseRows:
         return sketch_mod.sketch(x, self.spec, batch_key=batch_key(self.spec, step, shard),
                                  impl=self.impl)
 
     def _deltas(self, state: EngineState, batch: SparseRows):
+        """((md, kd, ld), pre-update K-means labels or None) for one shard."""
         md = (None if self.lowrank
-              else acc.moment_delta(batch, track_cov=self.track_cov, cov_path=self.cov_path))
-        kd = (acc.kmeans_delta(state.kmeans, batch, impl=self.impl)
-              if state.kmeans is not None else None)
+              else acc.moment_delta(batch, track_cov=self.track_cov, cov_path=self.cov_path,
+                                    impl=self.impl))
+        kd = a0 = None
+        if state.kmeans is not None:
+            kd, a0 = acc.kmeans_delta_with_assign(state.kmeans, batch, impl=self.impl)
         ld = (lowrank_mod.range_delta(batch, self._omega, impl=self.impl)
               if self.lowrank else None)
-        return md, kd, ld
+        return (md, kd, ld), a0
+
+    @staticmethod
+    def _add(d1, d2):
+        md, kd, ld = d1
+        md2, kd2, ld2 = d2
+        return (acc.moment_apply(md, md2) if md is not None else None,
+                acc.kmeans_add(kd, kd2) if kd is not None else None,
+                lowrank_mod.range_apply(ld, ld2) if ld is not None else None)
 
     def _apply(self, state: EngineState, deltas) -> EngineState:
         md, kd, ld = deltas
@@ -194,12 +228,16 @@ class StreamEngine:
                     if kd is not None else state.kmeans),
             lowrank=(lowrank_mod.range_apply(state.lowrank, ld)
                      if ld is not None else state.lowrank),
+            reassign=state.reassign,
         )
 
     def host_global_batch(self, seed, step: int) -> torch.Tensor:
-        """The step's (n_shards, b, p) batch from the source, on the device."""
-        x = np.stack([np.asarray(self.source(seed, step, s), dtype=np.float32)
-                      for s in range(self.n_shards)])
+        """The step's (n_shards, b, p) batch from the source, on the device (a
+        source that returns tensors is stacked without a host copy)."""
+        parts = [self.source(seed, step, s) for s in range(self.n_shards)]
+        if all(torch.is_tensor(t) for t in parts):
+            return torch.stack([t.to(device=self.device, dtype=torch.float32) for t in parts])
+        x = np.stack([np.asarray(t, dtype=np.float32) for t in parts])
         return torch.from_numpy(x).to(self.device)
 
     # ------------------------------------------------------------- running --
@@ -210,29 +248,54 @@ class StreamEngine:
         uses."""
         km = None
         if self.kmeans is not None:
-            x0 = self.host_global_batch(seed, 0)
-            s0 = self._sketch_local(x0.reshape(-1, x0.shape[-1]), 0, self.n_shards)
-            km = acc.kmeans_init(fold_in_str(self.spec.key, "stream-kmeans"), s0,
-                                 self.kmeans.k, self.kmeans.n_init,
-                                 decay=self.kmeans.decay, impl=self.impl)
+            km = self._kmeans_init(self.host_global_batch(seed, 0))
+        return self._fresh_state(km)
+
+    def init_from_array(self, xs: torch.Tensor) -> EngineState:
+        """Fresh accumulators for a stream staged as ``xs (steps, n_shards, b,
+        p)``, K-means seeded from ``xs[0]`` as :meth:`init_state` seeds it."""
+        km = self._kmeans_init(xs[0]) if self.kmeans is not None else None
+        return self._fresh_state(km)
+
+    def _kmeans_init(self, x0: torch.Tensor) -> acc.KMeansState:
+        s0 = self._sketch_local(x0.reshape(-1, x0.shape[-1]), 0, self.n_shards)
+        return acc.kmeans_init(fold_in_str(self.spec.key, "stream-kmeans"), s0,
+                               self.kmeans.k, self.kmeans.n_init,
+                               decay=self.kmeans.decay, impl=self.impl)
+
+    def _fresh_state(self, km) -> EngineState:
+        reassign = None
+        if self._track:
+            z = torch.zeros((self.kmeans.n_init,), dtype=torch.int32, device=self.device)
+            reassign = (z, z)
         return EngineState(
             moments=(None if self.lowrank
                      else acc.moment_init(self.spec.p_pad, track_cov=self.track_cov,
                                           device=self.device)),
             kmeans=km,
             lowrank=(lowrank_mod.range_init(self.spec.p_pad, self.rank, device=self.device)
-                     if self.lowrank else None))
+                     if self.lowrank else None),
+            reassign=reassign)
 
     def update(self, state: EngineState, x: torch.Tensor, step: int) -> EngineState:
         """Fold one global batch x (n_shards, b, p): every shard's delta is
-        taken against the step-start state, summed, and applied once."""
-        md, kd, ld = self._deltas(state, self._sketch_local(x[0], step, 0))
-        for shard in range(1, self.n_shards):
-            md2, kd2, ld2 = self._deltas(state, self._sketch_local(x[shard], step, shard))
-            md = acc.moment_apply(md, md2) if md is not None else None
-            kd = acc.kmeans_add(kd, kd2) if kd is not None else None
-            ld = lowrank_mod.range_apply(ld, ld2) if ld is not None else None
-        return self._apply(state, (md, kd, ld))
+        taken against the step-start state, summed, and applied once. With
+        ``track_reassignments`` each shard's rows are then re-assigned under
+        the new centers (K4) and compared with their pre-update labels."""
+        deltas, pairs = None, []
+        for shard in range(self.n_shards):
+            s = self._sketch_local(x[shard], step, shard)
+            d, a0 = self._deltas(state, s)
+            deltas = d if deltas is None else self._add(deltas, d)
+            if self._track:
+                pairs.append((s, a0))
+        new = self._apply(state, deltas)
+        if not self._track:
+            return new
+        cnt = torch.zeros_like(state.reassign[1])
+        for s, a0 in pairs:
+            cnt = cnt + acc.kmeans_reassigned(new.kmeans, s, a0, impl=self.impl)
+        return dataclasses.replace(new, reassign=(state.reassign[0] + cnt, cnt))
 
     def run(self, steps: int, seed: int | None = None,
             state: EngineState | None = None, *, start_step: int = 0,
@@ -242,42 +305,203 @@ class StreamEngine:
 
         ``seed`` is forwarded to the source (None = the source's own default);
         sketch masks key off the spec. Passing ``state=`` and ``start_step=``
-        continues an earlier run (or a state carried over from the reference
-        with ``stream.state.engine_from_arrays``).
+        (from :meth:`restore_state`, or a state carried over from the
+        reference with ``stream.state.engine_from_arrays``) continues an
+        earlier run bit for bit. ``checkpoint_every=t`` writes the state to
+        ``checkpoint_dir`` every t folded steps (:meth:`save_state`).
+        ``telemetry=`` is not ported yet (raises).
         """
-        if checkpoint_dir is not None or checkpoint_every:
-            raise not_ported("run(checkpoint_dir=..., checkpoint_every=...)", _ENGINE_ITEM)
+        if checkpoint_every and not checkpoint_dir:
+            raise ValueError("checkpoint_every needs checkpoint_dir=")
         if telemetry is not None:
             raise not_ported("run(telemetry=...)", "Observability")
         if state is None:
             if start_step != 0:
                 raise ValueError("start_step > 0 needs the state that was "
-                                 "current at that step")
+                                 "current at that step (restore_state)")
             state = self.init_state(seed)
+        history: list[torch.Tensor] = []
         for step in range(start_step, steps):
             state = self.update(state, self.host_global_batch(seed, step), step)
+            if self._track:
+                history.append(state.reassign[1])
+            if checkpoint_every and (step + 1 - start_step) % checkpoint_every == 0:
+                self.save_state(checkpoint_dir, step + 1, state, seed=seed)
+        self.state = state
+        result = self.finalize(state)
+        if history:
+            result = dataclasses.replace(result,
+                                         reassign_counts=torch.stack(history).cpu().numpy())
+        return result
+
+    def run_scanned(self, xs: torch.Tensor) -> StreamResult:
+        """Fold a stream staged on the device, ``xs (steps, n_shards, b, p)``,
+        from a fresh state: the reference's ``lax.scan`` over the steps is
+        this host loop over ``xs[step]``, with the same sketches and folds as
+        :meth:`run` (bit-equal to it over the same rows). A numpy ``xs`` is
+        moved to the device once."""
+        xs = torch.as_tensor(xs).to(device=self.device, dtype=torch.float32)
+        state = self.init_from_array(xs)
+        for step in range(xs.shape[0]):
+            state = self.update(state, xs[step], step)
         self.state = state
         return self.finalize(state)
 
-    def run_scanned(self, *args, **kwargs):
-        raise not_ported("StreamEngine.run_scanned", _ENGINE_ITEM)
+    # ---------------------------------------------------- checkpoint/restore --
 
-    def replay(self, *args, **kwargs):
-        raise not_ported("StreamEngine.replay", _ENGINE_ITEM)
+    def save_state(self, ckpt_dir: str, step: int, state: EngineState | None = None,
+                   seed: int | None = None) -> None:
+        """Checkpoint ``state`` (default: the engine's current one) as step
+        ``step`` — the number of steps already folded, the step a restored run
+        resumes at — in the reference's layout (``stream.state.save_engine``)."""
+        from repro_torch.stream import state as state_mod
 
-    def save_state(self, *args, **kwargs):
-        raise not_ported("StreamEngine.save_state", _ENGINE_ITEM)
+        state = state if state is not None else self.state
+        if state is None:
+            raise RuntimeError("no state to checkpoint — run() first or pass state=")
+        state_mod.save_engine(ckpt_dir, step, state, extra={
+            "p_pad": int(self.spec.p_pad), "n_shards": self.n_shards, "seed": seed})
 
-    def restore_state(self, *args, **kwargs):
-        raise not_ported("StreamEngine.restore_state", _ENGINE_ITEM)
+    def restore_state(self, ckpt_dir: str) -> tuple[EngineState, int]:
+        """(state on this engine's device, next_step) from the latest
+        checkpoint under ``ckpt_dir`` (either package's) — for
+        ``run(steps, state=state, start_step=next_step)`` or ``replay(state=)``."""
+        from repro_torch.stream import state as state_mod
+
+        state, next_step, extra = state_mod.load_engine(ckpt_dir, device=self.device)
+        p_pad = extra.get("p_pad")
+        if p_pad is not None and int(p_pad) != int(self.spec.p_pad):
+            raise ValueError(f"checkpoint was written at p_pad={p_pad}, this "
+                             f"engine has p_pad={self.spec.p_pad}")
+        self.state = state
+        return state, next_step
+
+    # ------------------------------------------------------------ replaying --
+    # Second-pass refinement (repro_torch.refine): the (seed, step, shard)
+    # contract regenerates every batch and its mask, so extra passes store
+    # nothing. Each pass folds a fixed-size carry — a RangeState of Y = S·Q
+    # (power iteration) and/or a KMeans2State of frozen-center sums (Alg. 2) —
+    # one step at a time, every shard's delta summed and applied once.
+
+    def _refine_update(self, carry, x: torch.Tensor, step: int, q_mat, frozen, prev):
+        """carry → carry for one global batch x (n_shards, b, p): the shards'
+        deltas summed, then applied once."""
+        ld = kd = None
+        for shard in range(self.n_shards):
+            s = self._sketch_local(x[shard], step, shard)
+            if self.lowrank:
+                d = lowrank_mod.range_delta(s, q_mat, impl=self.impl)
+                ld = d if ld is None else lowrank_mod.range_apply(ld, d)
+            if self.kmeans is not None:
+                d = refine_mod.kmeans2_delta(s, frozen, prev, impl=self.impl)
+                kd = d if kd is None else refine_mod.kmeans2_apply(kd, d)
+        cl, ck = carry
+        return (lowrank_mod.range_apply(cl, ld) if ld is not None else cl,
+                refine_mod.kmeans2_apply(ck, kd) if kd is not None else ck)
+
+    def _init_refine_carry(self):
+        return (lowrank_mod.range_init(self.spec.p_pad, self.rank, device=self.device)
+                if self.lowrank else None,
+                refine_mod.kmeans2_init(self.kmeans.k, self.spec.p_pad, device=self.device)
+                if self.kmeans is not None else None)
+
+    def _replay_passes(self, fold_pass, passes: int, state: EngineState | None) -> StreamResult:
+        """The head and tail of replay()/replay_scanned(): the per-pass basis
+        orthonormalization / center rebuild around ``fold_pass(carry, q,
+        frozen, prev) → carry``, then the refined finalize."""
+        state = state if state is not None else self.state
+        if state is None:
+            raise RuntimeError("no stream folded yet — run()/run_scanned() "
+                               "first; replay() refines a finished pass")
+        if not (self.lowrank or self.kmeans is not None):
+            raise ValueError(
+                "replay() refines the low-rank PCA basis and/or streaming "
+                "K-means centers; this engine tracks neither (dense moment "
+                "accumulators are already exact in one pass)")
+        if self.kmeans is not None and self.kmeans.decay < 1.0:
+            raise ValueError(
+                "replay()'s uniform Alg.-2 rebuild would un-forget the "
+                "history a decay= stream deliberately down-weights; refine "
+                "an undecayed engine (decay-weighted rebuilds are a ROADMAP "
+                "item)")
+        if passes < 1:
+            raise ValueError(f"replay needs passes >= 1, got {passes}")
+        m = self.spec.m
+        q = q_prev = frozen = prev = obj = lr_state = None
+        if self.lowrank:
+            q = refine_mod.power_orth(state.lowrank, self._omega, m)
+        if self.kmeans is not None:
+            # the best first-pass hypothesis is the frozen Alg.-2 start
+            frozen, _ = acc.kmeans_finalize(state.kmeans)
+        flips: list[int] = []
+        for r in range(passes):
+            lr_state, km_state = fold_pass(self._init_refine_carry(), q, frozen, prev)
+            if self.lowrank:
+                q_prev, q = q, refine_mod.power_orth(lr_state, q, m)
+            if self.kmeans is not None:
+                if r > 0:
+                    flips.append(int(km_state.flips))
+                obj = km_state.obj
+                prev = frozen
+                frozen = refine_mod.kmeans2_centers(km_state, frozen)
+
+        if self.lowrank:
+            mean = lowrank_mod.range_finalize_mean(lr_state, m)
+            count, cov = lr_state.count, None
+            cov_lowrank = refine_mod.power_finalize(lr_state, q_prev, m)
+        else:
+            base = self.finalize(state)
+            mean, cov, count, cov_lowrank = base.mean, base.cov, base.count, None
+        centers = centers_pre = None
+        if self.kmeans is not None:
+            centers_pre = frozen
+            centers = sketch_mod.unmix_dense(centers_pre, self.spec, impl=self.impl)
+        return StreamResult(mean=mean, cov=cov, count=count, centers=centers,
+                            centers_pre=centers_pre, kmeans_obj=obj, cov_lowrank=cov_lowrank,
+                            refine_passes=passes, refine_reassigned=tuple(flips))
+
+    def replay(self, steps: int, seed: int | None = None, passes: int = 1,
+               state: EngineState | None = None) -> StreamResult:
+        """Refine a finished run() by ``passes`` replays of the same source.
+
+        PCA (cov_path="lowrank"): each pass is one power iteration — the
+        replayed action S·Q replaces S·Ω — finalized through the same core
+        solve. K-means: each pass re-assigns every row against frozen
+        pass-start centers and rebuilds them from those assignments (Alg. 2);
+        ``refine_reassigned[r]`` counts the rows rebuild r+1 reassigned (seen
+        one replay later, so the last rebuild's count needs a further replay,
+        which the estimators' ``track_reassignments`` runs). ``kmeans_obj`` is
+        the objective under the last pass's frozen centers.
+        """
+        def fold_pass(carry, q, frozen, prev):
+            for step in range(steps):
+                carry = self._refine_update(carry, self.host_global_batch(seed, step), step,
+                                            q, frozen, prev)
+            return carry
+
+        return self._replay_passes(fold_pass, passes, state)
+
+    def replay_scanned(self, xs: torch.Tensor, passes: int = 1,
+                       state: EngineState | None = None) -> StreamResult:
+        """replay() over a stream staged on the device, ``xs (steps, n_shards,
+        b, p)`` (the reference folds each pass as one ``lax.scan``; here the
+        host loop over ``xs[step]``, with no host copy)."""
+        xs = torch.as_tensor(xs).to(device=self.device, dtype=torch.float32)
+
+        def fold_pass(carry, q, frozen, prev):
+            for step in range(xs.shape[0]):
+                carry = self._refine_update(carry, xs[step], step, q, frozen, prev)
+            return carry
+
+        return self._replay_passes(fold_pass, passes, state)
 
     # ---------------------------------------------------------- finalizing --
 
     def finalize(self, state: EngineState | None = None) -> StreamResult:
         state = state if state is not None else self.state
         if state is None:
-            raise RuntimeError("no stream folded yet — call run(), or pass an "
-                               "EngineState explicitly")
+            raise RuntimeError("no stream folded yet — call run()/run_scanned(), "
+                               "or pass an EngineState explicitly")
         cov = cov_lowrank = None
         if state.lowrank is not None:
             # RangeState carries the Thm-4 accumulators itself (see EngineState)
@@ -293,8 +517,13 @@ class StreamEngine:
         if state.kmeans is not None:
             centers_pre, obj = acc.kmeans_finalize(state.kmeans)
             centers = sketch_mod.unmix_dense(centers_pre, self.spec, impl=self.impl)
+        r_total = r_last = None
+        if state.reassign is not None:
+            r_total = state.reassign[0].cpu().numpy()
+            r_last = state.reassign[1].cpu().numpy()
         return StreamResult(mean=mean, cov=cov, count=count, centers=centers,
-                            centers_pre=centers_pre, kmeans_obj=obj, cov_lowrank=cov_lowrank)
+                            centers_pre=centers_pre, kmeans_obj=obj, cov_lowrank=cov_lowrank,
+                            reassign_total=r_total, reassign_last=r_last)
 
     def assign(self, batch: SparseRows, state: EngineState | None = None) -> torch.Tensor:
         """Labels for already-sketched rows under the best hypothesis' centers."""

@@ -585,29 +585,31 @@ def test_lowrank_pca_estimator_matches_the_engine():
 # --------------------------------------------------- what is not ported ------
 
 
-def test_not_ported_paths_name_their_item():
-    x = np.ones((8, 16), np.float32)
+def test_not_ported_paths_name_their_item(tmp_path):
+    """What is not ported raises naming its item; what this slice ported (the
+    FD path, refinement, estimator and fused-run checkpoints) runs."""
+    x = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
     plan = _plan()
     cases = [
         ("Sharded backend", lambda: SparsifiedMean(plan.replace(backend="sharded"), **CPU)),
-        ("Low-rank FD and refinement",
-         lambda: SparsifiedPCA(2, plan.replace(cov_path="lowrank", rank=8, lowrank_method="fd"),
-                               **CPU)),
-        ("Low-rank FD and refinement", lambda: SparsifiedPCA(2, plan, **CPU).refine(x)),
-        ("Low-rank FD and refinement", lambda: SparsifiedKMeans(2, plan, **CPU).fit_refine(x)),
-        ("Low-rank FD and refinement",
-         lambda: fit_many(plan, [SparsifiedMean(plan, **CPU)], x, refine=True)),
-        ("Engine replay, scan and checkpoints",
-         lambda: SparsifiedMean(plan, **CPU).fit(x).checkpoint("ckpt")),
-        ("Engine replay, scan and checkpoints", lambda: SparsifiedMean(plan, **CPU).restore("c")),
-        ("Engine replay, scan and checkpoints", lambda: api.restore_run("c", plan, [])),
-        ("Engine replay, scan and checkpoints",
-         lambda: fit_many(plan, [SparsifiedMean(plan, **CPU)], x).checkpoint("ckpt")),
         ("LM side, last", lambda: api.GradCompressor()),
     ]
     for item, call in cases:
         with pytest.raises(NotImplementedError, match=item):
             call()
+    lr = plan.replace(cov_path="lowrank", rank=8, batch_size=4)
+    fd = SparsifiedPCA(2, lr.replace(lowrank_method="fd"), **CPU).fit(x)
+    assert fd.components_.shape == (2, 16)
+    assert SparsifiedPCA(2, lr, **CPU).fit(x).refine(x).refine_passes_ == 1
+    km = SparsifiedKMeans(2, plan.replace(backend="stream", batch_size=4),
+                          algorithm="minibatch", **CPU).fit_refine(x)
+    assert km.refine_passes_ == 1
+    run = fit_many(lr, [SparsifiedPCA(2, lr, **CPU)], x, refine=True)
+    assert run[0].refine_passes_ == 1
+    SparsifiedMean(plan, **CPU).fit(x).checkpoint(str(tmp_path / "est"))
+    assert SparsifiedMean(plan, **CPU).restore(str(tmp_path / "est")).count_ == 8
+    fit_many(plan, [SparsifiedMean(plan, **CPU)], x).checkpoint(str(tmp_path / "run"))
+    assert api.restore_run(str(tmp_path / "run"), plan, [SparsifiedMean(plan, **CPU)]).count == 8
     # make_engine takes a streaming backend, as the reference's does
     with pytest.raises(ValueError, match="estimator classes"):
         api.make_engine(plan, 16, 0, lambda s, t, sh: x, device="cpu")

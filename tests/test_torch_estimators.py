@@ -63,6 +63,30 @@ def test_mean_and_cov_estimators(partitionable):
         estimators.cov_estimator(s, path="lowrank")
 
 
+@pytest.mark.parametrize("chunk_terms", [1 << 25, 1000])
+def test_compact_routes_match_the_scatter_add(partitionable, monkeypatch, chunk_terms):
+    """The card's two compact routes, run on the CPU through the plain
+    segment sums: the sum by key in one chunk is the reference's n·m²
+    scatter-add bit for bit (each key's products added in row order), in
+    chunks of fewer products within 1e-6 of its largest entry; the chunked
+    products within 1e-5; both within 1e-5 of the JAX compact path."""
+    _, _, s, s_j = _sketches(1)
+    monkeypatch.setattr(estimators, "KEYED_CHUNK_TERMS", chunk_terms)
+    monkeypatch.setattr(estimators, "OUTER_CHUNK_FLOATS", 20 * s.p)
+    plain = estimators._scatter_outer_plain(s.values, s.indices, s.p)
+    keyed = estimators._outer_by_keys(s.values, s.indices, s.p)
+    top = plain.abs().max().item()
+    if chunk_terms > s.n * s.values.shape[1] ** 2:
+        assert torch.equal(keyed, plain)
+    else:
+        assert (keyed - plain).abs().max().item() <= 1e-6 * top
+    prods = estimators._outer_by_products(s.values, s.indices, s.p)
+    assert (prods - plain).abs().max().item() <= 1e-5 * top
+    ref = np.asarray(jest._scatter_outer(s_j.values, s_j.indices, s_j.p))
+    for got in (keyed, prods):
+        assert np.abs(got.numpy() - ref).max() <= 1e-5 * top
+
+
 def test_stream_fold_and_pca(partitionable):
     state = estimators.stream_init(256)  # p_pad of P = 200
     state_j = jest.stream_init(256)

@@ -459,3 +459,137 @@ def test_lloyd_update_is_bit_reproducible(dev):
                                       assign_fn=ops.kernel_assign_fn()) for _ in range(2)]
     for f1, f2 in zip(*fits):
         assert torch.equal(f1, f2)
+
+
+def _sketched(dev, n, p, m, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.sort(np.argsort(rng.random((n, p)), axis=1)[:, :m], axis=1).astype(np.int32)
+    vals = rng.normal(size=(n, m)).astype(np.float32)
+    from repro_torch.core.sampling import SparseRows
+
+    return SparseRows(torch.from_numpy(vals).to(dev), torch.from_numpy(idx).to(dev), p)
+
+
+@pytest.mark.parametrize("cov_path", ["dense", "compact", "lowrank"])
+def test_fold_repeats_bit_for_bit(dev, cov_path):
+    """One engine step folded twice from the same state and batch gives the
+    same bits: Σw by the dense batch's column sums (dense) or K6 (compact),
+    the K-means sums by K6, the compact covariance at m/p = 0.05 by chunked
+    fp32 products, the range state by K5/K6 (phase 5's shapes at
+    fewer rows: p = 16384, m = 819, r = 3, K = 10; the low-rank path at
+    p = 65536, l = 128)."""
+    from repro_torch.api import Plan, make_engine
+    from repro_torch.stream import StreamKMeansConfig
+    from repro_torch.stream import state as state_mod
+
+    p = 65536 if cov_path == "lowrank" else 16384
+    kw = dict(rank=128) if cov_path == "lowrank" else {}
+    rows = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 1024, p)).astype(
+        np.float32)).to(dev)
+    eng = make_engine(Plan(backend="stream", gamma=0.05, batch_size=1024, cov_path=cov_path,
+                           **kw), p, 1, lambda seed, step, shard: rows[0],
+                      kmeans=StreamKMeansConfig(k=10, n_init=3, track_reassignments=True))
+    state = eng.init_state()
+    a = state_mod.engine_to_arrays(eng.update(state, rows, 0))
+    b = state_mod.engine_to_arrays(eng.update(state, rows, 0))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("m", [82, 819])
+def test_compact_covariance_repeats_and_matches_plain(dev, m):
+    """The compact covariance on the card at p = 16384: at m = 82 (m/p =
+    0.005) summed by key (a stable sort and K6's segment walk, which equals
+    its plain version within 1e-6 of the largest run), at m = 819 by chunked
+    products; each bit-identical across calls and within 1e-5 of the n·m²
+    scatter-add on the CPU."""
+    from repro_torch.core import estimators
+
+    s = _sketched(dev, 1024, 16384, m, seed=8)
+    keyed = m <= estimators.COMPACT_KEYED_FILL * s.p
+    assert keyed == (m == 82)
+    k6 = spmm.spmm_t.launches
+    first = estimators._scatter_outer(s.values, s.indices, s.p)
+    assert (spmm.spmm_t.launches > k6) == keyed
+    assert torch.equal(first, estimators._scatter_outer(s.values, s.indices, s.p))
+    want = estimators._scatter_outer_plain(s.values.cpu(), s.indices.cpu(), s.p)
+    assert (first.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    vals = torch.randn(5000, device=dev)
+    order = torch.randperm(5000, device=dev).to(torch.int32)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.randint(0, 40, (300,)).cumsum(0).clamp(max=5000),
+                        torch.tensor([5000])]).to(torch.int32).to(dev)
+    got = ops.segment_sums(vals, order, starts)
+    plain = ref.ref_segment_sums(vals.cpu(), order.cpu(), starts.cpu())
+    assert torch.equal(got, ops.segment_sums(vals, order, starts))
+    assert (got.cpu() - plain).abs().max().item() <= 1e-6 * plain.abs().max().item()
+
+
+def test_column_sums_and_hypothesis_sums(dev):
+    """K6's column sums (Σv, Σv²) within 1e-5 of the CPU's scatter-add and
+    bit-identical across calls; the r-hypothesis cluster sums (one walk over
+    r·K label columns) bit-equal to the CPU's scatter-add in row order."""
+    s = _sketched(dev, 4096, 16384, 819, seed=6)
+    first = ops.column_sums(s.values, s.indices, s.p)
+    again = ops.column_sums(s.values, s.indices, s.p)
+    plain = ref.ref_column_sums(s.values.cpu(), s.indices.cpu(), s.p)
+    for got, same, want in zip(first, again, plain):
+        assert torch.equal(got, same)
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    labels = torch.from_numpy(np.random.default_rng(7).integers(0, 10, (3, 4096)).astype(
+        np.int32)).to(dev)
+    sums, counts = ops.cluster_sums(s.values, s.indices, labels, 10, s.p)
+    want_s, want_c = ref.ref_cluster_sums(s.values.cpu(), s.indices.cpu(), labels.cpu(), 10, s.p)
+    assert sums.shape == (3, 10, s.p)
+    assert torch.equal(sums.cpu(), want_s) and torch.equal(counts.cpu(), want_c)
+
+
+def test_kmeans2_delta_matches_plain(dev):
+    """kmeans2_delta on the card (K4 for the frozen-center labels and the
+    flips, K6's walk and the integer histogram for the sums and counts)
+    against its plain version on the CPU: sums and counts bit-equal where the
+    labels agree (they do here: no near-ties), objective 1e-5 relative."""
+    from repro_torch import refine
+
+    s = _sketched(dev, 4096, 16384, 819, seed=8)
+    rng = np.random.default_rng(8)
+    frozen = torch.from_numpy(rng.normal(size=(10, 16384)).astype(np.float32)).to(dev)
+    prev = frozen + 0.5 * torch.from_numpy(rng.normal(size=(10, 16384)).astype(np.float32)).to(dev)
+    got = refine.kmeans2_delta(s, frozen, prev)
+    again = refine.kmeans2_delta(s, frozen, prev)
+    from repro_torch.core.sampling import SparseRows
+
+    want = refine.kmeans2_delta(SparseRows(s.values.cpu(), s.indices.cpu(), s.p), frozen.cpu(),
+                                prev.cpu())
+    for f in ("sums", "cnts", "flips", "count"):
+        assert torch.equal(getattr(got, f), getattr(again, f))
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert abs(got.obj.item() - want.obj.item()) <= 1e-5 * abs(want.obj.item())
+
+
+def test_power_pass_matches_plain(dev):
+    """One power pass at the low-rank path's shape (p = 65536, l = 128): the
+    range delta with Q in Ω's place (K5, K6) within 1e-5 of the largest
+    output of the plain version, bit-identical across calls, and the next
+    basis's span within a principal-angle sine of 1e-4 of the CPU's (all
+    128 columns: on random rows the leading few singular values lie too
+    close for a slice of them to be a stable subspace)."""
+    from repro_torch import lowrank, refine
+
+    s = _sketched(dev, 4096, 65536, 3277, seed=10)
+    q = torch.linalg.qr(torch.randn((65536, 128), generator=torch.Generator().manual_seed(0)))[0]
+    q_dev = q.to(dev).contiguous()
+    got = lowrank.range_delta(s, q_dev)
+    again = lowrank.range_delta(s, q_dev)
+    from repro_torch.core.sampling import SparseRows
+
+    want = lowrank.range_delta(SparseRows(s.values.cpu(), s.indices.cpu(), s.p), q)
+    for f in ("y", "diag", "sum_w"):
+        assert torch.equal(getattr(got, f), getattr(again, f))
+        w = getattr(want, f)
+        assert (getattr(got, f).cpu() - w).abs().max().item() <= 1e-5 * w.abs().max().item(), f
+    q1 = refine.power_orth(got, q_dev, 3277)
+    q1_cpu = refine.power_orth(want, q, 3277)
+    assert q1.is_contiguous() and q1.dtype == torch.float32
+    assert refine.subspace_change(q1.cpu(), q1_cpu) <= 1e-4

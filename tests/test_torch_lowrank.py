@@ -247,8 +247,17 @@ def test_eig_in_basis_matches_reference():
 
 
 def test_fd_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lowrank.fd_init(64, 8)
+    """Frequent Directions is ported (tests/test_torch_fd.py holds it against
+    the reference): the names the package exports build and fold a sketch."""
+    st = lowrank.fd_init(64, 8)
+    assert st.sketch.shape == (8, 64) and int(st.count) == 0
+    rng = np.random.default_rng(0)
+    idx = np.sort(np.argsort(rng.random((5, 64)), axis=1)[:, :4], axis=1).astype(np.int32)
+    from repro_torch.core.sampling import SparseRows
+
+    st = lowrank.fd_update(st, SparseRows(torch.from_numpy(rng.normal(size=(5, 4)).astype(
+        np.float32)), torch.from_numpy(idx), 64))
+    assert int(st.count) == 5 and lowrank.fd_finalize(st, 4).rank == 8
 
 
 # ------------------------------------------------------------ the engine ---
