@@ -96,9 +96,36 @@ Phases, in order; any failure exits non-zero:
               phase 8's rows: its sketch against the port's FD on the CPU
               and a float64 FD on the same sketches, and FD's deterministic
               bound; each of phase 10's three paths gated on its kernels.
+11. serve   — SketchService(workers=4, device="cuda") at phase 5's width
+              (p = 16384, γ = 0.05, batch_size = 4096) on phase 8's planted
+              generator: one dense group (SparsifiedMean, SparsifiedPCA(8) on
+              the (p, p) moment, minibatch SparsifiedKMeans(10)) and three
+              low-rank groups (SparsifiedPCA(8), rank = 64, and minibatch
+              K-means), 16,384 rows a group in requests of 4096 interleaved
+              across groups; every answer (components, explained variance,
+              centers, mean, predict on 4096 rows) bit-identical to fit_many
+              over the same rows, plan and key, and to the same sequence
+              through workers=1; K5 and K6 on one low-rank group's first
+              chunk (4096 rows, m = 819, p = 16384, its Ω of width 64)
+              against their plain versions within 1e-5 of max |plain|;
+              a snapshot after 2 of 4 requests a group,
+              restored into a fresh service and continued, bit-identical to
+              the uninterrupted service (bytes, write and restore seconds);
+              the HTTP frontend (256-row requests) equal to the in-process
+              answers and a 429 with Retry-After past the admission cap; one
+              scrape of serve_metrics whose serve.* counters reconcile with
+              the requests sent, with a kernels.dispatch{path="kernel"}
+              series for K1, K2, K4, K5 and K6 and no path="ref" series;
+              phase 5's engine for 4 steps with EngineTelemetry bit-identical
+              to the same run without it (the spans' host times beside the
+              update's device time, the instrumentation's cost, the
+              record_function names in a torch.profiler capture); and
+              python -m repro_torch.launch.sketch_serve --device cuda with
+              --supervise --crash-after against an uninterrupted run, their
+              --out files equal.
 
 Then one JSON line listing every kernel (launches: its path's run in phase 5
-or 7; launches_by_phase: that count and phase 9's and phase 10's paths' own),
+or 7; launches_by_phase: that count and phase 9's, 10's and 11's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -145,6 +172,12 @@ PATH9 = PATH1
 # K-means), Frequent Directions; the p = 65536 replay takes PATH2
 PATH10_REFINE = PATH1 + ("spmm",)
 PATH_FD = ("sketch_fused", "hd_precondition", "spmm_t", "transpose_columns")
+# phase 11: rows a group, requests of HTTP rows, the engine's steps under
+# telemetry, rounds of steady queries, and how long a request may take
+GROUP_ROWS, HTTP_ROWS, TEL_STEPS, QUERY_ROUNDS, TIMEOUT_S = 4 * BATCH, 256, 4, 20, 300.0
+# the serving path at p = 16384: K1, K2 (the finalize's unmix), K4, K5, K6
+PATH11 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm", "spmm_t",
+          "transpose_columns")
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -250,6 +283,428 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class _Memo:
+    """A source's batches, each generated once and kept (phase 11 runs one
+    engine on the source, then another over the same batches)."""
+
+    def __init__(self, source):
+        self.source, self.cache = source, {}
+
+    def batch_at(self, step: int, shard: int = 0):
+        if (step, shard) not in self.cache:
+            self.cache[step, shard] = self.source.batch_at(step, shard)
+        return self.cache[step, shard]
+
+
+def _http(url: str, body=None):
+    """(code, JSON body, headers) of a GET (body None) or a JSON POST; HTTP
+    error codes are answers here, not failures."""
+    import urllib.error
+    import urllib.request
+
+    req = (urllib.request.Request(url) if body is None else
+           urllib.request.Request(url, json.dumps(body).encode(),
+                                  {"Content-Type": "application/json"}))
+    try:
+        with urllib.request.urlopen(req, timeout=TIMEOUT_S) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _scrape(url: str) -> dict[str, float]:
+    """One /metrics scrape as {sample name with labels: value}."""
+    import urllib.request
+
+    text = urllib.request.urlopen(url, timeout=TIMEOUT_S).read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def phase11_serve(card: str) -> dict[str, int]:
+    """Phase 11 (module docstring): the sketch service on the card. Returns
+    the kernels' launches in the 4-worker service's run."""
+    import signal
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api, obs
+    from repro_torch.core import sketch as sketch_mod
+    from repro_torch.data.pipeline import VectorStreamSource
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sketchserve import ESTIMATORS, SketchService, restore_service, serve_http
+    from repro_torch.sketchserve.snapshot import plan_to_json
+    from repro_torch.stream import EngineTelemetry, StreamKMeansConfig
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.utils import prng
+
+    groups = ("dense", "lr1", "lr2", "lr3")
+    print(f"== 11 serve: SketchService at p={P}, gamma={GAMMA}, batch_size={BATCH}: groups "
+          f"{list(groups)}, {GROUP_ROWS} rows a group in requests of {BATCH}", flush=True)
+    t11 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base11 = torch.cuda.memory_allocated()      # what earlier phases still hold
+    reg = obs.MetricsRegistry()
+    prev_reg = obs.set_default_registry(reg)     # this phase's kernels.dispatch alone
+    src = VectorStreamSource(p=P, batch=BATCH, seed=0)      # phase 8's planted U and λ
+    gen = torch.Generator(device=dev).manual_seed(11)
+    u, lam = torch.from_numpy(src._u).to(dev), torch.from_numpy(src._lam).to(dev)
+
+    def planted(n):
+        x = (torch.randn((n, src.k), generator=gen, device=dev) * lam) @ u.T
+        return x.add_(torch.randn((n, P), generator=gen, device=dev), alpha=0.05)
+
+    rows = {g: planted(GROUP_ROWS) for g in groups}
+    x_pred = planted(BATCH)
+    plan_d = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH)
+    plans = {g: plan_d if g == "dense" else plan_d.replace(cov_path="lowrank", rank=64)
+             for g in groups}
+    keys = {g: 21 + i for i, g in enumerate(groups)}
+    km = {"k": K, "algorithm": "minibatch"}
+    tenants = {g: ([(f"{g}.mean", "mean", {})] if g == "dense" else [])
+               + [(f"{g}.pca", "pca", {"n_components": PCA_K}), (f"{g}.km", "kmeans", km)]
+               for g in groups}
+    n_tenants = sum(len(t) for t in tenants.values())
+    n_req = GROUP_ROWS // BATCH
+    order = [(g, r) for r in range(n_req) for g in groups]       # interleaved across groups
+
+    def create(svc):
+        for g in groups:
+            for tid, kind, params in tenants[g]:
+                svc.create_tenant(tid, kind, plan=plans[g], key=keys[g], group=g, **params)
+
+    def ingest(svc, reqs) -> float:
+        t0 = time.perf_counter()
+        futs = [svc.ingest(g, rows[g][r * BATCH:(r + 1) * BATCH]) for g, r in reqs]
+        acks = [f.result(TIMEOUT_S) for f in futs]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(all(a.ok for a in acks), f"serve: ingest failed: {[a.error for a in acks][:2]}")
+        return dt
+
+    def answers(svc, first=None) -> dict:
+        """Every tenant's answers; ``first`` gets each tenant's first query
+        seconds (its lazy finalize)."""
+        out = {}
+        for g in groups:
+            for tid, kind, _ in tenants[g]:
+                t0 = time.perf_counter()
+                if kind == "mean":
+                    out[tid] = svc.query(tid, "mean", timeout=TIMEOUT_S).unwrap()
+                elif kind == "pca":
+                    got = svc.query(tid, "components", timeout=TIMEOUT_S).unwrap()
+                    out[tid], out[f"{tid}/ev"] = got["components"], got["explained_variance"]
+                else:
+                    out[tid] = svc.query(tid, "centers", timeout=TIMEOUT_S).unwrap()
+                if first is not None:
+                    first[tid] = time.perf_counter() - t0
+                if kind == "kmeans":
+                    out[f"{tid}/predict"] = svc.query(tid, "predict", x_pred,
+                                                      timeout=TIMEOUT_S).unwrap()
+        return out
+
+    def differ(a, b) -> list[str]:
+        check(sorted(a) == sorted(b), f"serve: answer sets differ: {sorted(a)} {sorted(b)}")
+        return [k for k in sorted(a) if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k])]
+
+    # 1-2: 4 workers, every answer against fit_many; 6: one scrape
+    svc4 = SketchService(workers=4, device="cuda", registry=reg)
+    with svc4:
+        create(svc4)
+        ops.reset_counts()
+        t_ing4 = ingest(svc4, order)
+        first = {}
+        ans4 = answers(svc4, first)
+        launches11 = ops.launch_counts()
+        lat = []
+        steady = ("dense.pca", "lr1.pca", "dense.km", "dense.mean")
+        for _ in range(QUERY_ROUNDS):
+            for tid in steady:
+                t0 = time.perf_counter()
+                svc4.query(tid, "stats", timeout=TIMEOUT_S).unwrap()
+                lat.append(time.perf_counter() - t0)
+        n_queries = sum(2 if kind == "kmeans" else 1 for t in tenants.values()
+                        for _, kind, _ in t) + QUERY_ROUNDS * len(steady)
+        h = reg.histogram("serve.request_seconds").summary()
+        with obs.serve_metrics(reg) as server:
+            scraped = _scrape(server.url)
+        fin = [svc4.query(tid, "stats", timeout=TIMEOUT_S).unwrap()["finalize_count"]
+               for t in tenants.values() for tid, _, _ in t]
+        st_bytes = {g: svc4.query(tenants[g][-2][0], "stats", timeout=TIMEOUT_S).unwrap()
+                    ["state_bytes"] for g in ("dense", "lr1")}
+    print(f"  4 workers: {len(order)} requests ({len(groups) * GROUP_ROWS} rows) ingested in "
+          f"{t_ing4:.3f} s = {len(groups) * GROUP_ROWS / t_ing4:.0f} rows/s; first query (lazy "
+          f"finalize) s: {', '.join(f'{k} {v:.3f}' for k, v in first.items())}")
+    print(f"  launches in the service's run: {launches11}; state bytes of a PCA tenant: "
+          f"{st_bytes}")
+    p50, p99 = obs.quantiles(lat, (0.5, 0.99))
+    print(f"  steady stats queries (client clock, {len(lat)}): p50 {p50 * 1e3:.3f} ms, p99 "
+          f"{p99 * 1e3:.3f} ms; serve.request_seconds over all {h['count']} requests (ingest, "
+          f"admin, queries): p50 {h['p50'] * 1e3:.3f} ms, p99 {h['p99'] * 1e3:.3f} ms, max "
+          f"{h['max'] * 1e3:.3f} ms")
+    check(all(launches11[name] > 0 for name in PATH11),
+          f"serve: a kernel of the serving path never launched: {launches11}")
+    check(fin == [1] * n_tenants, f"serve: lazy finalize ran {fin} times a tenant")
+
+    # 6: the scrape reconciles with what was sent
+    n_admin = n_tenants
+    want = {"serve_ingest_requests": len(order), "serve_ingest_rows": len(groups) * GROUP_ROWS,
+            "serve_queries": n_queries, "serve_requests": len(order) + n_queries + n_admin,
+            "serve_finalizes": n_tenants, "serve_rejected": 0,
+            "serve_coalesced_requests_sum": len(order),
+            "serve_coalesced_requests_count": scraped.get("serve_ingest_folds", -1),
+            "serve_pending_rows": 0}
+    bad = {k: (scraped.get(k), v) for k, v in want.items() if scraped.get(k) != v}
+    check(not bad, f"serve: the scrape does not reconcile with the requests sent: {bad}")
+    dispatch = {k: v for k, v in scraped.items() if k.startswith("kernels_dispatch")}
+    print(f"  scrape: {want}; kernels.dispatch: {dispatch}")
+    for op in ("sketch_fused", "hd_precondition", "sparse_assign", "spmm", "spmm_t"):
+        check(scraped.get(f'kernels_dispatch{{op="{op}",path="kernel"}}', 0) > 0,
+              f'serve: no kernels.dispatch{{op="{op}",path="kernel"}} series')
+    check(not any('path="ref"' in k for k in dispatch),
+          f"serve: a plain version ran on the card: {dispatch}")
+
+    direct = {}
+    for g in groups:
+        cons = [ESTIMATORS[kind](plan=plans[g], key=keys[g], device=dev, **params)
+                for _, kind, params in tenants[g]]
+        api.fit_many(plans[g], cons, rows[g])
+        for (tid, kind, _), c in zip(tenants[g], cons):
+            if kind == "mean":
+                direct[tid] = c.mean_.cpu().numpy()
+            elif kind == "pca":
+                direct[tid] = c.components_.cpu().numpy()
+                direct[f"{tid}/ev"] = c.explained_variance_.cpu().numpy()
+            else:
+                direct[tid] = c.centers_.cpu().numpy()
+                direct[f"{tid}/predict"] = c.predict(x_pred).cpu().numpy()
+        if g == "lr1":      # K5 and K6 on the group's first chunk, its Ω and its shapes
+            pca = cons[[kind for _, kind, _ in tenants[g]].index("pca")]
+            s0 = sketch_mod.sketch(rows[g][:BATCH], pca.spec_,
+                                   batch_key=sketch_mod.batch_key(pca.spec_, 0, 0))
+            om = pca._reducer._omega
+            t_k = ops.spmm(s0.values, s0.indices, om)
+            y_k = ops.spmm_t(s0.values, s0.indices, t_k, P, col_sums=True)   # as range_delta
+            torch.cuda.synchronize()
+            t_p = ref.ref_spmm(s0.values, s0.indices, om)
+            y_p = ref.ref_spmm_t(s0.values, s0.indices, t_k, P, col_sums=True)
+            errs = []
+            for what, got, want in [("K5 spmm", t_k, t_p)] + list(zip(
+                    ("K6 spmm_t Y", "K6 Σv", "K6 Σv²"), y_k, y_p)):
+                err, tol = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
+                errs.append(f"{what} {err:.3g} (tol {tol:.3g})")
+                check(err <= tol, f"serve: {what} at p={P} off its plain version: {err} > {tol}")
+            print(f"  the lr1 group's first chunk ({s0.values.shape[0]} rows, m="
+                  f"{s0.values.shape[1]}, p={P}, Ω {tuple(om.shape)}), kernels against their "
+                  f"plain versions (1e-5 of max |plain|): {'; '.join(errs)}")
+            del s0, om, t_k, y_k, t_p, y_p
+        del cons
+    off = differ(ans4, direct)
+    print(f"  served against fit_many over the same rows, plans and keys: "
+          f"{len(ans4) - len(off)} of {len(ans4)} answers bit-identical")
+    check(not off, f"serve: answers differ from fit_many: {off}")
+    del svc4
+    torch.cuda.empty_cache()
+
+    # 3-4: 1 worker, a snapshot after 2 of 4 requests a group, restore and continue
+    snap = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        half = [(g, r) for g, r in order if r < n_req // 2]
+        rest = [(g, r) for g, r in order if r >= n_req // 2]
+        svc1 = SketchService(workers=1, device="cuda")
+        with svc1:
+            create(svc1)
+            t_half1 = ingest(svc1, half)
+            t0 = time.perf_counter()
+            svc1.snapshot(snap)
+            t_write = time.perf_counter() - t0
+            t_rest1 = ingest(svc1, rest)
+            ans1 = answers(svc1)
+        del svc1
+        torch.cuda.empty_cache()
+        off = differ(ans1, ans4)
+        check(not off, f"serve: 1 worker differs from 4 workers in {off}")
+        step_dir = ckpt_mod.latest_step_dir(snap)
+        snap_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        t0 = time.perf_counter()
+        svc_r = restore_service(snap, workers=4, device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        with svc_r:
+            t_rest4 = ingest(svc_r, rest)
+            ans_r = answers(svc_r)
+        del svc_r
+        off = differ(ans_r, ans4)
+        check(not off, f"serve: the restored service differs from the uninterrupted one in {off}")
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    torch.cuda.empty_cache()
+    n_half = len(groups) * GROUP_ROWS // 2
+    print(f"  1 worker: {len(groups) * GROUP_ROWS / (t_half1 + t_rest1):.0f} rows/s (two bursts "
+          f"of {len(half)} requests, the snapshot between: {t_half1:.3f} + {t_rest1:.3f} s); "
+          f"every answer bit-identical to 4 workers'; the second burst through the restored "
+          f"4-worker service {t_rest4:.3f} s ({n_half / t_rest4:.0f} rows/s against 1 worker's "
+          f"{n_half / t_rest1:.0f})")
+    print(f"  snapshot after {n_req // 2} of {n_req} requests a group: {snap_bytes} bytes, "
+          f"written in {t_write:.3f} s, restored in {t_restore:.3f} s; the restored service, "
+          f"continued, bit-identical to the uninterrupted one")
+
+    # 5: HTTP, 256-row requests of integer-valued rows (short JSON), and the cap
+    hsvc = SketchService(device="cuda", max_pending_rows=HTTP_ROWS)
+    plan_h = api.Plan(backend="stream", gamma=GAMMA, batch_size=HTTP_ROWS)
+    xh = torch.round(planted(2 * HTTP_ROWS) * 8)
+    xh_np = xh.cpu().numpy()
+    t0 = time.perf_counter()
+    with hsvc:
+        fe = serve_http(hsvc)
+        try:
+            code, body, _ = _http(fe.url + "/admin", {"op": "create_tenant", "params": {
+                "tid": "h", "kind": "mean", "key": 5, "plan": plan_to_json(plan_h)}})
+            check(code == 200, f"serve: HTTP create_tenant answered {code}: {body}")
+            for i in range(2):
+                code, body, _ = _http(fe.url + "/ingest", {
+                    "target": "h", "rows": xh_np[i * HTTP_ROWS:(i + 1) * HTTP_ROWS].tolist()})
+                check(code == 200, f"serve: HTTP ingest answered {code}: {body.get('error')}")
+            code, body, _ = _http(fe.url + "/query?tenant=h&op=mean")
+            check(code == 200, f"serve: HTTP query answered {code}")
+            got = np.asarray(body["result"], np.float32)
+            in_proc = hsvc.query("h", "mean", timeout=TIMEOUT_S).unwrap()
+            code429, body, hdrs = _http(fe.url + "/ingest", {
+                "target": "h", "rows": xh_np[:HTTP_ROWS + 1].tolist()})
+        finally:
+            fe.close()
+    t_http = time.perf_counter() - t0
+    want_h = api.SparsifiedMean(plan_h, key=5, device=dev).fit(xh).mean_.cpu().numpy()
+    check(np.array_equal(got, in_proc) and np.array_equal(got, want_h),
+          "serve: the HTTP answer differs from the in-process one")
+    check(code429 == 429 and body["status"] == "rejected" and "Retry-After" in hdrs,
+          f"serve: {HTTP_ROWS + 1} rows past a cap of {HTTP_ROWS} answered {code429}, {hdrs}")
+    print(f"  HTTP: 2 requests of {HTTP_ROWS} rows and a query equal to the in-process answer "
+          f"and to a direct fit; {HTTP_ROWS + 1} rows past the cap: 429, Retry-After "
+          f"{hdrs['Retry-After']}; {t_http:.2f} s (JSON of {HTTP_ROWS}×{P} rows)")
+
+    # 7: phase 5's engine with and without telemetry, over the same batches
+    memo = _Memo(VectorStreamSource(p=P, batch=BATCH, seed=0))
+
+    def engine5():
+        return api.make_engine(plan_d, P, prng.PRNGKey(1), memo,
+                               kmeans=StreamKMeansConfig(k=K, n_init=N_INIT), device=dev)
+
+    treg = obs.MetricsRegistry()
+    eng_t = engine5()
+    t0 = time.perf_counter()
+    res_t = eng_t.run(TEL_STEPS, telemetry=EngineTelemetry(registry=treg))
+    torch.cuda.synchronize()
+    t_tel = time.perf_counter() - t0
+    eng_p = engine5()
+    res_p = eng_p.run(TEL_STEPS)          # the same batches, from the cache
+    torch.cuda.synchronize()
+    diff = same_bits(eng_t.state, eng_p.state) + [
+        f for f in ("mean", "cov", "centers", "kmeans_obj")
+        if not torch.equal(getattr(res_t, f), getattr(res_p, f))]
+    check(not diff, f"serve: telemetry changed the fold: {diff}")
+    totals = obs.span_totals(treg)
+    # the instrumentation's own host cost a step: three spans and the records
+    probe = obs.MetricsRegistry()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        with obs.span("engine.source", probe):
+            pass
+        with obs.span("engine.update", probe):
+            pass
+    t_span = (time.perf_counter() - t0) / 2000
+    # what runs with telemetry off too: the dispatch tally and record_function
+    # with no profiler, each priced against the dispatches of one step
+    obs.set_default_registry(probe)
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        ops._count_dispatch("spmm", "kernel")
+    t_count = (time.perf_counter() - t0) / 10000
+    obs.set_default_registry(reg)
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        with torch.profiler.record_function("obs.fold"):
+            pass
+    t_rf = (time.perf_counter() - t0) / 10000
+    # one more step: its device time by CUDA events, and a profiler capture
+    x = eng_p.host_global_batch(None, TEL_STEPS)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    n_disp = sum(ops.DISPATCH.values())
+    torch.cuda.synchronize()
+    ev0.record()
+    eng_p.update(eng_p.state, x, TEL_STEPS)
+    ev1.record()
+    torch.cuda.synchronize()
+    n_disp = sum(ops.DISPATCH.values()) - n_disp
+    always = n_disp * t_count + 2 * eng_p.n_shards * t_rf + 2 * t_span
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng_t.run(TEL_STEPS + 1, state=eng_t.state, start_step=TEL_STEPS,
+                  telemetry=EngineTelemetry(registry=obs.MetricsRegistry()))
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    spans = ("engine.source", "engine.update", "obs.sketch", "obs.fold")
+    src_s, upd_s = totals["engine.source"], totals["engine.update"]
+    print(f"  engine, {TEL_STEPS} steps of phase 5 with EngineTelemetry: {t_tel:.2f} s, state "
+          f"bit-identical to the run without it; spans: engine.source {src_s['total_s']:.3f} s "
+          f"(p50 {src_s['p50'] * 1e3:.1f} ms a step), engine.update {upd_s['total_s']:.3f} s "
+          f"(p50 {upd_s['p50'] * 1e3:.1f} ms, host enqueue); the update's device time "
+          f"{ev0.elapsed_time(ev1):.1f} ms (CUDA events); host share of the spans "
+          f"{src_s['total_s'] / (src_s['total_s'] + upd_s['total_s']):.3f}")
+    print(f"  telemetry's cost: {t_span * 1e6:.1f} µs a span (record_function and NVTX), "
+          f"{treg.histogram('engine.step_seconds').count} steps recorded; profiler names found "
+          f"{sorted(n for n in spans if n in names)}")
+    print(f"  always on, telemetry or not: {t_count * 1e6:.2f} µs a dispatch tally, "
+          f"{t_rf * 1e6:.2f} µs a record_function with no profiler; a step's {n_disp} "
+          f"dispatches, {2 * eng_p.n_shards} record_functions and 2 spans: {always * 1e6:.1f} µs "
+          f"of host time against the update's {ev0.elapsed_time(ev1):.1f} ms on the card")
+    check(all(n in names for n in spans), f"serve: span names missing from the profile: {spans}")
+    del eng_t, eng_p, res_t, res_p, x, memo
+
+    # 8: the launcher, crashed and resumed under --supervise, against an uninterrupted run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    base = [sys.executable, "-m", "repro_torch.launch.sketch_serve", "--device", "cuda",
+            "--tenants", "12", "--groups", "4", "--requests", "96", "--p", "64"]
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for extra in (["--supervise", "--crash-after", "40", "--snapshot",
+                       os.path.join(tmp, "snap"), "--snapshot-every-rows", "256",
+                       "--out", os.path.join(tmp, "a.json")],
+                      ["--out", os.path.join(tmp, "b.json")]):
+            procs.append(subprocess.Popen(base + extra, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True, env=env,
+                                          cwd=ROOT, start_new_session=True))
+        outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
+        t_launch = time.perf_counter() - t0
+        for p, out in zip(procs, outs):
+            check(p.returncode == 0, f"serve: the launcher exited {p.returncode}:\n{out[-2000:]}")
+        check("workload completed after 1 restart(s)" in outs[0],
+              f"serve: the supervised launcher did not crash and resume once:\n{outs[0][-2000:]}")
+        with open(os.path.join(tmp, "a.json")) as fa, open(os.path.join(tmp, "b.json")) as fb:
+            check(fa.read() == fb.read(), "serve: the resumed launcher's --out differs")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  launcher: --supervise --crash-after 40 (one crash, one resume) and an "
+          f"uninterrupted run, side by side in {t_launch:.1f} s: --out files equal")
+    obs.set_default_registry(prev_reg)
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s, peak memory "
+          f"{(torch.cuda.max_memory_allocated() - base11) / 2**30:.2f} GiB above the "
+          f"{base11 / 2**30:.2f} GiB that earlier phases still held; {card}")
+    return launches11
 
 
 def main() -> None:
@@ -1689,6 +2144,9 @@ def main() -> None:
     print(f"  phase 10: {time.perf_counter() - t10:.1f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
 
+    # ---------------------------------------------------------------- 11 serve
+    launches11 = phase11_serve(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -1706,7 +2164,8 @@ def main() -> None:
     # 7); launches_by_phase: that count again and each later path's own,
     # each read just after its reset
     later = {"9 resume": launches9, "10 refine": launches10_refine,
-             "10 scan and replay": launches10_replay, "10 fd": launches_fd}
+             "10 scan and replay": launches10_replay, "10 fd": launches_fd,
+             "11 serve": launches11}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],

@@ -7,6 +7,8 @@ package runs ``backend="batch"`` and ``"stream"`` through the estimators of
 (``lowrank_method="range"``; the estimators also ``"fd"``) covariance path,
 and ``refine_passes`` for ``fit_refine`` / ``fit_many(refine=True)``; the
 sharded backend raises ``NotImplementedError`` until it is ported.
+:func:`mesh_spec` / :func:`mesh_from_spec` are the snapshot codec's mesh
+fields: the null mesh only, until the sharded backend brings meshes.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 from typing import Any, Literal
 
 from repro_torch.core import ros, sketch
+from repro_torch.utils.device import not_ported
 
 Backend = Literal["batch", "stream", "sharded"]
 
@@ -96,3 +99,24 @@ class Plan:
     def step_shard(self, chunk: int) -> tuple[int, int]:
         """Map a linear chunk index to its (step, shard) key coordinates."""
         return divmod(chunk, self.n_shards)
+
+
+# ----------------------------------------------------------- mesh (de)spec --
+# The reference serializes a Plan's mesh as its geometry (axis names and
+# shape) in snapshots. The port has no mesh yet: only None round-trips.
+
+
+def mesh_spec(mesh) -> dict | None:
+    """The JSON-safe geometry of a mesh; None stays None (any mesh raises:
+    meshes come with the sharded backend)."""
+    if mesh is None:
+        return None
+    raise not_ported("mesh_spec(mesh)", "Sharded backend")
+
+
+def mesh_from_spec(spec: dict | None):
+    """The mesh a snapshot's geometry describes; None stays None (a mesh
+    geometry raises until the sharded backend is ported)."""
+    if spec is None:
+        return None
+    raise not_ported(f"a snapshot plan with mesh {spec}", "Sharded backend")

@@ -5,6 +5,10 @@ compiled for ``sm_90a`` at first use. All sources build at once, one ``nvcc``
 each, into ``build/`` beside this file (listed in ``.gitignore``). A library's
 file name carries a hash of its source and flags, so an edited source is
 rebuilt and a stale library is never loaded.
+
+Worker threads may make their first launches at once (the sketch service's
+pool): one lock serializes the build and the load, so nvcc runs once per
+source, and another guards the wrappers' launch counters.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,6 +50,10 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+# held by build_all() and by library()'s first load (re-entered there)
+_BUILD_LOCK = threading.RLock()
+# guards every wrapper's ``launches`` count (and K4's ``by_shape``)
+COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -66,6 +75,11 @@ def _target(name: str) -> Path:
 
 def build_all() -> dict[str, Path]:
     """Compile every library that is missing, all nvcc processes at once."""
+    with _BUILD_LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {name: _target(name) for name in SIGNATURES}
     todo = {name: path for name, path in targets.items() if not path.exists()}
@@ -102,14 +116,24 @@ def ptxas_report(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (building every missing one first)."""
     lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all()[name]))
-        for fn, argtypes in SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
     return lib
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to a kernel wrapper's ``launches``, atomically across threads."""
+    with COUNT_LOCK:
+        wrapper.launches += n
 
 
 def check(err: int, what: str) -> None:

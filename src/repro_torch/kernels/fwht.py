@@ -164,7 +164,7 @@ def _rows(x: torch.Tensor, signs: torch.Tensor, signs_after: bool,
                                           chunk_log if cluster > 1 else 0,
                                           _build.stream_of(x))
         _build.check(err, "hd_precondition")
-        hd_precondition.launches += 1
+        _build.count_launch(hd_precondition)
     return out
 
 
@@ -200,7 +200,7 @@ def _chunked(x: torch.Tensor, signs: torch.Tensor, signs_after: bool,
                                                   cluster.bit_length() - 1, chunk_log,
                                                   _build.stream_of(x))
         _build.check(err, "hd_precondition_chunked")
-        hd_precondition_chunked.launches += 1
+        _build.count_launch(hd_precondition_chunked)
     return out
 
 

@@ -6,16 +6,29 @@ CUDA kernel for a CUDA tensor and computes the plain version for a CPU tensor;
 :data:`DISPATCH` by (op, path), where path is "kernel" when a kernel was
 launched, "kernel_chunked" when the transform went to K3 (p > 2^15) or the
 sketch to K3 and a gather (p > C_max·2^15), "kernel_cluster" when the sketch
-went to K3's cluster kernel in its gather mode (2^15 < p ≤ C_max·2^15), and
-"ref" otherwise.
+went to K3's cluster kernel in its gather mode (2^15 < p ≤ C_max·2^15),
+"segments" when K6 walked the compact covariance's runs, and "ref" otherwise.
+
+The same call bumps ``obs.default_registry().counter("kernels.dispatch",
+op=, path=)`` (:func:`_count_dispatch`, the reference's
+``repro.kernels.ops._count_dispatch``), so a scrape of the registry shows
+each op's paths and a ``path="ref"`` series where a plain version ran.
+Unlike the reference, which counts once per trace (a compilation), the port
+counts every call: a series is the number of dispatches, and the two agree
+with :data:`DISPATCH` call for call. :func:`reset_counts` zeroes
+:data:`DISPATCH` and the launch counts; the registry's series start over
+with a fresh registry (``obs.set_default_registry``).
 """
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ros import IMPLS as MODES
+from repro_torch.kernels import _build
 from repro_torch.kernels import fwht as _fwht
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_fused as _sf
@@ -23,6 +36,7 @@ from repro_torch.kernels import sparse_assign as _sa
 from repro_torch.kernels import spmm as _spmm
 
 DISPATCH: collections.Counter = collections.Counter()
+_DISPATCH_LOCK = threading.Lock()
 
 # each kernel's wrapper, which carries its launch count
 WRAPPERS = {
@@ -42,12 +56,21 @@ def _on_card(mode: str, t: torch.Tensor) -> bool:
     return mode in ("auto", "kernel") and t.device.type == "cuda"
 
 
+def _count_dispatch(op: str, path: str) -> None:
+    """Tally one dispatch of ``op`` under ``path`` in :data:`DISPATCH` and as
+    ``kernels.dispatch{op=,path=}`` in the default registry (per call; the
+    reference counts per trace)."""
+    with _DISPATCH_LOCK:
+        DISPATCH[(op, path)] += 1
+    obs.default_registry().counter("kernels.dispatch", op=op, path=path).inc()
+
+
 def _use_kernel(op: str, mode: str, t: torch.Tensor, path: str = "kernel") -> bool:
     """Whether ``op`` goes to its kernel wrapper, tallied under ``path`` when
     a kernel launches (see :data:`DISPATCH`)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    DISPATCH[(op, path if _on_card(mode, t) else "ref")] += 1
+    _count_dispatch(op, path if _on_card(mode, t) else "ref")
     return mode in ("auto", "kernel")
 
 
@@ -58,10 +81,12 @@ def launch_counts() -> dict[str, int]:
 
 def reset_counts() -> None:
     """Zero every launch counter and the dispatch tally."""
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    _sa.sparse_assign.by_shape.clear()
-    DISPATCH.clear()
+    with _build.COUNT_LOCK:
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        _sa.sparse_assign.by_shape.clear()
+    with _DISPATCH_LOCK:
+        DISPATCH.clear()
 
 
 def hd_precondition(x: torch.Tensor, signs: torch.Tensor, signs_after: bool = False,

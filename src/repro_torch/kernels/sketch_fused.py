@@ -48,7 +48,7 @@ def sketch_fused(x: torch.Tensor, signs: torch.Tensor,
                                        out.data_ptr(), n, log_p, m, fwht.scale_for(p),
                                        _build.stream_of(x))
         _build.check(err, "sketch_fused")
-        sketch_fused.launches += 1
+        _build.count_launch(sketch_fused)
     return out
 
 
@@ -88,7 +88,7 @@ def _cluster(x: torch.Tensor, signs: torch.Tensor, indices: torch.Tensor,
                                          out.data_ptr(), n, cluster.bit_length() - 1, chunk_log,
                                          m, fwht.scale_for(p), _build.stream_of(x))
         _build.check(err, "sketch_fused_cluster")
-        sketch_fused_cluster.launches += 1
+        _build.count_launch(sketch_fused_cluster)
     return out
 
 

@@ -49,8 +49,9 @@ def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Te
                                         ct.data_ptr(), dists.data_ptr(), amin.data_ptr(),
                                         n, m, r, k, p, ld, _build.stream_of(values))
         _build.check(err, "sparse_assign")
-        sparse_assign.launches += 1
-        sparse_assign.by_shape[(r, k, m)] += 1
+        with _build.COUNT_LOCK:
+            sparse_assign.launches += 1
+            sparse_assign.by_shape[(r, k, m)] += 1
     if batched:
         return dists, amin
     return dists[0], amin[0]

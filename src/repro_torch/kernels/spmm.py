@@ -129,7 +129,7 @@ def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor) -> to
     (n, m), (p, ell) = values.shape, dense.shape
     plan = spmm_plan(n, p, ell, sm_count(values.device)) if windows_pay(m, p) else None
     out, launched = _launch(values, indices, dense, plan)
-    spmm.launches += launched
+    _build.count_launch(spmm, launched)
     return out
 
 
@@ -220,7 +220,7 @@ def transpose_columns(values: torch.Tensor, indices: torch.Tensor, p: int):
                                         starts.data_ptr(), pairs.data_ptr(), n, m, p, rows,
                                         int(fast), _build.stream_of(values))
     _build.check(err, "transpose_columns")
-    transpose_columns.launches += 1
+    _build.count_launch(transpose_columns)
     return pairs, starts
 
 
@@ -265,7 +265,7 @@ def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor,
     if values.device.type == "cpu":
         return _ref.ref_spmm_t(values, indices, t, p, col_sums)
     result, launched = _spmm_t(values, indices, t, p, col_sums, transpose_columns)
-    spmm_t.launches += launched
+    _build.count_launch(spmm_t, launched)
     return result
 
 
@@ -296,7 +296,7 @@ def spmm_t_columns(pairs: torch.Tensor, starts: torch.Tensor, t: torch.Tensor,
                              out.data_ptr(), None, None, p, 1, ell, _vec4(t, out),
                              _build.stream_of(t))
     _build.check(err, "spmm_t")
-    spmm_t.launches += 1
+    _build.count_launch(spmm_t)
     return out
 
 
@@ -321,7 +321,7 @@ def segment_sums(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor
                              None, sums[0].data_ptr(), sums[1].data_ptr(), segs, 1, 0, 0,
                              _build.stream_of(values))
     _build.check(err, "spmm_t")
-    spmm_t.launches += 1
+    _build.count_launch(spmm_t)
     return sums[0]
 
 

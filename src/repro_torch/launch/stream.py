@@ -10,6 +10,10 @@ constant-memory accumulators → finalized mean / covariance / streaming K-means
 
     # on the CPU, with streaming K-means over 2 shards a step
     PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --shards 2 --kmeans-k 8
+
+    # a JSONL progress record every 5 steps, and /metrics while the run lasts
+    PYTHONPATH=src python -m repro_torch.launch.stream --log-every 5 \
+        --log-file run.jsonl --metrics-port 9100
 """
 from __future__ import annotations
 
@@ -29,6 +33,13 @@ def main(argv=None):
                     help="covariance delta path (compact = the γ ≪ 1 memory fix)")
     ap.add_argument("--kmeans-k", type=int, default=0, help="0 disables streaming K-means")
     ap.add_argument("--kmeans-ninit", type=int, default=3)
+    ap.add_argument("--log-every", type=int, default=0,
+                    help="emit a structured JSONL progress record every N steps "
+                         "(0 = telemetry off)")
+    ap.add_argument("--log-file", default=None,
+                    help="JSONL destination for --log-every (default: stderr)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the live registry at /metrics on this port")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -50,10 +61,34 @@ def main(argv=None):
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
+    tel, server, logger = None, None, None
+    if args.log_every or args.metrics_port is not None:
+        import sys
+
+        from repro_torch import obs
+        from repro_torch.stream import EngineTelemetry
+
+        reg = obs.MetricsRegistry()
+        logger = obs.StepLogger(
+            path=args.log_file, stream=None if args.log_file else sys.stderr,
+            static={"p": args.p, "shards": args.shards, "backend": plan.backend,
+                    "device": str(dev)})
+        tel = EngineTelemetry(registry=reg, step_logger=logger,
+                              log_every=max(args.log_every, 1))
+        if args.metrics_port is not None:
+            server = obs.serve_metrics(reg, port=args.metrics_port)
+            print(f"metrics at {server.url}")
+
     t0 = time.time()
-    res = engine.run(args.steps, seed=args.seed)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    try:
+        res = engine.run(args.steps, seed=args.seed, telemetry=tel)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        if server is not None:
+            server.close()
+        if logger is not None:
+            logger.close()
     dt = time.time() - t0
     rows = int(res.count)
     acc_floats = spec.p_pad + (0 if args.no_cov else spec.p_pad**2)

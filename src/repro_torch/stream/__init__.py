@@ -1,6 +1,7 @@
 """Streaming sketch engine on one device (paper §I, IV–VI).
 
-- engine:       StreamEngine — source → sketch → accumulate → finalize.
+- engine:       StreamEngine — source → sketch → accumulate → finalize;
+                EngineTelemetry, its opt-in per-step metrics and spans.
 - accumulators: constant-memory delta/apply algebra (Thm-4 mean, Thm-6 cov,
                 mini-batch streaming sparsified K-means).
 - state:        the reference's flat-array state layout, read, written,
@@ -20,6 +21,7 @@ from repro_torch.stream.accumulators import (  # noqa: F401
 )
 from repro_torch.stream.engine import (  # noqa: F401
     EngineState,
+    EngineTelemetry,
     StreamEngine,
     StreamKMeansConfig,
     StreamResult,

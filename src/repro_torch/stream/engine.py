@@ -32,21 +32,70 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch import lowrank as lowrank_mod
+from repro_torch import obs
 from repro_torch import refine as refine_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
 from repro_torch.stream import accumulators as acc
+from repro_torch.stream import state as state_mod
 from repro_torch.utils.device import not_ported, resolve_device
 from repro_torch.utils.prng import fold_in_str
 
 Source = Callable[[int, int, int], Any]  # (seed, step, shard) -> (b, p) array
+
+
+@dataclasses.dataclass
+class EngineTelemetry:
+    """Opt-in per-step observability for :meth:`StreamEngine.run`.
+
+    Observe-only: the instrumented loop folds state bit-identical to an
+    uninstrumented one, on the CPU and on the card — telemetry reads timings,
+    shapes and already-computed signals, never the stream, and adds no
+    device synchronisation to the step. Per step it records into
+    ``registry`` (the same names as the reference's ``EngineTelemetry``):
+
+    - counters ``engine.steps`` / ``engine.rows`` / ``engine.checkpoints``
+      (+ ``engine.reassigned`` when the K-means config tracks reassignments);
+    - histograms ``engine.step_seconds`` / ``engine.source_seconds`` /
+      ``engine.update_seconds`` / ``engine.checkpoint_seconds`` — host wall
+      time of the whole step, the batch generation and its copy to the
+      device, the update (on the card: the time to enqueue its kernels,
+      unless something in the step waits), and checkpoint writes; the spans
+      ``engine.source`` / ``engine.update`` / ``engine.checkpoint`` carry the
+      same intervals, and inside the update ``record_function("obs.sketch")``
+      and ``("obs.fold")`` name each shard's sketch and fold in a
+      ``torch.profiler`` capture;
+    - gauges ``engine.rows_per_sec`` (cumulative over this run) and
+      ``engine.state_bytes`` (the accumulators' bytes — constant in stream
+      length by construction, so a drift here is a leak).
+
+    ``step_logger``/``log_every`` add a structured JSONL record per logged
+    step (step, rows, rows/sec, phase seconds, reassign fraction, state
+    bytes, checkpoint timestamps); ``on_step`` receives the same record dict.
+    """
+
+    registry: obs.MetricsRegistry | None = None
+    step_logger: obs.StepLogger | None = None
+    log_every: int = 1
+    on_step: Callable[[dict], None] | None = None
+
+    def _reg(self) -> obs.MetricsRegistry:
+        return self.registry if self.registry is not None else obs.default_registry()
+
+    def emit(self, record: dict) -> None:
+        if self.step_logger is not None and record["step"] % self.log_every == 0:
+            self.step_logger.log(**record)
+        if self.on_step is not None:
+            self.on_step(record)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -284,8 +333,10 @@ class StreamEngine:
         the new centers (K4) and compared with their pre-update labels."""
         deltas, pairs = None, []
         for shard in range(self.n_shards):
-            s = self._sketch_local(x[shard], step, shard)
-            d, a0 = self._deltas(state, s)
+            with record_function("obs.sketch"):
+                s = self._sketch_local(x[shard], step, shard)
+            with record_function("obs.fold"):
+                d, a0 = self._deltas(state, s)
             deltas = d if deltas is None else self._add(deltas, d)
             if self._track:
                 pairs.append((s, a0))
@@ -300,7 +351,7 @@ class StreamEngine:
     def run(self, steps: int, seed: int | None = None,
             state: EngineState | None = None, *, start_step: int = 0,
             checkpoint_dir: str | None = None, checkpoint_every: int = 0,
-            telemetry=None) -> StreamResult:
+            telemetry: EngineTelemetry | None = None) -> StreamResult:
         """Fold global batches ``start_step .. steps-1`` from the source.
 
         ``seed`` is forwarded to the source (None = the source's own default);
@@ -309,24 +360,74 @@ class StreamEngine:
         reference with ``stream.state.engine_from_arrays``) continues an
         earlier run bit for bit. ``checkpoint_every=t`` writes the state to
         ``checkpoint_dir`` every t folded steps (:meth:`save_state`).
-        ``telemetry=`` is not ported yet (raises).
+        ``telemetry=`` opts into per-step observability
+        (:class:`EngineTelemetry`); the fold stays bit-identical.
         """
         if checkpoint_every and not checkpoint_dir:
             raise ValueError("checkpoint_every needs checkpoint_dir=")
-        if telemetry is not None:
-            raise not_ported("run(telemetry=...)", "Observability")
         if state is None:
             if start_step != 0:
                 raise ValueError("start_step > 0 needs the state that was "
                                  "current at that step (restore_state)")
             state = self.init_state(seed)
         history: list[torch.Tensor] = []
+        tel = telemetry
+        # without telemetry the spans still annotate the profiler, and their
+        # metrics are the shared no-ops
+        reg = tel._reg() if tel is not None else obs.NULL_REGISTRY
+        c_steps, c_rows = reg.counter("engine.steps"), reg.counter("engine.rows")
+        h_step = reg.histogram("engine.step_seconds")
+        h_source = reg.histogram("engine.source_seconds")
+        h_update = reg.histogram("engine.update_seconds")
+        g_rate = reg.gauge("engine.rows_per_sec")
+        g_bytes = reg.gauge("engine.state_bytes")
+        rows_run, run_t0 = 0, time.perf_counter()
         for step in range(start_step, steps):
-            state = self.update(state, self.host_global_batch(seed, step), step)
+            t0 = time.perf_counter()
+            with obs.span("engine.source", reg):
+                x = self.host_global_batch(seed, step)
+            t1 = time.perf_counter()
+            with obs.span("engine.update", reg):
+                state = self.update(state, x, step)
+            t2 = time.perf_counter()
             if self._track:
                 history.append(state.reassign[1])
+            ckpt_s = None
             if checkpoint_every and (step + 1 - start_step) % checkpoint_every == 0:
-                self.save_state(checkpoint_dir, step + 1, state, seed=seed)
+                t3 = time.perf_counter()
+                with obs.span("engine.checkpoint", reg):
+                    self.save_state(checkpoint_dir, step + 1, state, seed=seed)
+                ckpt_s = time.perf_counter() - t3
+                reg.counter("engine.checkpoints").inc()
+                reg.histogram("engine.checkpoint_seconds").observe(ckpt_s)
+            if tel is not None:
+                rows_step = int(x.shape[0]) * int(x.shape[1])
+                rows_run += rows_step
+                elapsed = time.perf_counter() - run_t0
+                state_bytes = state_mod.state_nbytes(state)
+                c_steps.inc()
+                c_rows.inc(rows_step)
+                h_step.observe(t2 - t0)
+                h_source.observe(t1 - t0)
+                h_update.observe(t2 - t1)
+                g_rate.set(rows_run / max(elapsed, 1e-9))
+                g_bytes.set(state_bytes)
+                record = {"step": step, "rows": rows_step, "rows_total": rows_run,
+                          "rows_per_sec": round(rows_run / max(elapsed, 1e-9), 1),
+                          "source_s": round(t1 - t0, 6),
+                          "update_s": round(t2 - t1, 6),
+                          "state_bytes": state_bytes}
+                if ckpt_s is not None:
+                    record["checkpoint_s"] = round(ckpt_s, 6)
+                    record["checkpoint_step"] = step + 1
+                if self._track and history:
+                    # reads the step's (r,) counts back: the one wait telemetry
+                    # adds, after the step's spans have closed
+                    re_last = history[-1].cpu().numpy()
+                    reg.counter("engine.reassigned").inc(int(re_last.sum()))
+                    record["reassign_frac"] = round(
+                        float(re_last.mean()) / max(rows_step, 1), 6)
+                tel.emit(record)
         self.state = state
         result = self.finalize(state)
         if history:
@@ -354,8 +455,6 @@ class StreamEngine:
         """Checkpoint ``state`` (default: the engine's current one) as step
         ``step`` — the number of steps already folded, the step a restored run
         resumes at — in the reference's layout (``stream.state.save_engine``)."""
-        from repro_torch.stream import state as state_mod
-
         state = state if state is not None else self.state
         if state is None:
             raise RuntimeError("no state to checkpoint — run() first or pass state=")
@@ -366,8 +465,6 @@ class StreamEngine:
         """(state on this engine's device, next_step) from the latest
         checkpoint under ``ckpt_dir`` (either package's) — for
         ``run(steps, state=state, start_step=next_step)`` or ``replay(state=)``."""
-        from repro_torch.stream import state as state_mod
-
         state, next_step, extra = state_mod.load_engine(ckpt_dir, device=self.device)
         p_pad = extra.get("p_pad")
         if p_pad is not None and int(p_pad) != int(self.spec.p_pad):

@@ -110,6 +110,24 @@ def merge(a, b):
     return ka.merge(a, b)
 
 
+def state_nbytes(tree) -> int:
+    """Bytes of every array in ``tree`` — dataclasses (a state, SparseRows),
+    tuples, lists and dicts of tensors or numpy arrays; other leaves count 0.
+    The reference's sum of ``leaf.nbytes`` over ``jax.tree_util.tree_leaves``
+    for the same state."""
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(state_nbytes(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    if isinstance(tree, (list, tuple)):
+        return sum(state_nbytes(v) for v in tree)
+    if isinstance(tree, dict):
+        return sum(state_nbytes(v) for v in tree.values())
+    return 0
+
+
 # ------------------------------------------------------------ serialization --
 
 

@@ -29,7 +29,8 @@ _SAVE_LOCK = threading.Lock()
 _PENDING: list[threading.Thread] = []
 
 
-def _host(v) -> np.ndarray:
+def to_host(v) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
     if torch.is_tensor(v):
         return v.detach().cpu().numpy()
     return np.asarray(v)
@@ -39,7 +40,7 @@ def save_arrays(ckpt_dir: str, step: int, arrays: dict, extra: dict | None = Non
                 async_: bool = False, keep_last: int = 3) -> None:
     """Snapshot a flat ``{name: array}`` dict (numpy arrays or tensors, copied
     to the host before this returns) with JSON ``extra`` as step ``step``."""
-    arrays = {k: _host(v) for k, v in arrays.items()}
+    arrays = {k: to_host(v) for k, v in arrays.items()}
     meta = {
         "step": step,
         "treedef": None,

@@ -593,3 +593,75 @@ def test_power_pass_matches_plain(dev):
     q1_cpu = refine.power_orth(want, q, 3277)
     assert q1.is_contiguous() and q1.dtype == torch.float32
     assert refine.subspace_change(q1.cpu(), q1_cpu) <= 1e-4
+
+
+_FIRST_LAUNCHES = r'''
+import sys, tempfile, threading
+from pathlib import Path
+import torch
+from repro_torch import obs
+from repro_torch.kernels import _build, ops, ref
+
+_build.BUILD_DIR = Path(tempfile.mkdtemp())       # nothing built: the threads race to build
+reg = obs.MetricsRegistry()
+obs.set_default_registry(reg)
+dev = torch.device("cuda")
+n, p, m, threads = 512, 16384, 819, 4
+start, errors = threading.Barrier(threads), []
+
+def work(seed):
+    try:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((n, p), generator=g, device=dev)
+        s = torch.where(torch.rand(p, generator=g, device=dev) < 0.5, -1.0, 1.0)
+        idx = torch.sort(torch.rand((n, p), generator=g, device=dev).argsort(1)[:, :m], 1)
+        idx = idx.values.to(torch.int32).contiguous()
+        c = torch.randn((3, 10, p), generator=g, device=dev)
+        t = torch.randn((n, 30), generator=g, device=dev)
+        start.wait()
+        v = ops.sketch_fused(x, s, idx)
+        d, a = ops.sparse_assign(v, idx, c)
+        y = ops.spmm_t(v, idx, t, p)
+        torch.cuda.synchronize()
+        assert torch.equal(v, ref.ref_sketch_fused(x, s, idx)), "K1"
+        dr, _ = ref.ref_sparse_assign(v, idx, c)
+        assert (d - dr).abs().max().item() <= 1e-5 * dr.abs().max().item(), "K4"
+        yr = ref.ref_spmm_t(v, idx, t, p)
+        assert (y - yr).abs().max().item() <= 1e-5 * yr.abs().max().item(), "K6"
+    except Exception as e:  # noqa: BLE001 - reported below
+        errors.append(repr(e))
+
+ts = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+for t_ in ts:
+    t_.start()
+for t_ in ts:
+    t_.join(timeout=600)
+assert not any(t_.is_alive() for t_ in ts), "a thread hung"
+assert not errors, errors
+counts = ops.launch_counts()
+for name in ("sketch_fused", "sparse_assign", "spmm_t", "transpose_columns"):
+    assert counts[name] == threads, (name, counts)
+for op in ("sketch_fused", "sparse_assign", "spmm_t"):
+    assert ops.DISPATCH[(op, "kernel")] == threads, ops.DISPATCH
+    assert reg.counter("kernels.dispatch", op=op, path="kernel").value == threads
+assert sorted(q.name for q in _build.BUILD_DIR.glob("*.so")) == sorted(
+    _build._target(nm).name for nm in _build.SIGNATURES), "one library a source"
+print("ok")
+'''
+
+
+def test_first_launches_from_threads_at_once(dev):
+    """A fresh process whose four threads make their first launches of K1,
+    K4 and K6 at once, with nothing built: one nvcc a source (the build lock),
+    each result against its plain version (K1 bit-equal, K4 and K6 within
+    1e-5 of the largest output), and the launch counts, the dispatch tally
+    and the registry's ``kernels.dispatch`` series adding up to 4 each."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCHES], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=900)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr

@@ -14,9 +14,9 @@ import repro.api as japi
 from repro.data.pipeline import VectorStreamSource as JSource
 from repro.stream import StreamKMeansConfig as JKMeans
 from repro.stream import state as jstate
-from repro_torch import api
+from repro_torch import api, obs
 from repro_torch.data.pipeline import VectorStreamSource
-from repro_torch.stream import StreamKMeansConfig
+from repro_torch.stream import EngineTelemetry, StreamKMeansConfig
 from repro_torch.stream import state as tstate
 from repro_torch.utils import prng
 
@@ -95,9 +95,9 @@ def test_launcher_runs_on_cpu():
 
 
 def test_options_not_ported_raise(tmp_path):
-    """The sharded backend and telemetry raise naming their ROADMAP item; the
-    options this slice ported (refine_passes, reassignment tracking,
-    checkpoints, run_scanned, replay) run."""
+    """The sharded backend raises naming its ROADMAP item; the options the
+    port has (refine_passes, reassignment tracking, checkpoints, run_scanned,
+    replay, telemetry) run."""
     src = VectorStreamSource(p=64, batch=8)
     plan = api.Plan(backend="stream", gamma=0.25, batch_size=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -120,8 +120,9 @@ def test_options_not_ported_raise(tmp_path):
     xs = np.stack([[src.batch_at(t)] for t in range(2)])
     assert torch.equal(eng.run_scanned(xs).cov, eng.run(2).cov)
     assert eng.replay(2).refine_passes == 1
-    with pytest.raises(NotImplementedError, match="Observability"):
-        eng.run(1, telemetry=object())
+    reg = obs.MetricsRegistry()
+    eng.run(1, telemetry=EngineTelemetry(registry=reg))
+    assert reg.counter("engine.steps").value == 1
     with pytest.raises(ValueError):
         api.Plan(backend="stream", gamma=0.1, impl="interpret")
 
