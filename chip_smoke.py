@@ -124,8 +124,30 @@ Phases, in order; any failure exits non-zero:
               --supervise --crash-after against an uninterrupted run, their
               --out files equal.
 
+12. sharded — the paper's distributed setting at phase 5's width:
+              Plan(backend="sharded", n_shards=2, batch_size=2048), p = 16384,
+              γ = 0.05, 8 steps with streaming K-means (K = 10, r = 3,
+              reassignments tracked). (a) one process in a one-rank NCCL
+              group: the engine against backend="stream" (mean and centers
+              within 1e-5, the covariance trace 1e-5 relative, count and
+              reassignments equal), a rerun bit-identical, the obs.psum spans
+              and NCCL in a torch.profiler capture, K1, K4 and K6 at the
+              step's shapes against their plain versions, the all-reduce of
+              a step's delta timed with its bytes, rows/s and peak memory;
+              (c) continue_elastic from 2 workers to 1 bit-equal to the
+              uninterrupted run, the sharded low-rank path at p = 65536,
+              l = 128, 4 steps, within 1e-5 of max |value| of the stream
+              engine's RangeState (the cluster sketch, K5, K6 held against
+              their plain versions), and fit_many([SparsifiedCov,
+              SparsifiedKMeans(10, minibatch)]) on phase 8's rows against
+              the stream backend; (b) python -m repro_torch.launch.cluster
+              with 2 processes on the one card over gloo: equal to (a), each
+              rank launching K1, K4 and K6, cluster.hosts == 2 from
+              --log-every, the all-reduce timed, a checkpoint after step 4
+              and --resume to step 8 bit-equal to the uninterrupted run.
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
-or 7; launches_by_phase: that count and phase 9's, 10's and 11's paths' own),
+or 7; launches_by_phase: that count and phase 9's, 10's, 11's and 12's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -178,6 +200,9 @@ GROUP_ROWS, HTTP_ROWS, TEL_STEPS, QUERY_ROUNDS, TIMEOUT_S = 4 * BATCH, 256, 4, 2
 # the serving path at p = 16384: K1, K2 (the finalize's unmix), K4, K5, K6
 PATH11 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm", "spmm_t",
           "transpose_columns")
+# phase 12: rows a shard a step and steps of the dense sharded stream; the
+# low-rank sharded path's rows a shard and steps
+B12, STEPS12, B12_LR, STEPS12_LR = 2048, 8, 1024, 4
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -705,6 +730,281 @@ def phase11_serve(card: str) -> dict[str, int]:
           f"{(torch.cuda.max_memory_allocated() - base11) / 2**30:.2f} GiB above the "
           f"{base11 / 2**30:.2f} GiB that earlier phases still held; {card}")
     return launches11
+
+
+def phase12_sharded(card: str, x8) -> dict[str, int]:
+    """Phase 12 (module docstring): the sharded backend on the card. Returns
+    the kernels' launches on its paths (12(a)'s sharded engine run and
+    12(c)'s low-rank sharded run), each read just after its reset."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api, cluster
+    from repro_torch.core import sketch as sketch_mod
+    from repro_torch.data.pipeline import VectorStreamSource
+    from repro_torch.kernels import ops, ref
+    from repro_torch.stream import StreamKMeansConfig
+    from repro_torch.stream.sharded import psum, psum_bytes
+
+    dev = torch.device("cuda")
+    t12 = time.perf_counter()
+    plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=B12, n_shards=2)
+    km = StreamKMeansConfig(k=K, n_init=N_INIT, track_reassignments=True)
+    src = _Memo(VectorStreamSource(p=P, batch=B12, seed=0))
+    rows12 = STEPS12 * 2 * B12
+    print(f"== 12 sharded: Plan(backend='sharded', n_shards=2, batch_size={B12}), p={P}, "
+          f"gamma={GAMMA}, {STEPS12} steps, K-means K={K}, r={N_INIT} with reassignments", flush=True)
+    torch.cuda.empty_cache()
+    base12 = torch.cuda.memory_allocated()
+
+    # (a) one process in a one-rank NCCL group
+    cluster.initialize(num_processes=1, backend="nccl", device="cuda")
+    import torch.distributed as dist
+    check(dist.get_backend() == "nccl" and cluster.process_count() == 1,
+          "sharded: the one-rank NCCL group did not come up")
+    t0 = time.perf_counter()
+    psum(torch.ones(4, device=dev), cluster.process_mesh(2))     # NCCL's communicator
+    torch.cuda.synchronize()
+    t_comm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for step in range(STEPS12):
+        for shard in range(2):
+            src.batch_at(step, shard)
+    t_src = time.perf_counter() - t0
+    stream = api.make_engine(plan, P, 1, src, kmeans=km)
+    res_s = stream.run(STEPS12)
+    torch.cuda.synchronize()
+
+    def sharded_run():
+        eng = api.make_engine(plan.replace(backend="sharded"), P, 1, src, kmeans=km)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(STEPS12)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return eng, res, ops.launch_counts(), dt, torch.cuda.max_memory_allocated()
+
+    eng_a, res_a, launches_a, t_a, peak_a = sharded_run()
+    check(eng_a.mesh.collective and eng_a._local == [0, 1], f"sharded: mesh {eng_a.mesh}")
+    print(f"  (a) one process, NCCL group of world size 1 (its communicator set up in "
+          f"{t_comm:.2f} s): {STEPS12} steps in {t_a:.2f} s ({rows12 / t_a:,.0f} rows/s at 1 rank, "
+          f"the batches generated beforehand in {t_src:.1f} s), peak memory "
+          f"{(peak_a - base12) / 2**30:.3f} GiB above the {base12 / 2**30:.2f} GiB earlier phases "
+          f"hold; {card}")
+    for name in ("sketch_fused", "hd_precondition", "sparse_assign", "spmm_t"):
+        check(launches_a[name] > 0, f"sharded: {name} did not launch on the sharded run: {launches_a}")
+    tr = lambda r: float(r.cov.double().trace())   # noqa: E731
+    d_mean = (res_a.mean - res_s.mean).abs().max().item()
+    d_cent = (res_a.centers - res_s.centers).abs().max().item()
+    d_tr = abs(tr(res_a) - tr(res_s)) / abs(tr(res_s))
+    same_a = same_bits(eng_a.state, stream.state)
+    print(f"    against backend='stream': mean {d_mean:.3g}, centers {d_cent:.3g} (≤ 1e-5), cov "
+          f"trace {d_tr:.3g} relative (≤ 1e-5), count {int(res_a.count)} = {int(res_s.count)}, "
+          f"reassignments {res_a.reassign_total.tolist()} = {res_s.reassign_total.tolist()}; "
+          f"fields not bit-equal to stream: {same_a}")
+    check(d_mean <= 1e-5 and d_cent <= 1e-5 and d_tr <= 1e-5, "sharded: (a) off the stream run")
+    check(int(res_a.count) == int(res_s.count) == rows12, "sharded: (a) count")
+    check(np.array_equal(res_a.reassign_counts, res_s.reassign_counts), "sharded: (a) reassignments")
+    eng_b, res_b, _, t_b, _ = sharded_run()
+    rerun = same_bits(eng_a.state, eng_b.state)
+    print(f"    a second sharded run: {t_b:.2f} s, fields that differ in any bit {rerun}")
+    check(not rerun, f"sharded: a rerun is not bit-equal: {rerun}")
+    # one more step of the second engine under the profiler: its spans and NCCL
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng_b.update(eng_b.state, eng_b.host_global_batch(None, 0), 0)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    nccl_dev = sorted({e.key for e in events if e.device_type == DeviceType.CUDA
+                       and "nccl" in e.key.lower()})
+    nccl_host = sorted({e.key for e in events if e.device_type == DeviceType.CPU
+                        and "nccl" in e.key.lower()})
+    psum_spans = sum(e.count for e in events if e.key == "obs.psum"
+                     and e.device_type == DeviceType.CPU)
+    print(f"    one step under torch.profiler: obs.psum spans {psum_spans}; NCCL on the host "
+          f"{nccl_host}; NCCL kernels on the device {nccl_dev} (NCCL leaves a one-rank in-place "
+          f"sum to the buffer it is given)")
+    check(psum_spans == 2, f"sharded: {psum_spans} obs.psum spans in one tracked step")
+    check(bool(nccl_host), "sharded: the profiler saw no NCCL all-reduce call")
+    del eng_b, res_b, stream, prof, events
+
+    # the all-reduce of one step's delta: (p, p) + (p,) floats and the K-means
+    # sums, counts, objective and rows; the kernels of the path held against
+    # their plain versions on the step's first shard
+    x0 = torch.from_numpy(src.batch_at(0, 0)).to(dev)
+    spec = eng_a.spec
+    bk = sketch_mod.batch_key(spec, 0, 0)
+    s_k = sketch_mod.sketch(x0, spec, batch_key=bk)
+    s_r = sketch_mod.sketch(x0, spec, batch_key=bk, impl="ref")
+    err_k1 = (s_k.values - s_r.values).abs().max().item()
+    centers = eng_a.state.kmeans.centers
+    d_k, a_k = ops.sparse_assign(s_k.values, s_k.indices, centers, mode="kernel")
+    d_r, a_r = ops.sparse_assign(s_k.values, s_k.indices, centers, mode="ref")
+    err_k4 = ((d_k - d_r).abs() / d_r.abs().clamp(min=1.0)).max().item()
+    top2 = torch.topk(d_r, 2, dim=2, largest=False).values
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 0].abs().clamp(min=1.0)
+    sums_k, cnts_k = ops.cluster_sums(s_k.values, s_k.indices, a_k, K, P, mode="kernel")
+    sums_r, cnts_r = ops.cluster_sums(s_k.values, s_k.indices, a_k, K, P, mode="ref")
+    err_k6 = (sums_k - sums_r).abs().max().item() / max(sums_r.abs().max().item(), 1e-30)
+    print(f"    held against their plain versions at ({B12}, {P}), m={spec.m}, r={N_INIT}, K={K}: "
+          f"K1 {err_k1:.3g} (bit-equal), K4 distances {err_k4:.3g} relative (≤ 1e-5, labels "
+          f"equal where the top two differ), K6 sums {err_k6:.3g} of max (≤ 1e-5), counts equal")
+    check(err_k1 == 0.0, "sharded: K1 off its plain version")
+    check(err_k4 <= 1e-5 and torch.equal(a_k[clear], a_r[clear]), "sharded: K4 off its plain version")
+    check(err_k6 <= 1e-5 and torch.equal(cnts_k, cnts_r), "sharded: K6 off its plain version")
+    delta, _ = eng_a._deltas(eng_a.state, s_k)
+    nbytes = psum_bytes(delta)
+    ar_ms = time_ms(lambda: psum(delta, eng_a.mesh), 5)
+    print(f"    all-reduce of a step's delta: {nbytes:,} bytes ((p, p) + (p,) floats "
+          f"{4 * (P * P + P):,}, the K-means sums, counts as 2 limbs, objective, rows), "
+          f"{ar_ms:.3f} ms a step by CUDA events over NCCL at world size 1; {card}")
+    del delta, s_k, s_r, d_k, d_r, sums_k, sums_r, x0
+
+    # (c) continue_elastic from 2 workers to 1, against (a)'s run
+    eng_e = api.make_engine(plan.replace(backend="sharded"), P, 1, src, kmeans=km)
+    eng_e.run(STEPS12 // 2)
+    cluster.continue_elastic(eng_e, STEPS12, state=eng_e.state, start_step=STEPS12 // 2,
+                             n_workers=1)
+    elastic = [f for f in same_bits(eng_e.state, eng_a.state) if not f.startswith("reassign")]
+    print(f"  (c) continue_elastic 2 → 1 workers after {STEPS12 // 2} steps: fields not bit-equal "
+          f"to the uninterrupted run {elastic}")
+    check(not elastic, f"sharded: the elastic continuation differs: {elastic}")
+    ref_a = {"mean": res_a.mean.cpu().numpy(), "centers": res_a.centers.cpu().numpy(),
+             "trace": tr(res_a), "diag": res_a.cov.diagonal().cpu().numpy(),
+             "count": int(res_a.count), "reassign": res_a.reassign_total.copy()}
+    del eng_a, res_a, res_s, eng_e
+    src.cache.clear()
+    torch.cuda.empty_cache()
+
+    # (c) the sharded low-rank path at p = 65536, l = 128, 4 steps, at one rank
+    lr_plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=B12_LR, n_shards=2,
+                       cov_path="lowrank", rank=ELL)
+    src_lr = _Memo(VectorStreamSource(p=P_LR, batch=B12_LR, seed=0))
+    st_lr = api.make_engine(lr_plan, P_LR, 1, src_lr)
+    st_lr.run(STEPS12_LR)
+    eng_lr = api.make_engine(lr_plan.replace(backend="sharded"), P_LR, 1, src_lr)
+    ops.reset_counts()
+    res_lr = eng_lr.run(STEPS12_LR)
+    comps, _ = res_lr.cov_lowrank.top(PCA_K)
+    sketch_mod.unmix_dense(comps, eng_lr.spec)
+    torch.cuda.synchronize()
+    launches_c = ops.launch_counts()
+    errs = {f: (getattr(eng_lr.state.lowrank, f) - getattr(st_lr.state.lowrank, f)).abs().max().item()
+            / max(getattr(st_lr.state.lowrank, f).abs().max().item(), 1e-30)
+            for f in ("y", "diag", "sum_w")}
+    print(f"  (c) low-rank, p={P_LR}, l={ELL}, {STEPS12_LR} steps of 2 × {B12_LR} rows: RangeState "
+          f"against the stream engine's, of max |value|: {errs} (≤ 1e-5); launches {launches_c}")
+    check(all(v <= 1e-5 for v in errs.values()), f"sharded: the low-rank state is off: {errs}")
+    check(int(eng_lr.state.lowrank.count) == int(st_lr.state.lowrank.count), "sharded: low-rank count")
+    for name in ("sketch_fused_cluster", "hd_precondition_chunked", "spmm", "spmm_t"):
+        check(launches_c[name] > 0, f"sharded: {name} did not launch on the low-rank run")
+    x_lr = torch.from_numpy(src_lr.batch_at(0, 0)).to(dev)
+    bk = sketch_mod.batch_key(eng_lr.spec, 0, 0)
+    s_k = sketch_mod.sketch(x_lr, eng_lr.spec, batch_key=bk)
+    s_r = sketch_mod.sketch(x_lr, eng_lr.spec, batch_key=bk, impl="ref")
+    err_c = (s_k.values - s_r.values).abs().max().item()
+    om = eng_lr._omega
+    t_k, t_r = ops.spmm(s_k.values, s_k.indices, om, mode="kernel"), ops.spmm(s_k.values, s_k.indices, om, mode="ref")
+    y_k, y_r = (ops.spmm_t(s_k.values, s_k.indices, t_r, P_LR, mode=m_) for m_ in ("kernel", "ref"))
+    err_k5 = (t_k - t_r).abs().max().item() / t_r.abs().max().item()
+    err_y = (y_k - y_r).abs().max().item() / y_r.abs().max().item()
+    print(f"    held against their plain versions at ({B12_LR}, {P_LR}), m={eng_lr.spec.m}, l={ELL}: "
+          f"the cluster sketch {err_c:.3g} (bit-equal), K5 {err_k5:.3g}, K6 {err_y:.3g} of max (≤ 1e-5)")
+    check(err_c == 0.0 and err_k5 <= 1e-5 and err_y <= 1e-5, "sharded: a low-rank kernel is off")
+    del st_lr, eng_lr, res_lr, comps, x_lr, s_k, s_r, t_k, t_r, y_k, y_r, src_lr
+    torch.cuda.empty_cache()
+
+    # (c) fit_many on phase 8's rows, sharded against stream
+    plan8 = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, n_shards=2)
+    fits = {}
+    for backend in ("stream", "sharded"):
+        pl = plan8.replace(backend=backend)
+        cons = [api.SparsifiedCov(pl, key=1), api.SparsifiedKMeans(K, pl, key=1, algorithm="minibatch")]
+        t0 = time.perf_counter()
+        api.fit_many(pl, cons, x8)
+        torch.cuda.synchronize()
+        fits[backend] = (cons, time.perf_counter() - t0)
+    (cs, ks), t_st = fits["stream"]
+    (ch, kh), t_sh = fits["sharded"]
+    d_cov = ((ch.cov_.double().trace() - cs.cov_.double().trace()).abs() / cs.cov_.double().trace().abs()).item()
+    d_mean = (ch.mean_ - cs.mean_).abs().max().item()
+    d_cent = (kh.centers_ - ks.centers_).abs().max().item()
+    print(f"  (c) fit_many([SparsifiedCov, SparsifiedKMeans({K}, minibatch)]) on phase 8's {x8.shape[0]:,} "
+          f"rows, n_shards=2: sharded {t_sh:.2f} s, stream {t_st:.2f} s; mean {d_mean:.3g}, centers "
+          f"{d_cent:.3g} (≤ 1e-5), cov trace {d_cov:.3g} relative (≤ 1e-5), counts {ch.count_} = "
+          f"{cs.count_}, reassignments equal {np.array_equal(kh.reassign_counts_, ks.reassign_counts_)}")
+    check(d_mean <= 1e-5 and d_cent <= 1e-5 and d_cov <= 1e-5 and ch.count_ == cs.count_,
+          "sharded: fit_many off the stream backend")
+    check(np.array_equal(kh.reassign_counts_, ks.reassign_counts_), "sharded: fit_many reassignments")
+    del fits, cs, ks, ch, kh
+    torch.cuda.empty_cache()
+    cluster.shutdown()
+
+    # (b) two processes on the one card over gloo, through the launcher
+    tmp = tempfile.mkdtemp(prefix="sharded12-")
+    try:
+        base = [sys.executable, "-m", "repro_torch.launch.cluster", "--nproc", "2", "--device", "cuda",
+                "--dist-backend", "gloo", "--p", str(P), "--gamma", str(GAMMA), "--batch", str(B12),
+                "--shards", "2", "--kmeans-k", str(K), "--track-reassignments"]
+        env = dict(os.environ, PYTHONPATH=SRC)
+
+        def launch(*runs):
+            """Launcher runs side by side (4 ranks share the card); their
+            stdouts and the wall time."""
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(base + list(extra), stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+                     for extra in runs]
+            outs = [p.communicate(timeout=600) for p in procs]
+            for p, (o, e) in zip(procs, outs):
+                check(p.returncode == 0, f"sharded: the launcher exited {p.returncode}:\n"
+                                         f"{o[-2000:]}\n{e[-3000:]}")
+            return [o for o, _ in outs], time.perf_counter() - t0
+
+        ck = os.path.join(tmp, "ck")
+        (out_full, _), t_first = launch(
+            ["--steps", str(STEPS12), "--out", os.path.join(tmp, "full.npz"), "--log-every",
+             str(STEPS12 // 2), "--time-allreduce", "2"],
+            ["--steps", str(STEPS12 // 2), "--ckpt-dir", ck, "--ckpt-every", str(STEPS12 // 2)])
+        _, t_res = launch(["--steps", str(STEPS12), "--ckpt-dir", ck, "--resume",
+                           "--out", os.path.join(tmp, "resumed.npz")])
+        for line in out_full.splitlines():
+            if line.startswith(("dist backend", "rank ", "allreduce", "total rows", "heartbeat")):
+                print(f"    {line}; {card}")
+        check("dist backend: gloo, world 2, device cuda" in out_full, "sharded: (b) not 2 gloo ranks")
+        check("heartbeat: hosts=2" in out_full, "sharded: (b) --log-every did not show cluster.hosts == 2")
+        for rank in (0, 1):
+            line = next(l for l in out_full.splitlines() if l.startswith(f"rank {rank}:"))
+            counts = json.loads(line.split("launches ", 1)[1])
+            for name in ("sketch_fused", "sparse_assign", "spmm_t"):
+                check(counts[name] > 0, f"sharded: {name} did not launch on rank {rank}")
+        full = np.load(os.path.join(tmp, "full.npz"))
+        resumed = np.load(os.path.join(tmp, "resumed.npz"))
+        d_mean = float(np.abs(full["mean"] - ref_a["mean"]).max())
+        d_cent = float(np.abs(full["centers"] - ref_a["centers"]).max())
+        d_tr = abs(float(full["cov_trace"]) - ref_a["trace"]) / abs(ref_a["trace"])
+        diag_same = np.array_equal(full["cov_diag"], ref_a["diag"])
+        diff = [k for k in ("mean", "centers", "cov_diag", "cov_sha256", "count", "reassign_total")
+                if not np.array_equal(full[k], resumed[k])]
+        print(f"  (b) two processes on one card over gloo, the uninterrupted run and {STEPS12 // 2} "
+              f"steps + checkpoint side by side {t_first:.1f} s, --resume to {STEPS12} {t_res:.1f} s "
+              f"(process start and the source included); against (a): mean {d_mean:.3g}, centers "
+              f"{d_cent:.3g}, cov trace {d_tr:.3g} relative, its diagonal bit-equal {diag_same}, "
+              f"count {int(full['count'])}, reassignments {full['reassign_total'].tolist()}; fields "
+              f"of the resumed run not bit-equal to the uninterrupted one {diff}; {card}")
+        check(d_mean <= 1e-5 and d_cent <= 1e-5 and d_tr <= 1e-5, "sharded: (b) off (a)")
+        check(int(full["count"]) == ref_a["count"] and np.array_equal(full["reassign_total"], ref_a["reassign"]),
+              "sharded: (b) count or reassignments differ from (a)")
+        check(not diff, f"sharded: the resumed two-process run differs: {diff}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches12 = {name: launches_a.get(name, 0) + launches_c.get(name, 0)
+                  for name in set(launches_a) | set(launches_c)}
+    print(f"  launches in phase 12: {launches12}")
+    print(f"  phase 12: {time.perf_counter() - t12:.1f} s; {card}")
+    return launches12
 
 
 def main() -> None:
@@ -2136,7 +2436,7 @@ def main() -> None:
           "FD breaks its deterministic bound 0 ≼ S − BᵀB ≼ ‖W‖²/l")
     check(all(launches_fd[name] > 0 for name in PATH_FD),
           f"a kernel of the FD path never launched: {launches_fd}")
-    del fd, x_fd, b_fd, gap, x8, st_cpu, b64
+    del fd, x_fd, b_fd, gap, st_cpu, b64      # x8 stays for phase 12
     torch.cuda.synchronize()
     launches10 = {name: launches10_refine[name] + launches10_replay[name] + launches_fd[name]
                   for name in launches_fd}
@@ -2146,6 +2446,10 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 11 serve
     launches11 = phase11_serve(card)
+
+    # -------------------------------------------------------------- 12 sharded
+    launches12 = phase12_sharded(card, x8)
+    del x8
 
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
@@ -2165,7 +2469,7 @@ def main() -> None:
     # each read just after its reset
     later = {"9 resume": launches9, "10 refine": launches10_refine,
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
-             "11 serve": launches11}
+             "11 serve": launches11, "12 sharded": launches12}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],

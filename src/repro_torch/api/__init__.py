@@ -1,6 +1,7 @@
 """repro_torch.api — one front door over the compression pipeline.
 
-A :class:`Plan` picks how a sketch job runs (``backend="batch" | "stream"``,
+A :class:`Plan` picks how a sketch job runs (``backend="batch" | "stream" |
+"sharded"``,
 kernel ``impl``, batch geometry); the estimator classes —
 :class:`SparsifiedMean`, :class:`SparsifiedCov`, :class:`SparsifiedPCA`,
 :class:`SparsifiedKMeans` — share one ``SketchSpec``-derived key discipline
@@ -52,8 +53,12 @@ Alg. 2)::
                 cov_path="lowrank", rank=24)
     pca = SparsifiedPCA(8, plan, key=0).fit_refine(x, passes=2)
 
-``backend="sharded"`` and :class:`GradCompressor` are not ported yet: they
-raise ``NotImplementedError`` naming their ROADMAP item.
+``backend="sharded"`` folds over a mesh of processes
+(:mod:`repro_torch.cluster`): each process sketches and folds the shards it
+owns and one all-reduce of the fixed-size delta a step reduces them; in one
+process it owns every shard. ``python -m repro_torch.launch.cluster`` runs
+the engine over N processes. :class:`GradCompressor` is not ported yet: it
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -69,7 +74,6 @@ from repro_torch.api.estimators import (  # noqa: F401
 )
 from repro_torch.api.fused import SharedSketchRun, fit_many, restore_run  # noqa: F401
 from repro_torch.api.plan import BACKENDS, Plan  # noqa: F401
-from repro_torch.utils.device import not_ported
 
 
 def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
@@ -79,23 +83,21 @@ def make_engine(plan: Plan, p: int, key, source, *, track_cov: bool = True,
     The engine is the fused one-pass runner (moments or the low-rank
     range-finder state, + streaming K-means, over one sketch of each batch) on
     ``device`` (the card by default). Backend "stream" folds the shards one
-    after another.
+    after another; "sharded" folds this process's shards of
+    ``plan.resolve_mesh()`` and all-reduces each step's delta over it.
     """
     from repro_torch.stream import StreamEngine
 
-    if plan.backend == "sharded":
-        raise not_ported("Plan(backend='sharded')", "Sharded backend")
     if plan.backend == "batch":
         raise ValueError(
             'make_engine needs backend "stream" or "sharded", got \'batch\'; '
             "for in-memory data use the estimator classes directly")
-    if plan.mesh is not None:
-        raise not_ported("Plan(mesh=...)", "Sharded backend")
     if plan.cov_path == "lowrank" and plan.lowrank_method == "fd":
         raise ValueError(
             "the engine's low-rank path sums the linear range-finder delta; "
             "lowrank_method='fd' (order-dependent shrink) is estimator-layer "
             "only — use lowrank_method='range'")
+    mesh = plan.resolve_mesh() if plan.backend == "sharded" else None
     return StreamEngine(plan.spec(p, as_key(key)), source, n_shards=plan.n_shards,
-                        track_cov=track_cov, kmeans=kmeans, impl=plan.impl,
-                        cov_path=plan.cov_path, rank=plan.rank, device=device)
+                        mesh=mesh, axis=plan.axis, track_cov=track_cov, kmeans=kmeans,
+                        impl=plan.impl, cov_path=plan.cov_path, rank=plan.rank, device=device)

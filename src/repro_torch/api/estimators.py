@@ -13,9 +13,13 @@ the folds to its plan's backend —
 - ``batch``:  keep the (γ·dense) sketch, one-shot ``core.estimators``;
 - ``stream``: fold constant-memory accumulator deltas
               (``stream.accumulators``, or the low-rank range-finder state)
-              chunk by chunk.
+              chunk by chunk;
+- ``sharded``: keep one step's shard sketches, fold their deltas, reduce
+              them with one all-reduce of the fixed-size delta over the plan's
+              mesh (``stream.sharded``) and drop them. Under a multi-process
+              runtime each process sketches only the shards it owns.
 
-Both fold the same per-(step, shard) sketches, so results agree to float
+All fold the same per-(step, shard) sketches, so results agree to float
 summation order (1e-5). The same keys, masks and folds as the reference's
 ``repro.api`` estimators: a state exported by either package's
 ``state_arrays()`` loads into the other's estimator and continues.
@@ -25,8 +29,7 @@ moved there chunk by chunk. A fit checkpoints and restores (``checkpoint`` /
 ``restore``, the reference's on-disk layout, so either package continues the
 other's), and replays its pass to refine (``refine`` / ``fit_refine``: power
 iteration for the low-rank PCA, two-pass Alg. 2 for minibatch K-means;
-``repro_torch.refine``). ``backend="sharded"`` raises ``NotImplementedError``
-naming its item of ROADMAP.md's Queue 1.
+``repro_torch.refine``).
 
 Fitted attributes follow the sklearn trailing-underscore convention; estimates
 come back in the ORIGINAL domain (eigenvectors / means / centers unmixed by
@@ -42,6 +45,7 @@ import torch
 from repro_torch import lowrank as lowrank_mod
 from repro_torch import refine as refine_mod
 from repro_torch.api.plan import Plan
+from repro_torch.cluster import bootstrap
 from repro_torch.core import estimators as est
 from repro_torch.core import kmeans as km
 from repro_torch.core import pca as pca_mod
@@ -50,6 +54,7 @@ from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
 from repro_torch.kernels import ops
 from repro_torch.stream import accumulators as acc
+from repro_torch.stream import sharded as sharded_mod
 from repro_torch.stream import state as state_mod
 from repro_torch.train import checkpoint as checkpoint_mod
 from repro_torch.utils import prng
@@ -106,6 +111,21 @@ def _reduce_stream(r: "_MomentReducer"):
     return acc.moment_finalize_mean(st, r.spec.m), cov, st.count
 
 
+@_moment_backend("sharded")
+def _reduce_sharded(r: "_MomentReducer"):
+    r.flush_step()  # a trailing partial step still needs its all-reduce
+    return _reduce_stream(r)
+
+
+def _sharded_mesh(plan: Plan) -> bootstrap.Mesh:
+    """The mesh the sharded backend reduces over: ``plan.resolve_mesh()``;
+    under a multi-process runtime the process mesh (each process owns a
+    contiguous block of shard positions) whatever ``plan.mesh`` says."""
+    if bootstrap.is_multiprocess():
+        return bootstrap.process_mesh(plan.n_shards, plan.axis)
+    return plan.resolve_mesh()
+
+
 class _MomentReducer:
     """Backend-dispatched reduction of sketched batches to (mean, cov, count).
 
@@ -113,10 +133,13 @@ class _MomentReducer:
     through :data:`MOMENT_BACKENDS` for the Thm-4 / Thm-6 estimates. Only the
     "batch" backend (and Lloyd K-means, which passes ``keep_sketch=True``
     because Alg. 1 clusters the retained sketch) holds sketches past their
-    chunk; "stream" folds each into the constant-memory accumulator. With
-    ``cov_path="lowrank"`` the O(rank·p) range-finder state (or, with
-    ``lowrank_method="fd"``, the Frequent-Directions sketch, folded in (step,
-    shard) order) replaces the (p, p) accumulator on both backends.
+    chunk; "stream" folds each into the constant-memory accumulator;
+    "sharded" keeps ONE step's shard sketches, folds their deltas, reduces
+    them with one all-reduce of the fixed-size delta and drops them, so host
+    memory stays constant in the stream length. With ``cov_path="lowrank"``
+    the O(rank·p) range-finder state (or, with ``lowrank_method="fd"``, the
+    Frequent-Directions sketch, folded in (step, shard) order on every
+    backend) replaces the (p, p) accumulator.
     """
 
     def __init__(self, plan: Plan, spec: sketch_mod.SketchSpec, track_cov: bool,
@@ -126,6 +149,7 @@ class _MomentReducer:
         self.keep_sketch = keep_sketch or (plan.backend == "batch" and needs_moments
                                            and not self.lowrank)
         self.parts: list[SparseRows] = []
+        self._step_parts: list[SparseRows] = []  # sharded: the in-flight step
         self._omega = None
         if self.lowrank:
             if plan.rank > spec.p_pad:
@@ -139,7 +163,7 @@ class _MomentReducer:
         else:
             # moment state only where reduce() will read it (K-means never does)
             self.state = (acc.moment_init(spec.p_pad, track_cov=track_cov, device=device)
-                          if plan.backend == "stream" and needs_moments else None)
+                          if plan.backend in ("stream", "sharded") and needs_moments else None)
 
     @property
     def _moment_cov_path(self) -> str:
@@ -149,6 +173,10 @@ class _MomentReducer:
     def fold(self, s: SparseRows, step: int, shard: int) -> None:
         if self.lowrank and self.plan.lowrank_method == "fd":
             self.state = lowrank_mod.fd_update(self.state, s, impl=self.plan.impl)
+        elif self.plan.backend == "sharded" and (self.lowrank or self.state is not None):
+            self._step_parts.append(s)
+            if shard == self.plan.n_shards - 1:
+                self.flush_step()
         elif self.lowrank:
             self.state = lowrank_mod.range_update(self.state, s, self._omega,
                                                   impl=self.plan.impl)
@@ -157,6 +185,26 @@ class _MomentReducer:
                                            impl=self.plan.impl)
         if self.keep_sketch:
             self.parts.append(s)
+
+    def flush_step(self) -> None:
+        """Sharded: reduce the buffered step with one all-reduced delta, then
+        drop it. Under a multi-process runtime each process buffered only its
+        own shards; every process must reach this flush once a step, in step
+        order (the cursor's multi-process loop drives it)."""
+        if not self._step_parts:
+            return
+        mesh = _sharded_mesh(self.plan)
+        parts, self._step_parts = self._step_parts, []
+        if self.lowrank:
+            delta = sharded_mod.sharded_lowrank(parts, self._omega, mesh, (self.plan.axis,),
+                                                impl=self.plan.impl)
+            self.state = lowrank_mod.range_apply(self.state, delta)
+        else:
+            delta = sharded_mod.sharded_moments(parts, mesh, (self.plan.axis,),
+                                                track_cov=self.track_cov,
+                                                cov_path=self._moment_cov_path,
+                                                impl=self.plan.impl)
+            self.state = acc.moment_apply(self.state, delta)
 
     def concat(self) -> SparseRows:
         if not self.parts:
@@ -167,6 +215,7 @@ class _MomentReducer:
         """(mean_pre, cov_pre | LowRankCov | None, count) via the plan's backend."""
         if not self.lowrank:
             return MOMENT_BACKENDS[self.plan.backend](self)
+        self.flush_step()  # a trailing partial step still needs its all-reduce
         st = self.state
         if int(st.count) == 0:
             raise RuntimeError("no batches folded yet — call fit()/partial_fit() first")
@@ -280,14 +329,60 @@ class SketchCursor:
     def fold_source(self, source, steps: int, seed: int | None = None) -> None:
         """One pass over a normalized ``(seed, step, shard) → (b, p)`` source
         (the StreamEngine contract): each (step, shard) batch is folded under
-        exactly that (step, shard) mask key."""
+        exactly that (step, shard) mask key.
+
+        Under a multi-process runtime with the sharded backend, each process
+        generates and sketches ONLY the shards it owns; the per-step
+        reduction then all-reduces across processes.
+        """
         dtype = torch_dtype(self.plan.dtype)
         with self._lock:
+            if bootstrap.is_multiprocess() and self.plan.backend == "sharded":
+                self._fold_source_multiprocess(source, steps, seed, dtype)
+                return
             for step in range(steps):
                 for shard in range(self.plan.n_shards):
                     rows = _rows_on(source(seed, step, shard), self.device, dtype)
                     self.ensure_spec(int(rows.shape[1]))
                     self.fold_rows(rows)
+
+    def _fold_source_multiprocess(self, source, steps: int, seed, dtype) -> None:
+        """This process's slice of the shared (step, shard) grid: fold the
+        shards it owns, skip the rest (their chunk indices still advance —
+        the mask-key discipline is global), and drive every consumer's step
+        flush so all processes enter each step's all-reduce exactly once, in
+        step order."""
+        for i, c in enumerate(self.consumers):
+            why = c._multiprocess_unsupported()
+            if why:
+                raise ValueError(f"consumers[{i}] ({type(c).__name__}) cannot fold under a "
+                                 f"multi-process runtime: {why}")
+        mine = set(bootstrap.local_shards(_sharded_mesh(self.plan), self.plan.axis))
+        # data-dependent inits (minibatch K-means' K-means++ seeding) must be
+        # bit-identical on every process: all of them sketch chunk (0, 0)
+        s0 = None
+        for c in self.consumers:
+            if c._needs_first_sketch():
+                if s0 is None:
+                    rows0 = _rows_on(source(seed, 0, 0), self.device, dtype)
+                    self.ensure_spec(int(rows0.shape[1]))
+                    s0 = sketch_mod.sketch(rows0, self.spec,
+                                           batch_key=batch_key(self.spec, 0, 0),
+                                           impl=self.plan.impl)
+                c._seed_first_sketch(s0)
+        for step in range(steps):
+            for shard in range(self.plan.n_shards):
+                if shard in mine:
+                    rows = _rows_on(source(seed, step, shard), self.device, dtype)
+                    self.ensure_spec(int(rows.shape[1]))
+                    self.fold_rows(rows)
+                else:
+                    # the chunk happened on another process: its index must
+                    # advance; its rows are not held here (0)
+                    self.chunk += 1
+                    self.chunk_rows.append(0)
+            for c in self.consumers:
+                c._step_flush()
 
 
 # -------------------------------------------------------------- base class --
@@ -310,8 +405,6 @@ class SketchedEstimator:
     _needs_moments = True  # False when _finalize never calls reducer.reduce()
 
     def __init__(self, plan: Plan, key=0, *, device="cuda"):
-        if plan.backend == "sharded":
-            raise not_ported("Plan(backend='sharded')", "Sharded backend")
         self.plan = plan
         self.key = as_key(key)
         self.device = resolve_device(device)
@@ -369,12 +462,47 @@ class SketchedEstimator:
     def _scannable(self) -> bool:
         """Whether the reference's ``scan=True`` takes this consumer: its
         fold streams (stream moments, the low-rank range state, minibatch
-        K-means); retained sketches (batch moments, Lloyd) do not."""
+        K-means); retained sketches (batch moments, Lloyd) and the sharded
+        backend's collectives do not (FD folds the same on every backend)."""
         if self._keep_sketch:
             return False
         if self.plan.cov_path == "lowrank" and self._track_cov and self._needs_moments:
-            return True
+            return self.plan.lowrank_method == "fd" or self.plan.backend != "sharded"
         return self._needs_moments and self.plan.backend == "stream"
+
+    # Hooks for SketchCursor._fold_source_multiprocess: each process folds
+    # only its own shards, so consumers must (a) reduce through per-step
+    # collectives (the sharded backend), (b) flush when the cursor says the
+    # step ended, and (c) run data-dependent inits from a sketch every process
+    # regenerated identically.
+
+    def _multiprocess_unsupported(self) -> str | None:
+        """None when this consumer can fold under a multi-process runtime,
+        else the reason it cannot."""
+        if self.plan.backend != "sharded":
+            return (f"backend={self.plan.backend!r} folds in one process — only "
+                    "the sharded backend reduces across processes")
+        if self._keep_sketch:
+            return ("it retains its sketches (batch moments / Lloyd K-means); "
+                    "a process's buffer would hold only its own shards")
+        if (self.plan.cov_path == "lowrank" and self._track_cov and self._needs_moments
+                and self.plan.lowrank_method == "fd"):
+            return ("Frequent Directions is an order-dependent sequential fold — "
+                    "its shrink cannot be all-reduced across processes")
+        return None
+
+    def _needs_first_sketch(self) -> bool:
+        return False
+
+    def _seed_first_sketch(self, s0: SparseRows) -> None:
+        """Run a data-dependent init from chunk (0, 0)'s sketch (regenerated
+        identically on every process)."""
+
+    def _step_flush(self) -> None:
+        """Cursor-driven step boundary: enter this step's all-reduce (once a
+        process a step)."""
+        if self._reducer is not None:
+            self._reducer.flush_step()
 
     def fit(self, x) -> "SketchedEstimator":
         self.reset()
@@ -547,6 +675,10 @@ class SketchedEstimator:
         r = self._reducer
         if r is None:
             raise RuntimeError("nothing folded yet — nothing to export")
+        if r._step_parts:
+            raise RuntimeError(
+                "a sharded reducer is mid-step (buffered shard sketches not yet "
+                "all-reduced); ingest to a step boundary before snapshotting")
         out: dict = {"count": np.int64(self.count_)}
         if r.state is not None:
             out.update(state_mod.to_arrays(r.state))
@@ -714,7 +846,7 @@ class SparsifiedPCA(SketchedEstimator):
     # Power iteration against the regenerable source (repro_torch.refine.power):
     # each pass replays every (step, shard) sketch and accumulates Y = S·Q
     # through the same RangeState delta as the first pass (K5/K6, Q in Ω's
-    # place).
+    # place; sharded: one all-reduce of the fixed-size delta a step).
 
     def _refine_supported(self) -> bool:
         return self.plan.cov_path == "lowrank" and self.plan.lowrank_method == "range"
@@ -741,11 +873,27 @@ class SparsifiedPCA(SketchedEstimator):
             self._rchanges: list[float] = []
         self._rstate = lowrank_mod.range_init(self.spec_.p_pad, self.plan.rank,
                                               device=self.device)
+        self._rstep_parts: list[SparseRows] = []
 
     def _refine_fold(self, s: SparseRows, step: int, shard: int) -> None:
-        self._rstate = lowrank_mod.range_update(self._rstate, s, self._rq, impl=self.plan.impl)
+        if self.plan.backend == "sharded":
+            self._rstep_parts.append(s)
+            if shard == self.plan.n_shards - 1:
+                self._refine_flush()
+        else:
+            self._rstate = lowrank_mod.range_update(self._rstate, s, self._rq,
+                                                    impl=self.plan.impl)
+
+    def _refine_flush(self) -> None:
+        if not self._rstep_parts:
+            return
+        parts, self._rstep_parts = self._rstep_parts, []
+        delta = sharded_mod.sharded_lowrank(parts, self._rq, _sharded_mesh(self.plan),
+                                            (self.plan.axis,), impl=self.plan.impl)
+        self._rstate = lowrank_mod.range_apply(self._rstate, delta)
 
     def _refine_pass_end(self, f: int, last: bool, signal: bool) -> None:
+        self._refine_flush()
         q_new = refine_mod.power_orth(self._rstate, self._rq, self.spec_.m)
         # watched on the top-n_components columns, the subspace kept
         r = self.n_components
@@ -765,18 +913,21 @@ class SparsifiedPCA(SketchedEstimator):
 
 
 class SparsifiedKMeans(SketchedEstimator):
-    """Sparsified K-means over the batch or stream backend.
+    """Sparsified K-means over any backend.
 
     algorithm="lloyd" (default, paper Alg. 1): the sketch — the γ-compressed
     dataset — is retained, and full Lloyd (``core.kmeans.sparse_kmeans_core``,
     its distances by K4 through ``kernels.ops.kernel_assign_fn``, its center
-    update by K6's walk) runs at finalize, bit-reproducible on the card.
-    Fitted ``labels_`` covers every row folded.
+    update by K6's walk; under the sharded backend the same solver through
+    ``stream.sharded.sharded_kmeans``) runs at finalize, bit-reproducible on
+    the card. Fitted ``labels_`` covers every row folded.
 
     algorithm="minibatch": the constant-memory streaming accumulators of
     ``stream.accumulators`` (online Eq. 39 update, r = n_init parallel
     hypotheses); every shard's delta is taken against the step-start state
-    and applied once a step, as the StreamEngine does. ``labels_`` is None
+    and applied once a step, as the StreamEngine does (sharded: the step's
+    shard sketches reduced by ``stream.sharded.sharded_kmeans_step``, one
+    all-reduce of the fixed-size delta). ``labels_`` is None
     (use :meth:`predict`). ``decay`` < 1 shrinks the accumulated counts once a
     step (a forgetting factor); unless ``track_reassignments=False``, each
     step's rows are re-assigned under the post-update centers (K4), and the
@@ -821,11 +972,14 @@ class SparsifiedKMeans(SketchedEstimator):
         # (sketch, pre-update labels) pairs of the in-flight step, for the
         # reassignment counts — dropped at every flush
         self._km_step_sketches: list[tuple[SparseRows, torch.Tensor]] = []
+        # sharded backend: the in-flight step's shard sketches, reduced by
+        # sharded_kmeans_step at each flush
+        self._km_step_parts: list[SparseRows] = []
         self._reassign_history: list[tuple[np.ndarray, int]] = []
         return self
 
     def _scannable(self) -> bool:
-        return self.algorithm == "minibatch"
+        return self.algorithm == "minibatch" and self.plan.backend != "sharded"
 
     # --------------------------------------------------------- minibatch ----
 
@@ -835,9 +989,12 @@ class SparsifiedKMeans(SketchedEstimator):
             return
         impl = self.plan.impl
         if self._km_state is None:
-            self._km_state = acc.kmeans_init(
-                fold_in_str(self.spec_.key, "api-kmeans"), s, self.k, self.n_init,
-                decay=self.decay, impl=impl)
+            self._seed_first_sketch(s)
+        if self.plan.backend == "sharded":
+            self._km_step_parts.append(s)
+            if shard == self.plan.n_shards - 1:
+                self._flush_step()
+            return
         if self.track_reassignments:
             # the pre-update labels ride along with the delta (computed once)
             d, a0 = acc.kmeans_delta_with_assign(self._km_state, s, impl=impl)
@@ -849,6 +1006,17 @@ class SparsifiedKMeans(SketchedEstimator):
             self._flush_step()
 
     def _flush_step(self) -> None:
+        if self._km_step_parts:
+            parts, self._km_step_parts = self._km_step_parts, []
+            old_count = int(self._km_state.count)
+            new, cnt = sharded_mod.sharded_kmeans_step(
+                self._km_state, parts, _sharded_mesh(self.plan), axis=self.plan.axis,
+                decay=self.decay, track_reassignments=self.track_reassignments,
+                impl=self.plan.impl)
+            self._km_state = new
+            if self.track_reassignments:
+                self._reassign_history.append((cnt.cpu().numpy(), int(new.count) - old_count))
+            return
         if self._km_pending is None:
             return
         self._km_state = acc.kmeans_apply(self._km_state, self._km_pending, decay=self.decay)
@@ -862,6 +1030,20 @@ class SparsifiedKMeans(SketchedEstimator):
                 rows += s.n
             self._reassign_history.append((counts.cpu().numpy(), rows))
         self._km_step_sketches = []
+
+    # --------------------------------------------------- multi-process fold --
+
+    def _needs_first_sketch(self) -> bool:
+        return self.algorithm == "minibatch" and self._km_state is None
+
+    def _seed_first_sketch(self, s0: SparseRows) -> None:
+        self._km_state = acc.kmeans_init(
+            fold_in_str(self.spec_.key, "api-kmeans"), s0, self.k, self.n_init,
+            decay=self.decay, impl=self.plan.impl)
+
+    def _step_flush(self) -> None:
+        super()._step_flush()
+        self._flush_step()
 
     # ----------------------------------------------------------- finalize ---
 
@@ -885,11 +1067,16 @@ class SparsifiedKMeans(SketchedEstimator):
             self.count_ = int(self._km_state.count)
         else:
             s_all = self._reducer.concat()
-            centers_pre, a, obj, it = km.sparse_kmeans_core(
-                s_all.values, s_all.indices, s_all.p, self.k,
-                fold_in_str(self.spec_.key, "api-kmeans"), n_init=self.n_init,
-                max_iter=self.max_iter, tol=self.tol, assign_fn=ops.kernel_assign_fn(impl),
-                impl=impl)
+            init_key = fold_in_str(self.spec_.key, "api-kmeans")
+            if self.plan.backend == "sharded":
+                centers_pre, a, obj, it = sharded_mod.sharded_kmeans(
+                    s_all, self.k, init_key, _sharded_mesh(self.plan), n_init=self.n_init,
+                    max_iter=self.max_iter, tol=self.tol, impl=impl)
+            else:
+                centers_pre, a, obj, it = km.sparse_kmeans_core(
+                    s_all.values, s_all.indices, s_all.p, self.k, init_key,
+                    n_init=self.n_init, max_iter=self.max_iter, tol=self.tol,
+                    assign_fn=ops.kernel_assign_fn(impl), impl=impl)
             self.labels_ = a
             self.n_iter_ = int(it)
         self.centers_pre_ = centers_pre
@@ -908,7 +1095,7 @@ class SparsifiedKMeans(SketchedEstimator):
     def state_arrays(self) -> dict:
         out = super().state_arrays()
         if self.algorithm == "minibatch":
-            if self._km_pending is not None or self._km_step_sketches:
+            if self._km_pending is not None or self._km_step_sketches or self._km_step_parts:
                 raise RuntimeError(
                     "the minibatch fold is mid-step (pending shard deltas); "
                     "ingest to a step boundary before snapshotting")

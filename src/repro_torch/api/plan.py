@@ -1,22 +1,23 @@
 """The execution :class:`Plan` — one config object selecting how a sketch job runs.
 
 The same fields and validation as the reference's ``repro.api.Plan``. This
-package runs ``backend="batch"`` and ``"stream"`` through the estimators of
-:mod:`repro_torch.api`, and ``"stream"`` through
-:func:`repro_torch.api.make_engine`, with the dense, compact or low-rank
-(``lowrank_method="range"``; the estimators also ``"fd"``) covariance path,
-and ``refine_passes`` for ``fit_refine`` / ``fit_many(refine=True)``; the
-sharded backend raises ``NotImplementedError`` until it is ported.
-:func:`mesh_spec` / :func:`mesh_from_spec` are the snapshot codec's mesh
-fields: the null mesh only, until the sharded backend brings meshes.
+package runs every backend through the estimators of :mod:`repro_torch.api`,
+and ``"stream"`` and ``"sharded"`` through :func:`repro_torch.api.make_engine`,
+with the dense, compact or low-rank (``lowrank_method="range"``; the
+estimators also ``"fd"``) covariance path, and ``refine_passes`` for
+``fit_refine`` / ``fit_many(refine=True)``. The sharded backend reduces over a
+:class:`repro_torch.cluster.Mesh` of processes (``torch.distributed``), one
+all-reduce of the fixed-size delta a step. :func:`mesh_spec` /
+:func:`mesh_from_spec` are the snapshot codec's mesh fields, JSON-equal to the
+reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Literal
 
+from repro_torch.cluster import bootstrap
 from repro_torch.core import ros, sketch
-from repro_torch.utils.device import not_ported
 
 Backend = Literal["batch", "stream", "sharded"]
 
@@ -27,7 +28,10 @@ BACKENDS: tuple[str, ...] = ("batch", "stream", "sharded")
 class Plan:
     """How a sketched-estimation job executes.
 
-    backend:    "batch", "stream" or "sharded" ("sharded" is not ported yet).
+    backend:    "batch" (sketch everything, one-shot estimators), "stream"
+                (fold per-batch accumulator deltas) or "sharded" (each
+                process folds its shards; one all-reduce of the fixed-size
+                delta a step over ``mesh``).
     gamma / m:  sketch size — fraction kept (validated to (0, 1]) or absolute
                 coordinate count; exactly one is required.
     transform:  ROS preconditioner ("hadamard" or "dct").
@@ -36,7 +40,8 @@ class Plan:
     batch_size: rows per (step, shard) batch.
     n_shards:   logical shards per step (the shard axis of the key discipline).
     axis:       mesh axis name for the sharded backend.
-    mesh:       device mesh for the sharded backend.
+    mesh:       ``repro_torch.cluster.Mesh`` for the sharded backend; None
+                builds the (n_shards,) process mesh at first use.
     cov_path:   "dense", "compact" or "lowrank".
     rank:       sketch width of the low-rank path (required there).
     lowrank_method: "range" or "fd" (the engine takes "range" only, as the
@@ -86,6 +91,10 @@ class Plan:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
         if self.impl not in ros.IMPLS:
             raise ValueError(f"impl must be one of {ros.IMPLS}, got {self.impl!r}")
+        if self.mesh is not None and self.mesh.shape[self.axis] != self.n_shards:
+            raise ValueError(
+                f"mesh axis {self.axis!r} has size {self.mesh.shape[self.axis]}, "
+                f"need n_shards={self.n_shards}")
 
     def replace(self, **kw) -> "Plan":
         """A copy with fields overridden — e.g. ``plan.replace(gamma=0.1)``."""
@@ -96,27 +105,38 @@ class Plan:
         return sketch.make_spec(p, key, gamma=self.gamma, m=self.m,
                                 transform=self.transform)
 
+    def resolve_mesh(self) -> bootstrap.Mesh:
+        """The mesh the sharded backend reduces over: ``mesh``, or the
+        (n_shards,) process mesh (each process owns a contiguous block of
+        shard positions; one process owns them all), cached per (n_shards,
+        axis) so repeated fits share one mesh object."""
+        if self.mesh is not None:
+            return self.mesh
+        return bootstrap.process_mesh(self.n_shards, self.axis)
+
     def step_shard(self, chunk: int) -> tuple[int, int]:
         """Map a linear chunk index to its (step, shard) key coordinates."""
         return divmod(chunk, self.n_shards)
 
 
 # ----------------------------------------------------------- mesh (de)spec --
-# The reference serializes a Plan's mesh as its geometry (axis names and
-# shape) in snapshots. The port has no mesh yet: only None round-trips.
+# A mesh's owners are process-local, but its geometry — axis names and sizes —
+# is not: snapshots (repro_torch.sketchserve) and checkpoints serialize the
+# geometry as the reference does and rebuild an equivalent mesh on restore.
 
 
 def mesh_spec(mesh) -> dict | None:
-    """The JSON-safe geometry of a mesh; None stays None (any mesh raises:
-    meshes come with the sharded backend)."""
+    """The JSON-safe geometry of a mesh: ``{"axis_names", "shape"}`` (the
+    reference's). None stays None."""
     if mesh is None:
         return None
-    raise not_ported("mesh_spec(mesh)", "Sharded backend")
+    return {"axis_names": list(mesh.axis_names),
+            "shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
 
 
 def mesh_from_spec(spec: dict | None):
-    """The mesh a snapshot's geometry describes; None stays None (a mesh
-    geometry raises until the sharded backend is ported)."""
+    """A mesh of the same geometry over THIS run's processes (raises where
+    some process would own no position)."""
     if spec is None:
         return None
-    raise not_ported(f"a snapshot plan with mesh {spec}", "Sharded backend")
+    return bootstrap.make_mesh(tuple(spec["shape"]), tuple(spec["axis_names"]))

@@ -6,6 +6,9 @@ Shape conventions: data rows = samples; centers (K, p); assignments (n,) int32.
 - :func:`sparsified_kmeans` — Alg. 1: one pass (precondition → sample → Lloyd
                               on the compact rows), optional Alg. 2 second pass.
 - :func:`sparse_kmeans_core` — Lloyd on already-sketched rows, best of n_init.
+- :func:`feature_extraction_kmeans` / :func:`feature_selection_kmeans` — the
+                              paper's random-projection and leverage-score
+                              baselines (dense Lloyd on m features).
 
 The distances of sparse rows to centers (Eq. 35/36) are the K4 kernel's
 function (``kernels.ops.sparse_assign``; :func:`repro_torch.kernels.ops.kernel_assign_fn`
@@ -237,6 +240,82 @@ def sparsified_kmeans(x: torch.Tensor, k: int, key, gamma: float | None = None,
         centers = centers2
 
     return KMeansResult(a, centers, obj, it, centers_pre=mu_pre)
+
+
+# ---------------------------------------------------- the paper's baselines --
+# The Alg. 1–2 comparisons of §VII-B (Figs. 7–9): feature extraction by a
+# random ±1 projection [Boutsidis et al.] and feature selection by leverage
+# scores [36]. They cluster dense (n, m) features with :func:`kmeans`.
+
+
+def _second_pass(x: torch.Tensor, a: torch.Tensor, k: int, centers: torch.Tensor) -> torch.Tensor:
+    """Centers as the true means of the rows assigned to them (one more pass
+    over X); an empty cluster keeps its one-pass center."""
+    oh = torch.nn.functional.one_hot(a.long(), k).to(torch.float32)
+    counts = torch.sum(oh, dim=0)
+    return torch.where(counts[:, None] > 0,
+                       (oh.T @ x.to(torch.float32)) / torch.clamp(counts, min=1.0)[:, None],
+                       centers)
+
+
+def feature_extraction_kmeans(x: torch.Tensor, k: int, m: int, key, two_pass: bool = False,
+                              n_init: int = 5, max_iter: int = 100,
+                              tol: float = 1e-6) -> KMeansResult:
+    """Boutsidis et al. feature extraction: cluster Z = XΩᵀ/√m, Ω ∈ {±1}^{m×p}.
+
+    One-pass center estimates use the pseudo-inverse lift Ω⁺ (the paper's Fig. 9
+    shows these are poor — kept faithful); ``two_pass`` recomputes them from X.
+    """
+    n, p = x.shape
+    komega, krun = prng.split(key)
+    omega = prng.rademacher(komega, (m, p), device=x.device) / np.float32(np.sqrt(m))
+    z = x.to(torch.float32) @ omega.T
+    res = kmeans(z, k, krun, n_init=n_init, max_iter=max_iter, tol=tol)
+    # lift centers with the pseudo-inverse (rank-m, inconsistent — see §VII-B)
+    centers = res.centers @ torch.linalg.pinv(omega).T
+    a = res.assignments
+    if two_pass:
+        centers = _second_pass(x, a, k, centers)
+    return KMeansResult(a, centers, res.objective, res.n_iter)
+
+
+def leverage_scores(x: torch.Tensor, rank: int, key, oversample: int = 10) -> torch.Tensor:
+    """Approximate row (feature) leverage scores via a randomized range finder [7].
+
+    Returns (p,) scores of Xᵀ's rows = feature importances for feature
+    selection. The scores are squared row norms of Q, so QR's signs do not
+    matter.
+    """
+    n, p = x.shape
+    xt = x.to(torch.float32).T                               # (p, n) features-as-rows
+    g = prng.normal(key, (n, rank + oversample), device=x.device)
+    q, _ = torch.linalg.qr(xt @ g)                           # (p, r+o) orthonormal
+    scores = torch.sum(q[:, :rank] ** 2, dim=1)
+    return scores / torch.sum(scores)
+
+
+def feature_selection_kmeans(x: torch.Tensor, k: int, m: int, key, two_pass: bool = False,
+                             n_init: int = 5, max_iter: int = 100,
+                             tol: float = 1e-6) -> KMeansResult:
+    """[36] feature selection: sample m features by leverage scores, cluster there.
+
+    Requires ≥3 passes over the data (score pass, sampling pass, clustering) —
+    included as the paper's multi-pass baseline.
+    """
+    n, p = x.shape
+    kscore, ksel, krun = prng.split(key, 3)
+    scores = leverage_scores(x, rank=k, key=kscore)
+    sel = prng.choice(ksel, p, (m,), replace=False, p=scores, device=x.device)
+    # rescale by 1/sqrt(m q_j) as in [36]
+    scale = torch.sqrt(m * scores[sel])[None, :]
+    res = kmeans(x[:, sel].to(torch.float32) / scale, k, krun, n_init=n_init,
+                 max_iter=max_iter, tol=tol)
+    centers = torch.zeros((k, p), dtype=torch.float32, device=x.device)
+    centers[:, sel] = res.centers * scale
+    a = res.assignments
+    if two_pass:
+        centers = _second_pass(x, a, k, centers)
+    return KMeansResult(a, centers, res.objective, res.n_iter)
 
 
 # -------------------------------------------------------------- metrics -----

@@ -25,6 +25,9 @@ Transform = Literal["hadamard", "dct"]
 
 IMPLS = ("auto", "kernel", "ref")
 
+# the incoherence constant η of each transform (Cor. 2: ‖HDx‖∞ ≤ √(2/η·log(2np/α)/p))
+ETA = {"hadamard": 1.0, "dct": 0.5}
+
 
 def pad_len(p: int, transform: Transform = "hadamard") -> int:
     """Length after padding: next power of two for Hadamard, identity for DCT."""

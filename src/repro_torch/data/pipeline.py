@@ -3,18 +3,32 @@
 Every batch is a pure function of (seed, step, shard), so any worker can
 regenerate any batch. The sources are numpy-seeded and byte-identical to the
 reference's ``repro.data.pipeline`` sources of the same seed.
+:class:`SketchingPipeline` pulls a source's batches through the one-pass
+compression; its state is the source's one integer cursor and seed.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.core import sketch as sketch_mod
+from repro_torch.utils import prng
+from repro_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class PipelineState:
     seed: int
     step: int = 0
+
+    def to_json(self) -> dict:
+        return {"seed": self.seed, "step": self.step}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "PipelineState":
+        return cls(seed=int(d["seed"]), step=int(d["step"]))
 
 
 class VectorStreamSource:
@@ -49,3 +63,33 @@ class VectorStreamSource:
         x = self.batch_at(self.state.step)
         self.state.step += 1
         return x
+
+
+class SketchingPipeline:
+    """Wraps a vector source with the paper's one-pass compression.
+
+    Emits SparseRows batches on ``device``; every batch gets an independent
+    mask key (``fold_in`` of the spec's mask key and the step) — the paper's
+    per-sample R_i property, the same masks as the reference's pipeline.
+
+    This is the minimal pull-based wrapper; the streaming subsystem is
+    ``repro_torch.stream.StreamEngine``, which consumes the same sources via
+    their (seed, step, shard) ``batch_at`` contract.
+    """
+
+    def __init__(self, source: VectorStreamSource, spec: sketch_mod.SketchSpec,
+                 impl: str = "auto", device="cuda"):
+        self.source = source
+        self.spec = spec
+        self.impl = impl
+        self.device = resolve_device(device)
+
+    def next_batch(self):
+        step = self.source.state.step
+        x = torch.from_numpy(self.source.next_batch()).to(self.device)
+        bk = prng.fold_in(self.spec.mask_key(), step)
+        return sketch_mod.sketch(x, self.spec, batch_key=bk, impl=self.impl)
+
+    @property
+    def state(self) -> PipelineState:
+        return self.source.state

@@ -27,6 +27,7 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from repro_torch.cluster import bootstrap
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
@@ -96,6 +97,12 @@ def run_refine(plan, spec: sketch_mod.SketchSpec, refiners: Sequence, passes: in
     """
     if passes < 1:
         raise ValueError(f"refinement needs passes >= 1, got {passes}")
+    if bootstrap.is_multiprocess():
+        # every process would replay every chunk, and the sharded refiners'
+        # all-reduce would count each chunk once a process
+        raise ValueError("refinement replays every (step, shard) chunk in this process; "
+                         "under a multi-process runtime refine through the engine's "
+                         "replay(), which folds each process's own shards")
     refiners = list(refiners)
     signal = [r for r in refiners if r._refine_needs_signal()]
     for f in range(passes + (1 if signal else 0)):

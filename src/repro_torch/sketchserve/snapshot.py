@@ -9,8 +9,9 @@ snapshot either package writes restores in the other. What is written is
 exactly what a restarted process cannot re-derive:
 
 - per group: the Plan (as JSON, ``dtype`` as its numpy name, e.g.
-  ``"float32"``; the mesh field is null — a mesh, and a snapshot that holds
-  one, raises until the sharded backend is ported), the shared PRNG key, the
+  ``"float32"``; an explicit mesh as its geometry, ``{"axis_names",
+  "shape"}`` via ``api.plan.mesh_spec``, rebuilt over the restoring run's
+  processes), the shared PRNG key, the
   cursor's replay counters (``chunk`` / ``count`` / ``chunk_rows`` /
   ``n_sketches``) and dimensionality ``p``, plus the retained ingest buffer
   when the group keeps one for refine replay;
@@ -40,7 +41,7 @@ The same format serves tenant eviction: ``save_service(svc, path,
 gids=[gid])`` writes one group, and :func:`restore_group` folds a parked
 group back into a LIVE service (first-touch lazy restore).
 
-Mid-step states (a sharded reducer holding un-psum'd shard sketches, a
+Mid-step states (a sharded reducer holding shard sketches not yet all-reduced, a
 K-means fold between apply boundaries) refuse to snapshot with a clear error
 — ingest to a step boundary first.
 """

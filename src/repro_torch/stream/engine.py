@@ -16,7 +16,12 @@ setting, §IV–V estimators, §VI K-means):
 
 ``n_shards`` logical shards per step are folded one after another: every
 shard's delta is taken against the step-start state, the deltas are summed and
-applied once, as the reference's sharded engine does with a psum.
+applied once, as the reference's sharded engine does with a psum. With
+``mesh=`` (``repro_torch.cluster``) each process builds and folds only the
+shards it owns, in shard order, and one all-reduce of the summed fixed-size
+delta (``stream.sharded.psum``) precedes the apply — (p,) + (p, p) + the
+K-means sums and counts a step, independent of the batch size; the state is
+replicated on every process.
 
 The loop is an explicit-state fold, resumable from any step: ``run`` writes
 the state every ``checkpoint_every`` steps (``save_state``), and
@@ -45,9 +50,11 @@ from repro_torch import refine as refine_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
+from repro_torch.cluster import bootstrap
 from repro_torch.stream import accumulators as acc
 from repro_torch.stream import state as state_mod
-from repro_torch.utils.device import not_ported, resolve_device
+from repro_torch.stream.sharded import psum
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.prng import fold_in_str
 
 Source = Callable[[int, int, int], Any]  # (seed, step, shard) -> (b, p) array
@@ -187,6 +194,9 @@ class StreamEngine:
     source: ``(seed, step, shard) → (b, p)`` array, or an object with
         ``batch_at(step, shard)`` (e.g. ``data.pipeline.VectorStreamSource``).
     n_shards: logical shards per step, folded one after another.
+    mesh / axis: optional ``repro_torch.cluster.Mesh`` and its data axis,
+        whose size must equal ``n_shards``: each process folds the shards it
+        owns and the step's summed delta is all-reduced before the apply.
     track_cov: accumulate the (p, p) second moment (Thm-6).
     kmeans: optional :class:`StreamKMeansConfig` for mini-batch streaming
         sparsified K-means alongside the moment estimators.
@@ -200,16 +210,15 @@ class StreamEngine:
         instead of ``cov``).
     rank: sketch width l of the "lowrank" path (required there).
     device: where the state lives and the work runs ("cuda" by default).
-
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
     """
 
     def __init__(self, spec: sketch_mod.SketchSpec, source, *, n_shards: int = 1,
-                 mesh=None, track_cov: bool = True,
+                 mesh=None, axis: str = "data", track_cov: bool = True,
                  kmeans: StreamKMeansConfig | None = None, impl: str = "auto",
                  cov_path: str = "dense", rank: int | None = None, device="cuda"):
-        if mesh is not None:
-            raise not_ported("StreamEngine(mesh=...)", "Sharded backend")
+        if mesh is not None and mesh.shape[axis] != int(n_shards):
+            raise ValueError(
+                f"mesh axis {axis!r} has size {mesh.shape[axis]}, need n_shards={n_shards}")
         if cov_path not in ("dense", "compact", "lowrank"):
             raise ValueError(
                 f"cov_path must be 'dense', 'compact' or 'lowrank', got {cov_path!r}")
@@ -223,6 +232,13 @@ class StreamEngine:
         self.spec = spec
         self.source = normalize_source(source)
         self.n_shards = int(n_shards)
+        self.mesh, self.axis = mesh, axis
+        # the shards this process builds and folds, in shard order
+        self._local = (bootstrap.local_shards(mesh, axis) if mesh is not None
+                       else list(range(self.n_shards)))
+        if not self._local:
+            raise ValueError(f"process {bootstrap.process_index()} owns no shards of "
+                             f"{mesh} — shrink the process count")
         self.track_cov = track_cov
         self.kmeans = kmeans
         self.impl = impl
@@ -280,14 +296,13 @@ class StreamEngine:
             reassign=state.reassign,
         )
 
-    def host_global_batch(self, seed, step: int) -> torch.Tensor:
+    def host_global_batch(self, seed, step: int, local: bool = True) -> torch.Tensor:
         """The step's (n_shards, b, p) batch from the source, on the device (a
-        source that returns tensors is stacked without a host copy)."""
-        parts = [self.source(seed, step, s) for s in range(self.n_shards)]
-        if all(torch.is_tensor(t) for t in parts):
-            return torch.stack([t.to(device=self.device, dtype=torch.float32) for t in parts])
-        x = np.stack([np.asarray(t, dtype=np.float32) for t in parts])
-        return torch.from_numpy(x).to(self.device)
+        source that returns tensors is stacked without a host copy). Under a
+        mesh, with ``local``, only the (n_local, b, p) shards this process
+        owns."""
+        shards = self._local if local else range(self.n_shards)
+        return bootstrap.stack_batches([self.source(seed, step, s) for s in shards], self.device)
 
     # ------------------------------------------------------------- running --
 
@@ -297,7 +312,8 @@ class StreamEngine:
         uses."""
         km = None
         if self.kmeans is not None:
-            km = self._kmeans_init(self.host_global_batch(seed, 0))
+            # every process seeds from the whole step-0 batch: the same state
+            km = self._kmeans_init(self.host_global_batch(seed, 0, local=False))
         return self._fresh_state(km)
 
     def init_from_array(self, xs: torch.Tensor) -> EngineState:
@@ -327,25 +343,28 @@ class StreamEngine:
             reassign=reassign)
 
     def update(self, state: EngineState, x: torch.Tensor, step: int) -> EngineState:
-        """Fold one global batch x (n_shards, b, p): every shard's delta is
-        taken against the step-start state, summed, and applied once. With
-        ``track_reassignments`` each shard's rows are then re-assigned under
-        the new centers (K4) and compared with their pre-update labels."""
+        """Fold one global batch x (n_shards, b, p) — under a mesh this
+        process's (n_local, b, p) shards: every shard's delta is taken against
+        the step-start state, summed (and all-reduced over the mesh), and
+        applied once. With ``track_reassignments`` each shard's rows are then
+        re-assigned under the new centers (K4) and compared with their
+        pre-update labels; the counts ride one more all-reduce."""
         deltas, pairs = None, []
-        for shard in range(self.n_shards):
+        for i, shard in enumerate(self._local):
             with record_function("obs.sketch"):
-                s = self._sketch_local(x[shard], step, shard)
+                s = self._sketch_local(x[i], step, shard)
             with record_function("obs.fold"):
                 d, a0 = self._deltas(state, s)
             deltas = d if deltas is None else self._add(deltas, d)
             if self._track:
                 pairs.append((s, a0))
-        new = self._apply(state, deltas)
+        new = self._apply(state, psum(deltas, self.mesh))
         if not self._track:
             return new
         cnt = torch.zeros_like(state.reassign[1])
         for s, a0 in pairs:
             cnt = cnt + acc.kmeans_reassigned(new.kmeans, s, a0, impl=self.impl)
+        cnt = psum(cnt, self.mesh)
         return dataclasses.replace(new, reassign=(state.reassign[0] + cnt, cnt))
 
     def run(self, steps: int, seed: int | None = None,
@@ -361,7 +380,9 @@ class StreamEngine:
         earlier run bit for bit. ``checkpoint_every=t`` writes the state to
         ``checkpoint_dir`` every t folded steps (:meth:`save_state`).
         ``telemetry=`` opts into per-step observability
-        (:class:`EngineTelemetry`); the fold stays bit-identical.
+        (:class:`EngineTelemetry`); the fold stays bit-identical. Under a
+        mesh every process runs this loop over its own shards; the rows a
+        step counts are the whole step's.
         """
         if checkpoint_every and not checkpoint_dir:
             raise ValueError("checkpoint_every needs checkpoint_dir=")
@@ -401,7 +422,7 @@ class StreamEngine:
                 reg.counter("engine.checkpoints").inc()
                 reg.histogram("engine.checkpoint_seconds").observe(ckpt_s)
             if tel is not None:
-                rows_step = int(x.shape[0]) * int(x.shape[1])
+                rows_step = self.n_shards * int(x.shape[1])
                 rows_run += rows_step
                 elapsed = time.perf_counter() - run_t0
                 state_bytes = state_mod.state_nbytes(state)
@@ -444,9 +465,15 @@ class StreamEngine:
         xs = torch.as_tensor(xs).to(device=self.device, dtype=torch.float32)
         state = self.init_from_array(xs)
         for step in range(xs.shape[0]):
-            state = self.update(state, xs[step], step)
+            state = self.update(state, self._local_of(xs[step]), step)
         self.state = state
         return self.finalize(state)
+
+    def _local_of(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's shards of a staged (n_shards, b, p) step."""
+        if len(self._local) == self.n_shards:
+            return x
+        return x[self._local[0]:self._local[-1] + 1]
 
     # ---------------------------------------------------- checkpoint/restore --
 
@@ -454,10 +481,14 @@ class StreamEngine:
                    seed: int | None = None) -> None:
         """Checkpoint ``state`` (default: the engine's current one) as step
         ``step`` — the number of steps already folded, the step a restored run
-        resumes at — in the reference's layout (``stream.state.save_engine``)."""
+        resumes at — in the reference's layout (``stream.state.save_engine``).
+        One writer: under a process group only process 0 writes (the state
+        is replicated)."""
         state = state if state is not None else self.state
         if state is None:
             raise RuntimeError("no state to checkpoint — run() first or pass state=")
+        if bootstrap.process_index() != 0:
+            return
         state_mod.save_engine(ckpt_dir, step, state, extra={
             "p_pad": int(self.spec.p_pad), "n_shards": self.n_shards, "seed": seed})
 
@@ -481,17 +512,19 @@ class StreamEngine:
     # one step at a time, every shard's delta summed and applied once.
 
     def _refine_update(self, carry, x: torch.Tensor, step: int, q_mat, frozen, prev):
-        """carry → carry for one global batch x (n_shards, b, p): the shards'
-        deltas summed, then applied once."""
+        """carry → carry for one global batch x (n_shards, b, p), under a mesh
+        this process's shards: the shards' deltas summed, all-reduced over the
+        mesh, then applied once."""
         ld = kd = None
-        for shard in range(self.n_shards):
-            s = self._sketch_local(x[shard], step, shard)
+        for i, shard in enumerate(self._local):
+            s = self._sketch_local(x[i], step, shard)
             if self.lowrank:
                 d = lowrank_mod.range_delta(s, q_mat, impl=self.impl)
                 ld = d if ld is None else lowrank_mod.range_apply(ld, d)
             if self.kmeans is not None:
                 d = refine_mod.kmeans2_delta(s, frozen, prev, impl=self.impl)
                 kd = d if kd is None else refine_mod.kmeans2_apply(kd, d)
+        ld, kd = psum((ld, kd), self.mesh)
         cl, ck = carry
         return (lowrank_mod.range_apply(cl, ld) if ld is not None else cl,
                 refine_mod.kmeans2_apply(ck, kd) if kd is not None else ck)
@@ -587,7 +620,8 @@ class StreamEngine:
 
         def fold_pass(carry, q, frozen, prev):
             for step in range(xs.shape[0]):
-                carry = self._refine_update(carry, xs[step], step, q, frozen, prev)
+                carry = self._refine_update(carry, self._local_of(xs[step]), step, q, frozen,
+                                            prev)
             return carry
 
         return self._replay_passes(fold_pass, passes, state)

@@ -11,7 +11,8 @@ for a whole :class:`~repro_torch.stream.engine.EngineState`.
   running means by their counts; FD appends both sketches and SVD-shrinks
   back to l.
 
-The kinds are ``moment``, ``km``, ``range`` and ``fd``. An EngineState
+The kinds are ``moment``, ``km``, ``range`` and ``fd``, and those added by
+:func:`register_state` (``"hb"``, ``repro_torch.cluster.heartbeat``). An EngineState
 serializes each occupied slot under ``moments/``, ``kmeans/`` and
 ``lowrank/``, plus ``reassign/total`` and ``reassign/last`` when K-means
 tracks reassignments; :func:`save_engine` / :func:`load_engine` put it on disk
@@ -91,6 +92,14 @@ STATE_KINDS: dict[str, StateKind] = {k.name: k for k in (
     StateKind("fd", lowrank_mod.FDState, ("sketch", "diag", "sum_w", "count"), _merge_fd),
 )}
 _CLS_TO_KIND = {k.cls: k for k in STATE_KINDS.values()}
+
+
+def register_state(kind: StateKind) -> StateKind:
+    """Add an accumulator kind (e.g. ``cluster.heartbeat``'s ``"hb"``): its
+    states then serialize, load and merge through this module."""
+    STATE_KINDS[kind.name] = kind
+    _CLS_TO_KIND[kind.cls] = kind
+    return kind
 _ENGINE_SLOTS = ("moments", "kmeans", "lowrank")
 
 

@@ -279,3 +279,46 @@ def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
     shape = () if shape is None else tuple(shape)
     g = gumbel(key, (*shape, logits.shape[0]), device=logits.device)
     return torch.argmax(g + logits, dim=-1)
+
+
+def permutation(key, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` stably sorted by
+    fresh 32-bit keys, ⌈3·log n / log(2³² − 1)⌉ rounds (JAX's ``_shuffle``)."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,), device), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key, a: int, shape=(), replace: bool = True, p: torch.Tensor | None = None,
+           device="cpu") -> torch.Tensor:
+    """``jax.random.choice(key, a, shape, replace, p)`` for an int population
+    ``a`` (indices into ``arange(a)``), int64.
+
+    The four paths of the reference: uniform with replacement (``randint``),
+    uniform without (a :func:`permutation`'s head), weighted with replacement
+    (the cumulative sum searched at ``total·(1 − u)``) and weighted without
+    (the Gumbel top-k trick: ``gumbel + log p``, the ``m`` largest, ties to the
+    lower index as ``lax.top_k`` breaks them). ``p`` is float32 on ``device``.
+    """
+    shape = tuple(shape)
+    n_draws = math.prod(shape)
+    if not replace and n_draws > a:
+        raise ValueError(f"Cannot take a larger sample (size {n_draws}) than "
+                         f"population (size {a}) when 'replace=False'")
+    if p is None:
+        if replace:
+            return randint(key, shape, 0, a, device=device).to(torch.int64)
+        return permutation(key, a, device)[:n_draws].reshape(shape)
+    p = torch.as_tensor(p, dtype=torch.float32, device=device)
+    if p.shape != (a,):
+        raise ValueError(f"p must be a 1-D vector of size {a}, got shape {tuple(p.shape)}")
+    if replace:
+        cum = torch.cumsum(p, 0)
+        r = cum[-1] * (1 - uniform(key, shape, device=device))
+        return torch.searchsorted(cum, r).reshape(shape)
+    g = gumbel(key, (a,), device=device) + torch.log(p)
+    return torch.sort(g, descending=True, stable=True).indices[:n_draws].reshape(shape)

@@ -586,12 +586,15 @@ def test_lowrank_pca_estimator_matches_the_engine():
 
 
 def test_not_ported_paths_name_their_item(tmp_path):
-    """What is not ported raises naming its item; what this slice ported (the
-    FD path, refinement, estimator and fused-run checkpoints) runs."""
+    """What is not ported raises naming its item; what the port has (the
+    sharded backend, the FD path, refinement, estimator and fused-run
+    checkpoints) runs."""
     x = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
     plan = _plan()
+    two = plan.replace(backend="sharded", batch_size=4, n_shards=2)
+    _close(SparsifiedMean(two, **CPU).fit(x).mean_,
+           SparsifiedMean(two.replace(backend="stream"), **CPU).fit(x).mean_.numpy())
     cases = [
-        ("Sharded backend", lambda: SparsifiedMean(plan.replace(backend="sharded"), **CPU)),
         ("LM side, last", lambda: api.GradCompressor()),
     ]
     for item, call in cases:

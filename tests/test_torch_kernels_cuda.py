@@ -665,3 +665,100 @@ def test_first_launches_from_threads_at_once(dev):
     out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCHES], capture_output=True,
                          text=True, env=env, cwd=root, timeout=900)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+
+
+# ------------------------------------------------ collectives on the card --
+
+_PSUM = """
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch import cluster
+from repro_torch.stream.sharded import psum
+
+pid, nproc, port, backend = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+cluster.initialize(f"127.0.0.1:{port}", nproc, pid, backend=backend, device="cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
+mesh = cluster.process_mesh(2)
+assert mesh.collective and dist.get_backend() == backend
+g = torch.Generator().manual_seed(pid)
+f = torch.randn((1000, 7), generator=g).to(dev)
+i = torch.tensor([-7, 2**31 - 1 - pid, -(2**31) + 5, 65536 * 3 + pid], dtype=torch.int32,
+                 device=dev)
+c = torch.tensor(123456789012 + pid, dtype=torch.int64, device=dev)
+out = psum((f, (i, c)), mesh)
+fs = [torch.randn((1000, 7), generator=torch.Generator().manual_seed(r)) for r in range(nproc)]
+want_f = fs[0] if nproc == 1 else fs[0] + fs[1]
+assert torch.equal(out[0].cpu(), want_f), "float sum"
+ints = [torch.tensor([-7, 2**31 - 1 - r, -(2**31) + 5, 65536 * 3 + r], dtype=torch.int64)
+        for r in range(nproc)]
+assert torch.equal(out[1][0].cpu(), sum(ints).to(torch.int32)), "int32 sum, wrapped"
+assert int(out[1][1]) == sum(123456789012 + r for r in range(nproc)), "int64 sum"
+assert out[0].is_cuda and out[1][0].dtype == torch.int32
+if nproc > 1:
+    t = torch.full((3,), float(pid), device=dev)
+    parts = [torch.empty_like(t) for _ in range(nproc)]
+    dist.all_gather(parts, t)
+    assert [float(p[0]) for p in parts] == [float(r) for r in range(nproc)]
+    b = torch.full((2,), float(pid + 10), device=dev)
+    dist.broadcast(b, src=0)
+    assert float(b[0]) == 10.0
+if backend == "nccl" and nproc > 1:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        psum(f, mesh)
+        torch.cuda.synchronize()
+    assert any("nccl" in e.key.lower() for e in prof.key_averages()), "no NCCL kernel ran"
+view = cluster.gather(cluster.beat(5, rows=10 * (pid + 1), t=100.0 + pid))
+assert int(view.hosts) == nproc and int(view.rows) == sum(10 * (r + 1) for r in range(nproc))
+cluster.shutdown()
+print("ok")
+"""
+
+
+def _run_ranks(nproc: int, backend: str) -> None:
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.cluster.bootstrap import free_port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", _PSUM, str(r), str(nproc), port, backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=root) for r in range(nproc)]
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0 and out.strip().endswith("ok"), out + err
+
+
+def test_psum_one_rank_nccl(dev):
+    """A one-process NCCL group: psum still runs NCCL's all-reduce on the
+    card, and floats, int32 (wrapping) and int64 fields come back exact."""
+    _run_ranks(1, "nccl")
+
+
+def test_gloo_collectives_take_cuda_tensors(dev):
+    """Two ranks on one card over gloo: psum, all_gather and broadcast of
+    CUDA tensors, exact, and the heartbeat's all-gather."""
+    _run_ranks(2, "gloo")
+
+
+def test_psum_two_ranks_nccl_on_two_cards(dev):
+    """Two ranks, each on its own card, over NCCL: psum exact, and NCCL's
+    all-reduce kernel on the device (torch.profiler)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes a card a rank")
+    _run_ranks(2, "nccl")
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev):
+    from repro_torch import cluster
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("more than one card: NCCL can give each rank its own")
+    with pytest.raises(ValueError, match="--dist-backend gloo"):
+        cluster.initialize("127.0.0.1:1", 2, 0, backend="nccl", device="cuda")

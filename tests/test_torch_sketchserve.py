@@ -393,8 +393,12 @@ def test_snapshot_plan_codec_across_packages(tmp_path):
     key = arrays["t/__key__"]
     assert key.dtype == np.uint32 and key.shape == (2,)
     assert np.array_equal(key, np.asarray(jax.random.PRNGKey(2**32 + 5)))
-    with pytest.raises(NotImplementedError, match="Sharded backend"):
-        plan_from_json(dict(plan_to_json(_plan()), mesh={"axis_names": ["data"], "shape": [1]}))
+    # a mesh travels as its geometry, the reference's encoding, both ways
+    spec = {"axis_names": ["data"], "shape": [1]}
+    meshed = plan_from_json(dict(plan_to_json(_plan()), mesh=spec))
+    assert meshed.mesh.shape == {"data": 1} and plan_to_json(meshed)["mesh"] == spec
+    assert plan_to_json(meshed) == jserve.snapshot.plan_to_json(
+        jserve.snapshot.plan_from_json(plan_to_json(meshed)))
 
 
 # ---------------------------------------------------------- tenant eviction --

@@ -95,13 +95,12 @@ def test_launcher_runs_on_cpu():
 
 
 def test_options_not_ported_raise(tmp_path):
-    """The sharded backend raises naming its ROADMAP item; the options the
-    port has (refine_passes, reassignment tracking, checkpoints, run_scanned,
-    replay, telemetry) run."""
+    """The options the port has (the sharded backend, refine_passes,
+    reassignment tracking, checkpoints, run_scanned, replay, telemetry) run."""
     src = VectorStreamSource(p=64, batch=8)
     plan = api.Plan(backend="stream", gamma=0.25, batch_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.make_engine(plan.replace(backend="sharded"), 64, 0, src, device="cpu")
+    sharded = api.make_engine(plan.replace(backend="sharded"), 64, 0, src, device="cpu")
+    assert torch.equal(sharded.run(2).cov, api.make_engine(plan, 64, 0, src, device="cpu").run(2).cov)
     assert api.make_engine(plan.replace(refine_passes=1), 64, 0, src, device="cpu").run(1)
     # the batch backend runs through the estimators, as in the reference
     with pytest.raises(ValueError, match="estimator classes"):
