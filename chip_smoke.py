@@ -36,7 +36,10 @@ Phases, in order; any failure exits non-zero:
               PCA(4), K-means(4)]) at p = 1000 (Lloyd's labels equal); the
               engine's replay(passes=2) (low-rank with K-means) and fit_refine
               (PCA, minibatch K-means) at p = 1000: refined subspaces within a
-              principal-angle sine of 1e-5, refined labels equal.
+              principal-angle sine of 1e-5, refined labels equal; the trainer
+              (train_parity): 3 steps of a reduced gemma3-1b with
+              CompressConfig(gamma=0.1), K2 twice a step, within 1e-5 of the
+              CPU's losses, grad_norm and residual.
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
               (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
@@ -146,8 +149,27 @@ Phases, in order; any failure exits non-zero:
               --log-every, the all-reduce timed, a checkpoint after step 4
               and --resume to step 8 bit-equal to the uninterrupted run.
 
+13. train  — gemma3-1b at full width and depth (1,301,802,624 bf16
+              parameters), CompressConfig(gamma=0.1) with error feedback,
+              AdamW in float32, SyntheticLMSource(seed=0) at seq 4096, a
+              global batch of 8 as ACCUM13 micro-batches, 6 steps through
+              make_train_fn: every loss finite and the last two below the
+              first; K2 on its kernel path twice a step at (79,456, 16384)
+              and no plain version; wire_floats = 79,456 × 1638; peak memory
+              under 70 GiB; a checkpoint of the state after step 3, written
+              by save's thread while steps 4-6 run, restored bit-equal and
+              continued to step 6 with the uninterrupted run's losses and
+              final parameters, bit for bit; at the final parameters K2 on a
+              real gradient's chunks bit-equal to its plain version in both
+              modes (timed beside its bound and x @ (H·D)), the step's mask
+              bit-equal to the CPU's draws, the error-feedback identity
+              ĝ + r' = g + r, and a step's time split into forward+backward
+              (one micro-batch's, with its largest kernels), compression and
+              the optimizer.
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
-or 7; launches_by_phase: that count and phase 9's, 10's, 11's and 12's paths' own),
+or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's and 13's
+paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -203,6 +225,12 @@ PATH11 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm", "spmm_t",
 # phase 12: rows a shard a step and steps of the dense sharded stream; the
 # low-rank sharded path's rows a shard and steps
 B12, STEPS12, B12_LR, STEPS12_LR = 2048, 8, 1024, 4
+# phase 13: gemma3-1b trained at full width: the config's train_4k sequence
+# length, a global batch of 8 sequences as ACCUM13 micro-batches, its steps and
+# the step after which it checkpoints, its peak-memory ceiling, AdamW's peak
+# lr, and flash_attention's query and KV chunks
+SEQ13, BATCH13, ACCUM13, STEPS13, CKPT13, PEAK13_GIB, LR13 = 4096, 8, 2, 6, 3, 70.0, 1e-3
+Q13, KV13 = 1024, 1024
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -1007,6 +1035,358 @@ def phase12_sharded(card: str, x8) -> dict[str, int]:
     return launches12
 
 
+def params_match(got, want) -> tuple[int, int, float]:
+    """(coordinates more than 1e-6 apart, all coordinates, the largest
+    difference) of two parameter trees. Adam's first step divides a gradient
+    entry near its ε by its own magnitude, so there an entry's last bits set
+    an update of up to lr: the caller holds the count to 1e-4 of all and the
+    largest difference to 2·lr."""
+    from repro_torch.utils.tree import tree_leaves
+
+    apart, total, worst = 0, 0, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = (a.detach().float() - b.detach().to(a.device).float()).abs()
+        apart += int((d > 1e-6).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    return apart, total, worst
+
+
+def train_parity() -> None:
+    """Phase 4's trainer case: 3 compressed steps of a reduced gemma3-1b on
+    the card (K2 twice a step) against the same steps on the CPU, from the
+    CPU's weights: losses, grad_norm and lr within 1e-5 relative, the
+    residual within 1e-5 of its largest entry, the parameters as
+    :func:`params_match` counts them."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.grad_compress import CompressConfig
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_api
+    from repro_torch.models.transformer import NO_DIST
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    lm = get_api(get_arch("gemma3-1b", reduced=True))
+    tcfg4 = TrainerConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=3),
+                          compress=CompressConfig(gamma=0.1), q_chunk=16, kv_chunk=16)
+    w4 = lm.init_params(0, "cpu")
+    batches4 = [SyntheticLMSource(lm.cfg.vocab_size, 64, 4, seed=0).batch_for(s) for s in range(3)]
+
+    def small_train(device):
+        st = init_state(lm, tcfg4, prng.PRNGKey(0), device=device)
+        st["params"] = tree_map(lambda t: t.clone().to(device), w4)
+        fn4 = make_train_fn(lm, tcfg4, NO_DIST, prng.PRNGKey(0), device=device)
+        mets = []
+        for b4 in batches4:
+            st, met = fn4(st, b4)
+            mets.append({k: float(v) for k, v in met.items()})
+        return st, mets
+
+    ops.reset_counts()
+    (st_g, met_g), (st_c, met_c) = small_train("cuda"), small_train("cpu")
+    counts = ops.launch_counts()
+    apart, total, worst = params_match(st_g["params"], st_c["params"])
+    res_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for a, b in zip(tree_leaves(st_g["residual"]), tree_leaves(st_c["residual"])))
+    rel = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for a, b in zip(met_g, met_c))
+           for k in ("loss", "grad_norm", "lr")}
+    print(f"  trainer, gemma3-1b reduced, 3 steps with CompressConfig(gamma=0.1): losses card "
+          f"{[m_['loss'] for m_ in met_g]} / cpu {[m_['loss'] for m_ in met_c]}; relative |card - cpu| "
+          f"{rel} (≤ 1e-5); residual ≤ {res_err:.3g} of its largest (≤ 1e-5); parameters {apart} of "
+          f"{total} more than 1e-6 apart (≤ 1e-4 of them), largest {worst:.3g} (≤ 2·lr); "
+          f"launches {counts}")
+    check(counts["hd_precondition"] == 6, f"K2 did not launch twice a step: {counts}")
+    check(max(rel.values()) <= 1e-5 and res_err <= 1e-5 and apart <= 1e-4 * total
+          and worst <= 2e-3, "the trainer on the card differs from the CPU's")
+    check(all(a["wire_floats"] == b["wire_floats"] == 11 * 1638 for a, b in zip(met_g, met_c)),
+          "wire_floats differ")
+    del st_g, st_c, w4
+
+
+def phase13_train(card: str) -> dict[str, int]:
+    """Phase 13 (module docstring): gemma3-1b trained at full width on the
+    card with sketched gradient compression. Returns the kernels' launches on
+    the training run, read just after its reset."""
+    t13 = time.perf_counter()
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.core import ros
+    from repro_torch.core import sketch as sketch_mod
+    from repro_torch.core.sampling import sample_indices
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.api import get_api
+    from repro_torch.models.transformer import NO_DIST
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.host import from_host, to_host
+    from repro_torch.utils.tree import (tree_count_params, tree_leaves, tree_leaves_with_path,
+                                        tree_map, tree_size_bytes, tree_unflatten)
+
+    cfg = get_arch("gemma3-1b")
+    model = get_api(cfg)
+    comp = gc.CompressConfig(gamma=0.1)
+    cp, m = comp.chunk_p, comp.m
+    tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=LR13, warmup_steps=1, total_steps=STEPS13),
+                         accum_steps=ACCUM13, compress=comp, q_chunk=Q13, kv_chunk=KV13)
+    key = prng.PRNGKey(0)
+    print(f"== 13 train: {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV head of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.local_global_ratio}:1 local/global, window "
+          f"{cfg.sliding_window}), {cfg.dtype} parameters; CompressConfig(gamma={comp.gamma}): "
+          f"chunk_p {cp}, m {m}, error feedback; AdamW, float32 moments, peak lr {LR13}; "
+          f"SyntheticLMSource(seed=0), seq {SEQ13}, a global batch of {BATCH13} as {ACCUM13} "
+          f"micro-batches; flash_attention chunks {Q13} × {KV13}; {STEPS13} steps", flush=True)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_state(model, tcfg, key, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = tree_count_params(state["params"])
+    nc = -(-n // cp)
+    check(n == 1_301_802_624 and nc == 79_456, f"gemma3-1b has {n:,} parameters, {nc:,} chunks")
+    gib = lambda b: b / 2**30  # noqa: E731
+    print(f"  state: {n:,} parameters, {nc:,} chunks of {cp}: params "
+          f"{gib(tree_size_bytes(state['params'])):.2f} GiB, moments "
+          f"{gib(tree_size_bytes(state['opt'])):.2f} GiB, residual "
+          f"{gib(tree_size_bytes(state['residual'])):.2f} GiB; drawn on the card in {t_init:.2f} s")
+    fn = make_train_fn(model, tcfg, NO_DIST, key, device="cuda")
+    src = SyntheticLMSource(cfg.vocab_size, SEQ13, BATCH13, seed=0)
+    batches = [src.batch_for(s) for s in range(STEPS13)]
+    tokens = BATCH13 * SEQ13
+
+    def run(st, steps, label):
+        out = []
+        for s in steps:
+            k2 = ops.DISPATCH[("hd_precondition", "kernel")]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, met = fn(st, batches[s])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                       lr=float(met["lr"]), wire=int(met["wire_floats"]), s=dt,
+                       k2=ops.DISPATCH[("hd_precondition", "kernel")] - k2)
+            out.append(rec)
+            print(f"  {label} step {s}: loss {rec['loss']!r}, grad_norm {rec['grad_norm']:.4f}, lr "
+                  f"{rec['lr']:.3g}, wire_floats {rec['wire']:,}, {dt:.3f} s ({tokens / dt:,.0f} "
+                  f"tokens/s), K2 launches {rec['k2']}", flush=True)
+        return st, out
+
+    # the main path: steps 0 … CKPT13-1; a checkpoint of the state, written
+    # by save's thread while steps CKPT13 … run on; the saved state is kept
+    # on the host for the restore's check
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    state, recs = run(state, range(CKPT13), "run")
+    peak_run = torch.cuda.max_memory_allocated()
+    ckdir = tempfile.mkdtemp(prefix="phase13_")
+    t0 = time.perf_counter()
+    saved = tree_map(to_host, state)                    # numpy; bf16 leaves as |V2 words
+    ckpt_mod.save(ckdir, CKPT13, saved, extra={"pipeline": {"seed": 0, "step": CKPT13}},
+                  async_=True)
+    t_host = time.perf_counter() - t0
+    state, more = run(state, range(CKPT13, STEPS13), "run")
+    recs += more
+    torch.cuda.synchronize()
+    peak_run = max(peak_run, torch.cuda.max_memory_allocated())
+    launches13 = ops.launch_counts()
+    dispatch = dict(ops.DISPATCH)
+
+    losses = [r["loss"] for r in recs]
+    step_s = [r["s"] for r in recs]
+    print(f"  losses {losses}; step {np.median(step_s[1:]):.3f} s (median of steps 1-{STEPS13 - 1}; "
+          f"step 0 {step_s[0]:.3f} s), {tokens / np.median(step_s[1:]):,.0f} tokens/s; peak memory "
+          f"{gib(peak_run):.2f} GiB ({gib(base):.2f} GiB held before the phase); dispatch "
+          f"{dispatch}; launches {launches13}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"a loss is not finite: {losses}")
+    check(np.mean(losses[-2:]) < losses[0],
+          f"the loss did not fall: last two {losses[-2:]} against the first {losses[0]}")
+    check(all(r["k2"] == 2 for r in recs) and dispatch.get(("hd_precondition", "kernel")) == 2 * STEPS13
+          and launches13["hd_precondition"] == 2 * STEPS13,
+          f"K2 did not launch twice a step on the kernel path: {dispatch}")
+    check(not [k for k in dispatch if k[1] == "ref"], f"a plain version ran: {dispatch}")
+    check(all(r["wire"] == nc * m for r in recs), f"wire_floats is not {nc} × {m}")
+    check(peak_run < PEAK13_GIB * 2**30, f"peak memory {gib(peak_run):.2f} GiB ≥ {PEAK13_GIB} GiB")
+
+    # a step's parts at the final parameters, timed alone: one micro-batch's
+    # forward+backward, then the compressor's parts on its gradient plus the
+    # real residual
+    params = state["params"]
+    leaves = tree_leaves(params)
+    flat = torch.zeros((nc * cp,), dtype=torch.float32, device="cuda")
+    mb = BATCH13 // ACCUM13
+    part = {k: v[:mb].cuda() for k, v in batches[STEPS13 - 1].items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = model.loss_fn(params, part, NO_DIST, q_chunk=tcfg.q_chunk, kv_chunk=tcfg.kv_chunk)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        off = 0
+        for g in grads:
+            flat[off:off + g.numel()].add_(g.reshape(-1))
+            off += g.numel()
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms_fb = ev[0].elapsed_time(ev[1]) * ACCUM13
+    del grads, loss
+    # the same micro-batch's forward+backward under torch.profiler: its
+    # kernels' device time against the wall time, and the largest kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, part, NO_DIST, q_chunk=tcfg.q_chunk, kv_chunk=tcfg.kv_chunk)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall_mb = (time.perf_counter() - t0) * 1e3
+    del grads, loss
+    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    busy_mb = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"  one micro-batch's forward+backward: {wall_mb:.0f} ms wall, kernels {busy_mb:.0f} ms "
+          f"(device busy {busy_mb / wall_mb:.2f}), {sum(e.count for e in kern):,} launches; the "
+          f"largest:", flush=True)
+    for e in kern[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.1f} ms  {e.count:6d}x  {e.key[:90]}")
+    with torch.no_grad():
+        off = 0
+        for r in tree_leaves(state["residual"]):
+            flat[off:off + r.numel()].add_(r.reshape(-1))
+            off += r.numel()
+        v0 = flat.clone()                               # g + r
+        x = flat.view(nc, cp)
+        spec = gc.mask_spec(comp, prng.fold_in_str(key, "grad-compress"))
+        signs = ros.signs_for(spec.signs_key(), cp, device="cuda")
+        # K2 on the real chunks in both modes, against its plain version
+        # (row blocks on the card), its time beside its bound and x @ (H·D)
+        # each value read and written once; per value log2(p) butterfly
+        # additions, the sign and the scale
+        bound13 = bound(2 * 4.0 * nc * cp, float(nc * cp) * (cp.bit_length() - 1 + 2))
+        k2 = {}
+        for after in (False, True):
+            got = ops.hd_precondition(x, signs, signs_after=after)
+            same = all(torch.equal(got[r0:r0 + 4096], ref.ref_hd_precondition(x[r0:r0 + 4096], signs,
+                                                                              after))
+                       for r0 in range(0, nc, 4096))
+            check(same, f"K2 at ({nc}, {cp}) signs_after={after} is not bit-equal to its plain version")
+            del got
+            ms = time_ms(lambda: ops.hd_precondition(x, signs, signs_after=after), 3, warmup=1)
+            plain = time_ms(lambda: [ref.ref_hd_precondition(x[r0:r0 + 4096], signs, after)
+                                     for r0 in range(0, nc, 4096)], 1, warmup=0)
+            k2[after] = ms
+            print(f"  K2 hd_precondition ({nc:,}, {cp}) signs_after={after}: bit-equal to its plain "
+                  f"version; {ms:.4f} ms, bound {bound13[0]:.4f} ms ({bound13[1]}; "
+                  f"{bound13[0] / ms:.2f} of it), plain version {plain:.2f} ms", flush=True)
+        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        hmat = ros.hadamard_matrix(cp, device="cuda") * signs[None, :]          # H·D
+        rows = x[:4096]
+        lib = time_ms(lambda: torch.matmul(rows, hmat), 3) * nc / 4096
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        del hmat, rows
+        print(f"  x @ (H·D) on 4096 of the rows (TF32 off), scaled to {nc:,}: {lib:.2f} ms", flush=True)
+        # the step's mask: the row blocks against one-call draws on the CPU
+        step = STEPS13
+        mk = sketch_mod.batch_key(spec, step, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = sample_indices(mk, nc, cp, m, device="cuda")
+        torch.cuda.synchronize()
+        ms_mask = (time.perf_counter() - t0) * 1e3
+        head = min(256, nc)
+        cpu_head = sample_indices(mk, head, cp, m, device="cpu")
+        check(torch.equal(idx[:head].cpu(), cpu_head), "the mask's first rows differ from the CPU's")
+        edge_rows = [r for r in (2047, 2048, 4095, 4096) if r < nc] + [nc - 1]
+        for r in edge_rows:
+            u = prng.uniform(mk, (1, cp), offset=r * cp)
+            want = torch.sort(torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
+                              .to(torch.int32), dim=-1).values
+            check(torch.equal(idx[r:r + 1].cpu(), want), f"mask row {r} differs from the CPU's")
+        del idx
+        print(f"  the mask ({nc:,} × {m}): sample_indices {ms_mask:.1f} ms (threefry and sort, in "
+              f"row blocks); rows 0-{head - 1} and {edge_rows} bit-equal to the CPU's", flush=True)
+        # the whole round trip (K2 ×2, the mask, gather and scatter), then
+        # the error-feedback identity ĝ + r' = g + r
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_hat, res_flat, wire = gc.compress_flat(flat, prng.fold_in_str(key, "grad-compress"), step,
+                                                 comp)
+        torch.cuda.synchronize()
+        ms_comp = (time.perf_counter() - t0) * 1e3
+        check(wire == nc * m, f"wire floats {wire}")
+        err = float((g_hat[:n] + res_flat[:n] - v0[:n]).abs().max())
+        scale = float(v0[:n].abs().max())
+        print(f"  compress_flat: {ms_comp:.1f} ms (mask {ms_mask:.1f}, K2 {k2[False]:.2f} + "
+              f"{k2[True]:.2f}, gather and scatter and the rest {ms_comp - ms_mask - k2[False] - k2[True]:.1f}); "
+              f"max |ĝ + r' − (g + r)| {err:.3g} of max |g + r| {scale:.3g}", flush=True)
+        check(err <= 1e-6 * scale, "the error-feedback identity ĝ + r' = g + r does not hold")
+        del v0, res_flat, flat, x
+        g_leaves, off = [], 0
+        for p in leaves:
+            g_leaves.append(g_hat[off:off + p.numel()].view(p.shape))
+            off += p.numel()
+        final_params = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_mod.adamw_update(tree_unflatten(params, g_leaves), params, state["opt"], tcfg.opt)
+        torch.cuda.synchronize()
+        ms_opt = (time.perf_counter() - t0) * 1e3
+        del g_hat, g_leaves
+    step_med = np.median(step_s[1:]) * 1e3
+    print(f"  a step's parts, each timed alone: forward+backward of {ACCUM13} micro-batches "
+          f"{ms_fb:.0f} ms ({ACCUM13} × one), compression {ms_comp:.0f} ms, optimizer {ms_opt:.0f} "
+          f"ms; together {ms_fb + ms_comp + ms_opt:.0f} ms against the step's {step_med:.0f} ms",
+          flush=True)
+
+    # resume: the checkpoint restored to the host in the state's dtypes, held
+    # against the saved state, then moved to the card as a fresh state
+    t0 = time.perf_counter()
+    ckpt_mod.wait_for_pending()
+    t_wait = time.perf_counter() - t0
+    npz = os.path.join(ckpt_mod.latest_step_dir(ckdir), "arrays.npz")
+    ck_bytes = os.path.getsize(npz)
+    t0 = time.perf_counter()
+    restored, extra = ckpt_mod.restore(ckdir, state, device="cpu")
+    t_restore = time.perf_counter() - t0
+    shutil.rmtree(ckdir)
+    del state, params, leaves, part
+    torch.cuda.empty_cache()
+    differ = [name for (name, a), (_, b) in zip(tree_leaves_with_path(restored),
+                                                tree_leaves_with_path(saved))
+              if not torch.equal(a, from_host(b))]
+    del saved
+    print(f"  checkpoint after step {CKPT13}: {ck_bytes:,} bytes; copied to the host in "
+          f"{t_host:.2f} s, written by save's thread under steps {CKPT13}-{STEPS13 - 1} and the "
+          f"parts above ({t_wait:.2f} s waited for it after them), restored to the host in "
+          f"{t_restore:.2f} s; restored state bit-equal to the saved one: {not differ}", flush=True)
+    check(not differ and extra == {"pipeline": {"seed": 0, "step": CKPT13}},
+          f"the restored state differs from the saved one in {differ[:5]}")
+    restored = tree_map(lambda t: t.cuda(), restored)
+    restored, resumed = run(restored, range(CKPT13, STEPS13), "resumed")
+    same_loss = [a["loss"] == b["loss"] for a, b in zip(resumed, recs[CKPT13:])]
+    apart, total, worst = params_match(restored["params"], final_params)
+    print(f"  resumed losses {[r['loss'] for r in resumed]} against {losses[CKPT13:]}: equal "
+          f"{same_loss}; final parameters: {apart:,} of {total:,} more than 1e-6 apart (largest "
+          f"{worst:.3g})", flush=True)
+    check(all(same_loss) and apart == 0 and worst == 0,
+          "the resumed run's losses or final parameters differ from the uninterrupted run's")
+    del restored, final_params
+    torch.cuda.empty_cache()
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {card}", flush=True)
+    return launches13
+
+
 def main() -> None:
     import torch
     from torch.autograd import DeviceType
@@ -1672,6 +2052,8 @@ def main() -> None:
         km_g.refine_reassign_counts_, km_c.refine_reassign_counts_),
         "refinement reassignment counts differ between the card and the CPU")
     del res_g, lab_g, pca_g, km_g, res_c, lab_c, pca_c, km_c
+
+    train_parity()
 
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
@@ -2451,6 +2833,9 @@ def main() -> None:
     launches12 = phase12_sharded(card, x8)
     del x8
 
+    # ---------------------------------------------------------------- 13 train
+    launches13 = phase13_train(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -2469,7 +2854,7 @@ def main() -> None:
     # each read just after its reset
     later = {"9 resume": launches9, "10 refine": launches10_refine,
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
-             "11 serve": launches11, "12 sharded": launches12}
+             "11 serve": launches11, "12 sharded": launches12, "13 train": launches13}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],

@@ -57,8 +57,10 @@ Alg. 2)::
 (:mod:`repro_torch.cluster`): each process sketches and folds the shards it
 owns and one all-reduce of the fixed-size delta a step reduces them; in one
 process it owns every shard. ``python -m repro_torch.launch.cluster`` runs
-the engine over N processes. :class:`GradCompressor` is not ported yet: it
-raises ``NotImplementedError`` naming its ROADMAP item.
+the engine over N processes. :class:`GradCompressor` compresses gradient
+trees with the same sketch and keys (``repro_torch.core.grad_compress``); the
+trainer (``repro_torch.train``, ``python -m repro_torch.launch.train``) runs
+it on a language model's gradients.
 """
 from __future__ import annotations
 

@@ -50,6 +50,7 @@ from repro_torch.core import estimators as est
 from repro_torch.core import kmeans as km
 from repro_torch.core import pca as pca_mod
 from repro_torch.core import sketch as sketch_mod
+from repro_torch.core.grad_compress import CompressConfig, compress_grads, mask_spec
 from repro_torch.core.sampling import SparseRows
 from repro_torch.core.sketch import batch_key
 from repro_torch.kernels import ops
@@ -58,8 +59,9 @@ from repro_torch.stream import sharded as sharded_mod
 from repro_torch.stream import state as state_mod
 from repro_torch.train import checkpoint as checkpoint_mod
 from repro_torch.utils import prng
-from repro_torch.utils.device import not_ported, resolve_device
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.prng import fold_in_str
+from repro_torch.utils.tree import tree_map
 
 def as_key(key) -> np.ndarray:
     """Accept an int seed or threefry key data (uint32[2]) — the one
@@ -1196,8 +1198,45 @@ class SparsifiedKMeans(SketchedEstimator):
 
 
 class GradCompressor:
-    """The reference's gradient compressor (``repro.api.GradCompressor``):
-    not ported yet."""
+    """The paper's estimator as a stateful gradient compressor — one front door
+    over ``core.grad_compress`` sharing the repo's (seed, step, shard) key
+    discipline: masks are ``sketch.batch_key(mask_spec(cfg, key), step, shard)``,
+    exactly as a stream shard's data masks are.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("GradCompressor", "LM side, last")
+    Holds the error-feedback residual and a step cursor; ``transform`` (alias
+    ``compress``) is the per-step round trip of a gradient tree (nested dicts
+    of tensors) on ``device`` ("cuda" by default; "cpu" on request). The
+    trainer runs the same round trip on its flattened gradients with the same
+    cfg and key — the masks are identical by construction.
+    """
+
+    def __init__(self, cfg: CompressConfig = CompressConfig(), key=0, shard: int = 0,
+                 device="cuda"):
+        self.cfg = cfg
+        self.key = as_key(key)
+        self.shard = int(shard)
+        self.device = resolve_device(device)
+        self.spec_ = mask_spec(cfg, self.key)
+        self.reset()
+
+    def reset(self) -> "GradCompressor":
+        self.residual_ = None
+        self.step_ = 0
+        self.wire_floats_ = 0
+        return self
+
+    def transform(self, grads, step: int | None = None):
+        """Compress-decompress one gradient tree; returns ĝ (same structure).
+
+        ``step`` defaults to the internal cursor (auto-incremented); pass the
+        trainer's step to stay aligned with a resumed run.
+        """
+        s = self.step_ if step is None else int(step)
+        grads = tree_map(lambda g: torch.as_tensor(g).to(self.device), grads)
+        g_hat, self.residual_, wire = compress_grads(
+            grads, self.key, s, self.cfg, residual=self.residual_, shard=self.shard)
+        self.wire_floats_ = wire
+        self.step_ = s + 1
+        return g_hat
+
+    compress = transform

@@ -12,6 +12,10 @@ import torch
 
 from repro_torch.utils.prng import uniform
 
+# uniforms drawn and sorted at a time by sample_indices: 2^25 float32 draws,
+# ≈ 1 GiB of temporaries with the sort's values and int64 indices
+SAMPLE_BLOCK = 1 << 25
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseRows:
@@ -48,12 +52,23 @@ def sample_indices(key, n: int, p: int, m: int, device="cpu") -> torch.Tensor:
     The reference takes ``lax.top_k`` of threefry uniforms, which puts the
     lower index first among equal values; a stable descending sort does the
     same (``torch.topk`` leaves the order of ties undefined).
+
+    Rows are drawn and sorted ``max(1, SAMPLE_BLOCK // p)`` at a time, so a
+    call holds O(SAMPLE_BLOCK) temporaries whatever n is. The uniforms are
+    numbered by flat index, so rows ``[r0, r1)`` are the draw's flat range
+    ``[r0·p, r1·p)`` and the blocks give the one-call result bit for bit.
     """
     if not (0 < m <= p):
         raise ValueError(f"need 0 < m <= p, got m={m}, p={p}")
-    u = uniform(key, (n, p), device=device)
-    order = torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
-    return torch.sort(order.to(torch.int32), dim=-1).values
+    out = torch.empty((n, m), dtype=torch.int32, device=device)
+    rows = max(1, SAMPLE_BLOCK // p)
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        u = uniform(key, (r1 - r0, p), device=device, offset=r0 * p)
+        order = torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
+        del u
+        out[r0:r1] = torch.sort(order.to(torch.int32), dim=-1).values
+    return out
 
 
 def subsample(y: torch.Tensor, key, m: int) -> SparseRows:

@@ -1,4 +1,4 @@
-"""Deterministic, shard-aware vector streams (host-side numpy).
+"""Deterministic, shard-aware token and vector streams (host-side numpy).
 
 Every batch is a pure function of (seed, step, shard), so any worker can
 regenerate any batch. The sources are numpy-seeded and byte-identical to the
@@ -29,6 +29,42 @@ class PipelineState:
     @classmethod
     def from_json(cls, d: dict) -> "PipelineState":
         return cls(seed=int(d["seed"]), step=int(d["step"]))
+
+
+class SyntheticLMSource:
+    """Deterministic synthetic token stream (zipf-ish unigram + shifted labels).
+
+    A batch is ``{"tokens", "labels"}``, int32 (global_batch, seq_len) CPU
+    tensors, the labels the tokens shifted by one.
+    """
+
+    def __init__(self, vocab_size: int, seq_len: int, global_batch: int, seed: int = 0):
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.batch = global_batch
+        self.state = PipelineState(seed=seed)
+        probs = 1.0 / np.arange(1, vocab_size + 1) ** 1.1
+        self._probs = probs / probs.sum()
+
+    def _batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.state.seed, step))
+        toks = rng.choice(self.vocab, size=(self.batch, self.seq + 1), p=self._probs)
+        toks = toks.astype(np.int32)
+        return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> dict:
+        b = self._batch_at(self.state.step)
+        self.state.step += 1
+        return b
+
+    def batch_for(self, step: int) -> dict:
+        """Backup-dispatch hook: regenerate any step's batch on any worker."""
+        return self._batch_at(step)
 
 
 class VectorStreamSource:

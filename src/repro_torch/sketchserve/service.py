@@ -109,8 +109,8 @@ from repro_torch.api.plan import Plan
 from repro_torch.sketchserve.protocol import (AdminRequest, IngestRequest,
                                               QueryRequest, Response)
 from repro_torch.stream.state import state_nbytes
-from repro_torch.train.checkpoint import to_host
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.host import to_host
 
 ESTIMATORS = {
     "mean": SparsifiedMean,

@@ -54,6 +54,7 @@ import torch
 
 from repro_torch.api.plan import Plan, mesh_from_spec, mesh_spec
 from repro_torch.train import checkpoint
+from repro_torch.utils.host import to_host
 
 
 def _dtype_name(dtype) -> str:
@@ -114,7 +115,7 @@ def save_service(svc, path: str, step: int = 1,
                                                      dtype=np.int64)
         if g.retained:
             arrays[f"{gid}/__retained__"] = np.concatenate(
-                [checkpoint.to_host(c) for c in g.retained])
+                [to_host(c) for c in g.retained])
             arrays[f"{gid}/__retained_rows__"] = np.array(
                 [c.shape[0] for c in g.retained], np.int64)
         for tid, t in g.tenants.items():

@@ -95,12 +95,14 @@ def split(key, num: int = 2) -> np.ndarray:
 
 # ------------------------------------------------------------------ bits ----
 
-def _bits_chunks(key, numel: int, device):
-    """Yield ``(start, bits)`` over the flat index range, ``bits`` int64."""
+def _bits_chunks(key, numel: int, device, offset: int = 0):
+    """Yield ``(start, bits)`` over the flat indices ``offset … offset + numel``,
+    ``start`` counted from ``offset``, ``bits`` int64."""
     k1, k2 = _key_ints(key)
     for start in range(0, numel, _CHUNK):
         count = min(_CHUNK, numel - start)
-        idx = torch.arange(start, start + count, dtype=torch.int64, device=device)
+        idx = torch.arange(offset + start, offset + start + count, dtype=torch.int64,
+                           device=device)
         hi = idx >> 32
         lo = idx.bitwise_and_(M32)
         y0, y1 = _threefry2x32(k1, k2, hi, lo)
@@ -117,13 +119,18 @@ def random_bits(key, shape, device="cpu") -> torch.Tensor:
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device="cpu") -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits in [1, 2) − 1."""
+            device="cpu", offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits in [1, 2) − 1.
+
+    With ``offset`` the draw is the part of a larger draw under ``key`` that
+    starts at flat index ``offset``: rows ``[r0, r1)`` of an ``(n, p)`` draw
+    are ``uniform(key, (r1 - r0, p), offset=r0 * p)``.
+    """
     shape = tuple(shape)
     out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
-    for start, bits in _bits_chunks(key, out.numel(), device):
+    for start, bits in _bits_chunks(key, out.numel(), device, offset):
         f = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
         f = f.to(torch.int32).view(torch.float32) - 1.0
         out[start:start + f.numel()] = torch.maximum(lo, f * span + lo)

@@ -29,8 +29,10 @@ from repro_torch.api import (
     SparsifiedPCA,
     fit_many,
 )
+from repro_torch.configs.registry import get_arch
 from repro_torch.core import estimators, kmeans, pca, sketch
 from repro_torch.data.pipeline import VectorStreamSource
+from repro_torch.models.api import get_api
 
 CPU = dict(device="cpu")
 
@@ -586,16 +588,16 @@ def test_lowrank_pca_estimator_matches_the_engine():
 
 
 def test_not_ported_paths_name_their_item(tmp_path):
-    """What is not ported raises naming its item; what the port has (the
-    sharded backend, the FD path, refinement, estimator and fused-run
-    checkpoints) runs."""
+    """What is not ported (the moe family's model) raises naming its item;
+    what the port has (the sharded backend, the FD path, refinement,
+    estimator and fused-run checkpoints) runs."""
     x = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
     plan = _plan()
     two = plan.replace(backend="sharded", batch_size=4, n_shards=2)
     _close(SparsifiedMean(two, **CPU).fit(x).mean_,
            SparsifiedMean(two.replace(backend="stream"), **CPU).fit(x).mean_.numpy())
     cases = [
-        ("LM side, last", lambda: api.GradCompressor()),
+        ("LM side, last", lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))),
     ]
     for item, call in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -762,3 +762,36 @@ def test_nccl_refuses_two_ranks_on_one_card(dev):
         pytest.skip("more than one card: NCCL can give each rank its own")
     with pytest.raises(ValueError, match="--dist-backend gloo"):
         cluster.initialize("127.0.0.1:1", 2, 0, backend="nccl", device="cuda")
+
+
+def test_compress_decompress_on_the_card_matches_cpu(dev):
+    """The gradient compressor on the gradient of a reduced gemma3-1b (11
+    chunks of 2^14): on the card (the mask drawn there, K2 forward and with
+    the signs after) bit-equal to the same call on the CPU (the plain
+    butterfly), and K2 launched twice."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.models import transformer as tr
+    from repro_torch.utils.prng import PRNGKey
+    from repro_torch.utils.tree import tree_flatten_to_vector, tree_leaves
+
+    cfg = get_arch("gemma3-1b", reduced=True)
+    params = tr.init_lm_params(0, cfg, device="cpu")
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    loss, _ = tr.lm_loss(params, batch, cfg, q_chunk=16, kv_chunk=16)
+    vec, _ = tree_flatten_to_vector(list(torch.autograd.grad(loss, leaves)))
+    cfg_c = gc.CompressConfig(gamma=0.1)
+    for unbiased in (False, True):
+        want, want_vals = gc.compress_decompress(vec, PRNGKey(3), 2, cfg_c, unbiased=unbiased)
+        before = ops.DISPATCH[("hd_precondition", "kernel")]
+        got, vals = gc.compress_decompress(vec.to(dev), PRNGKey(3), 2, cfg_c, unbiased=unbiased)
+        torch.cuda.synchronize()
+        assert ops.DISPATCH[("hd_precondition", "kernel")] == before + 2
+        assert vals.shape == (11, 1638)
+        assert torch.equal(vals.cpu(), want_vals)
+        assert torch.equal(got.cpu(), want)

@@ -71,6 +71,24 @@ def test_sample_indices_exact_at_p_2_14(partitionable):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("block", [1 << 14, 3 << 14, 1 << 16])
+def test_sample_indices_in_row_blocks(partitionable, monkeypatch, block):
+    """Rows drawn and sorted a block at a time (1, 3 and 4 rows of p = 2^14;
+    11 rows leave a ragged last block) equal the one-call draw and the
+    reference's, bit for bit: the uniforms are numbered by flat index."""
+    k = jax.random.PRNGKey(9)
+    n, p, m = 11, 1 << 14, 1638
+    monkeypatch.setattr(sampling, "SAMPLE_BLOCK", n * p)
+    whole = sampling.sample_indices(_kd(k), n, p, m).numpy()
+    monkeypatch.setattr(sampling, "SAMPLE_BLOCK", block)
+    got = sampling.sample_indices(_kd(k), n, p, m).numpy()
+    np.testing.assert_array_equal(got, whole)
+    np.testing.assert_array_equal(got, np.asarray(jsampling.sample_indices(k, n, p, m)))
+    np.testing.assert_array_equal(
+        prng.uniform(_kd(k), (4, p), offset=5 * p).numpy(),
+        prng.uniform(_kd(k), (n, p)).numpy()[5:9])
+
+
 @pytest.mark.parametrize("seed", range(5))
 def test_categorical_exact(partitionable, seed):
     k = jax.random.PRNGKey(seed)
