@@ -39,7 +39,12 @@ Phases, in order; any failure exits non-zero:
               principal-angle sine of 1e-5, refined labels equal; the trainer
               (train_parity): 3 steps of a reduced gemma3-1b with
               CompressConfig(gamma=0.1), K2 twice a step, within 1e-5 of the
-              CPU's losses, grad_norm and residual.
+              CPU's losses, grad_norm and residual; serving (serve_parity):
+              a reduced gemma3-1b in float32 prefilled with 24 tokens and
+              decoded 8 steps, within 1e-5 of the CPU's logits, and one
+              sample_indices draw in JAX's original threefry layout (4100
+              rows of p = 16384, three row blocks) bit-equal to the CPU's
+              rows at the blocks' edges.
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
               (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
@@ -167,9 +172,34 @@ Phases, in order; any failure exits non-zero:
               (one micro-batch's, with its largest kernels), compression and
               the optimizer.
 
+14. lm-serve — LM serving at full width through get_api's prefill_fn,
+              decode_fn and init_decode_state and ServeEngine, in bf16
+              unless stated, random weights from a seeded torch.Generator:
+              (a) gemma3-1b on launch.serve's path, prefill of 2 × 32768
+              (prefill_32k's sequence, batch 32 → 2) into a float32 cache
+              padded by 16, then 16 greedy decode steps; (b) decode_32k's
+              cache length: init_kv_cache(32, 32768) in bf16 (27.9 GB,
+              batch 128 → 32) filled from a seeded generator, 16 decode
+              steps from cur_len = 32753; (c) glm4-9b (18.8 GB of weights)
+              prefill of 8 × 4096 (train_4k's sequence), 32 decode steps;
+              (d) qwen2-vl-2b prefill of 4 × 4096 with 256 seeded vision
+              embeddings on a 16 × 16 M-RoPE grid, 16 decode steps; (e)
+              ServeEngine(n_slots=4, max_len=128) over 8 requests of 8–64
+              prompt tokens, max_new=16 (2 waves), gemma3-1b in float32 with
+              TF32 off, every request's tokens equal to its one-by-one
+              greedy decoding (each alone in its slot of its wave). Gates:
+              every logit finite; peak memory under 70 GiB a case; for (a)
+              at 4096 tokens, (c) and (d), prefill then one decode_step
+              against forward over one more token within TOL14 of max
+              |logit|, argmax equal where the top-2 margin exceeds it. It
+              prints prefill tokens/s, decode ms a step and tokens/s beside
+              the step's byte bound (the cache and the weights read, over
+              3.35 TB/s) and peak memory. No kernel of the repo serves a
+              model, so the phase's launches are 0.
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
-or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's and 13's
-paths' own),
+or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's and
+14's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -231,6 +261,26 @@ B12, STEPS12, B12_LR, STEPS12_LR = 2048, 8, 1024, 4
 # lr, and flash_attention's query and KV chunks
 SEQ13, BATCH13, ACCUM13, STEPS13, CKPT13, PEAK13_GIB, LR13 = 4096, 8, 2, 6, 3, 70.0, 1e-3
 Q13, KV13 = 1024, 1024
+# phase 14: LM serving at full width in bf16. (a) gemma3-1b at prefill_32k's
+# sequence, batch 2 (of 32), a float32 cache, and its prefill-then-decode gate
+# at GATE14 tokens; (b) decode_32k's cache length at batch 32 (of 128); (c)
+# glm4-9b prefill at train_4k's sequence, batch 8; (d) qwen2-vl-2b prefill at
+# 4096, batch 4, with its 256 vision tokens on a 16 × 16 grid; (e) gemma3-1b in
+# float32 through ServeEngine: 8 requests over 4 slots, max_len 128, 16 new
+# tokens each. The gates' logit tolerance is TOL14 of max |logit| (below); the
+# ceiling on peak memory PEAK14_GIB
+S14A, B14A, GEN14A, GATE14 = 32768, 2, 16, 4096
+B14B, GEN14B = 32, 16
+S14C, B14C, GEN14C = 4096, 8, 32
+S14D, B14D, GEN14D, GRID14 = 4096, 4, 16, 16
+SLOTS14, MAXLEN14, REQS14, NEW14 = 4, 128, 8, 16
+PEAK14_GIB = 70.0
+# prefill then one decode_step against forward over one more token, in bf16:
+# the port against the reference (each rounding its bf16 matmuls its own way)
+# differs by up to 0.034 of max |logit| on the CPU at reduced width and full
+# depth (gemma3-1b's 26 layers; glm4-9b's 40: 0.022; qwen2-vl-2b's 28: 0.020),
+# so 0.08 (2.3× that); argmax equal wherever the top-2 margin exceeds it
+TOL14 = 0.08
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -1004,8 +1054,9 @@ def phase12_sharded(card: str, x8) -> dict[str, int]:
         check("dist backend: gloo, world 2, device cuda" in out_full, "sharded: (b) not 2 gloo ranks")
         check("heartbeat: hosts=2" in out_full, "sharded: (b) --log-every did not show cluster.hosts == 2")
         for rank in (0, 1):
-            line = next(l for l in out_full.splitlines() if l.startswith(f"rank {rank}:"))
-            counts = json.loads(line.split("launches ", 1)[1])
+            found = re.search(rf"rank {rank}: folded [^\n]*?launches (\{{[^}}]*\}})", out_full)
+            check(found is not None, f"sharded: rank {rank} printed no launch counts")
+            counts = json.loads(found.group(1))
             for name in ("sketch_fused", "sparse_assign", "spmm_t"):
                 check(counts[name] > 0, f"sharded: {name} did not launch on rank {rank}")
         full = np.load(os.path.join(tmp, "full.npz"))
@@ -1309,7 +1360,7 @@ def phase13_train(card: str) -> dict[str, int]:
         check(torch.equal(idx[:head].cpu(), cpu_head), "the mask's first rows differ from the CPU's")
         edge_rows = [r for r in (2047, 2048, 4095, 4096) if r < nc] + [nc - 1]
         for r in edge_rows:
-            u = prng.uniform(mk, (1, cp), offset=r * cp)
+            u = prng.uniform(mk, (1, cp), offset=r * cp, total=nc * cp)
             want = torch.sort(torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
                               .to(torch.int32), dim=-1).values
             check(torch.equal(idx[r:r + 1].cpu(), want), f"mask row {r} differs from the CPU's")
@@ -1385,6 +1436,319 @@ def phase13_train(card: str) -> dict[str, int]:
     torch.cuda.empty_cache()
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {card}", flush=True)
     return launches13
+
+
+def serve_parity() -> None:
+    """Phase 4's serving cases: a reduced gemma3-1b in float32 (windowed and
+    global layers) prefilled with 24 tokens and decoded 8 steps on the card
+    and on the CPU from the CPU's weights, every step's logits within 1e-5 of
+    max |logit|; and one sample_indices draw in JAX's original threefry
+    layout (4100 rows of p = 16384: three row blocks, pairs across the
+    draw's halves), bit-equal to the CPU's rows at the blocks' edges."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.sampling import sample_indices
+    from repro_torch.models.api import get_api
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_map
+
+    lm = get_api(get_arch("gemma3-1b", reduced=True))
+    w = lm.init_params(0, "cpu")
+    toks = prng.randint(prng.PRNGKey(5), (2, 32), 0, lm.cfg.vocab_size)
+
+    def run(device):
+        params = tree_map(lambda t: t.to(device), w)
+        logits, cache = lm.prefill_fn(params, {"tokens": toks[:, :24]}, q_chunk=8, kv_chunk=8,
+                                      cache_dtype=torch.float32, device=device)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 8)) for k, v in cache.items()}
+        out = [logits]
+        for t in range(8):
+            logits, cache = lm.decode_fn(params, toks[:, 24 + t:25 + t], cache, 25 + t,
+                                         device=device)
+            out.append(logits)
+        return torch.stack(out).cpu()
+
+    got, want = run("cuda"), run("cpu")
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"  serving, gemma3-1b reduced in float32: prefill of 24 tokens and 8 decode steps, "
+          f"|card - cpu| ≤ {err:.3g} of max |logit| (≤ 1e-5)")
+    check(err <= 1e-5, "prefill or decode_step on the card differs from the CPU")
+    n, p_, m_ = 4100, P, round(GAMMA * P)
+    key = prng.fold_in(prng.PRNGKey(6), 3)
+    with prng.threefry_partitionable(False):
+        idx = sample_indices(key, n, p_, m_, device="cuda").cpu()
+        rows = [(0, 8), (2044, 2052), (4092, 4100)]
+        same = []
+        for r0, r1 in rows:
+            u = prng.uniform(key, (r1 - r0, p_), offset=r0 * p_, total=n * p_)
+            top = torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m_]
+            same.append(torch.equal(idx[r0:r1], torch.sort(top.to(torch.int32), dim=-1).values))
+    print(f"  sample_indices in the original threefry layout, ({n}, {p_}, m = {m_}) on the card "
+          f"in row blocks: rows {rows} bit-equal to the CPU's: {same}")
+    check(all(same), "the original layout's mask on the card differs from the CPU's")
+
+
+def phase14_serve(card: str) -> dict[str, int]:
+    """Phase 14 (module docstring): LM serving at full width. Returns the
+    kernels' launches over the phase (the repo's kernels serve no model)."""
+    t14 = time.perf_counter()
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.api import get_api
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_size_bytes
+
+    gib = lambda b: b / 2**30  # noqa: E731
+    dev = torch.device("cuda")
+    print(f"== 14 lm-serve: prefill, the KV cache, decode_step and ServeEngine at full width "
+          f"(random weights from torch.Generator(seed 0); logit tolerance {TOL14} of max |logit|)",
+          flush=True)
+    torch.cuda.empty_cache()
+    ops.reset_counts()
+
+    def weights_read(params) -> int:
+        """Bytes a decode step reads of the weights: all but the embedding
+        table, of which it gathers B rows."""
+        return tree_size_bytes(params) - params["embed"].numel() * params["embed"].element_size()
+
+    def cache_bytes(cache) -> int:
+        return sum(t.numel() * t.element_size() for t in cache.values())
+
+    def finite(t, what):
+        check(bool(torch.isfinite(t).all()), f"{what}: a logit is not finite")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def decode_loop(lm, params, cache, first, start, steps, label):
+        """Greedy decode from token ``first`` (B, 1) at cur_len ``start``;
+        every step timed and its logits checked; returns (the first step's
+        logits, the step times)."""
+        cur, times, first_logits = first, [], None
+        for t in range(steps):
+            (logits, cache), dt = timed(lambda: lm.decode_fn(params, cur, cache, start + t))
+            finite(logits, f"{label} decode step {t}")
+            first_logits = logits if t == 0 else first_logits
+            cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            times.append(dt)
+        return first_logits, times
+
+    def report_decode(label, b, times, cache, params):
+        ms = float(np.median(times)) * 1e3
+        b_cache, b_w = cache_bytes(cache), weights_read(params)
+        bound_ms = (b_cache + b_w) / PEAK_BYTES_PER_S * 1e3
+        print(f"  {label}: decode {ms:.2f} ms a step (median of {len(times)}; first "
+              f"{times[0] * 1e3:.2f}), {b / (ms / 1e3):,.0f} tokens/s; byte bound {bound_ms:.2f} ms "
+              f"(cache {b_cache / 1e9:.2f} GB + weights {b_w / 1e9:.2f} GB over 3.35 TB/s; "
+              f"{bound_ms / ms:.2f} of it); {card}", flush=True)
+        return ms, bound_ms
+
+    def gate(label, lm, params, tokens, nxt, kw, cache_dtype):
+        """prefill(S) then one decode_step against forward over S + 1 tokens:
+        within TOL14 of max |logit|, argmax equal where the top-2 margin
+        exceeds TOL14·max |logit|. ``kw``: the vlm inputs over S + 1."""
+        S = tokens.shape[1]
+        short = {k: (v[:, :, :S] if k == "positions" else v) for k, v in kw.items()}
+        logits, cache = lm.prefill_fn(params, {"tokens": tokens, **short}, cache_dtype=cache_dtype)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1)) for k, v in cache.items()}
+        dec, cache = lm.decode_fn(params, nxt, cache, S + 1)
+        del cache
+        q_chunk = max(d for d in range(1, 513) if (S + 1) % d == 0)
+        with torch.inference_mode():
+            full, _ = tr.forward(params, torch.cat([tokens, nxt], 1), lm.cfg, q_chunk=q_chunk,
+                                 kv_chunk=S + 1, **kw)
+        errs = []
+        for got, want in ((logits, full[:, S - 1]), (dec, full[:, S])):
+            got, want = got.float(), want.float()
+            scale = float(want.abs().max())
+            top2 = torch.topk(want, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > TOL14 * scale
+            same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+            errs.append((float((got - want).abs().max()) / scale, int(clear.sum()), same))
+        del full
+        print(f"  {label} gate at {S} tokens: prefill's logits against forward's row {S - 1}: "
+              f"{errs[0][0]:.4f} of max |logit|; prefill then decode_step against forward over "
+              f"{S + 1} tokens (q_chunk {q_chunk}): {errs[1][0]:.4f} (≤ {TOL14}); argmax equal in "
+              f"the {errs[0][1]} and {errs[1][1]} of {tokens.shape[0]} rows whose top-2 margin "
+              f"exceeds it: {errs[0][2] and errs[1][2]}; {card}", flush=True)
+        check(all(e <= TOL14 and same for e, _, same in errs),
+              f"{label}: prefill then decode_step differs from forward beyond {TOL14}")
+
+    def peak_gate(label):
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {label}: peak memory {gib(peak):.2f} GiB (< {PEAK14_GIB}); {card}", flush=True)
+        check(peak < PEAK14_GIB * 2**30, f"{label}: peak memory {gib(peak):.2f} GiB")
+
+    # (a) gemma3-1b, launch.serve's path: prefill_32k's sequence into a float32 cache
+    cfg = get_arch("gemma3-1b")
+    lm = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(0)
+    prompt = prng.randint(prng.PRNGKey(0), (B14A, S14A), 0, cfg.vocab_size, device=dev)
+    (logits, cache), dt = timed(lambda: lm.prefill_fn(params, {"tokens": prompt},
+                                                      cache_dtype=torch.float32))
+    finite(logits, "(a) prefill")
+    print(f"  (a) {cfg.name} ({cfg.n_layers} layers, {tree_size_bytes(params) / 1e9:.2f} GB of "
+          f"{cfg.dtype} weights), launch.serve's path: prefill of {B14A} × {S14A:,} tokens "
+          f"(prefill_32k's sequence; batch 32 → {B14A}) into a float32 cache in {dt:.2f} s, "
+          f"{B14A * S14A / dt:,.0f} tokens/s; {card}", flush=True)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GEN14A)) for k, v in cache.items()}
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    _, times = decode_loop(lm, params, cache, first, S14A + 1, GEN14A, "(a)")
+    report_decode(f"(a) {cfg.name} at a {S14A + GEN14A:,}-long float32 cache, batch {B14A}",
+                  B14A, times, cache, params)
+    del cache, logits
+    gate(f"(a) {cfg.name}", lm, params, prompt[:, :GATE14], prompt[:, GATE14:GATE14 + 1], {},
+         torch.float32)
+    peak_gate("(a)")
+
+    # (b) decode_32k's cache length: a bf16 cache of 32 × 32768 filled from a
+    # seeded generator (N(0, 1) keys and values, as no prompt was prefilled)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache, dt = timed(lambda: lm.init_decode_state(B14B, S14A))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    for name in ("k", "v"):
+        for i in range(cfg.n_layers):
+            cache[name][i].normal_(generator=gen)
+    start = S14A - GEN14B + 1
+    first = prng.randint(prng.PRNGKey(1), (B14B, 1), 0, cfg.vocab_size, device=dev)
+    print(f"  (b) {cfg.name}: init_kv_cache({B14B}, {S14A:,}) in bf16, {cache_bytes(cache) / 1e9:.2f} "
+          f"GB (decode_32k's cache length; batch 128 → {B14B}), filled from a seeded generator "
+          f"(N(0, 1)); {GEN14B} decode steps from cur_len = {start}; {card}", flush=True)
+    _, times = decode_loop(lm, params, cache, first, start, GEN14B, "(b)")
+    report_decode(f"(b) {cfg.name} at a {S14A:,}-long bf16 cache, batch {B14B}", B14B, times, cache,
+                  params)
+    del cache
+    peak_gate("(b)")
+
+    # (e) the engine: gemma3-1b in float32, TF32 off, 8 requests over 4 slots
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm32 = get_api(dataclasses.replace(cfg, dtype="float32"))
+    params = lm32.init_params(0)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(8, 65, REQS14)]
+    eng = ServeEngine(lm32, params, n_slots=SLOTS14, max_len=MAXLEN14)
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=pr, max_new=NEW14))
+    done, dt = timed(eng.run)
+    n_out = sum(len(r.out) for r in done)
+    # each request decoded alone, in its slot of its wave with the wave's
+    # right-aligned padding and the other slots' prompts all zeros: the same
+    # shapes as the engine's, so a row's float32 arithmetic is the same
+    seq_ok, t_seq = [], time.perf_counter()
+    for w0 in range(0, REQS14, SLOTS14):
+        wave = prompts[w0:w0 + SLOTS14]
+        plen = max(len(pr) for pr in wave)
+        for s, pr in enumerate(wave):
+            toks = np.zeros((SLOTS14, plen), np.int32)
+            toks[s, plen - len(pr):] = pr
+            toks = torch.from_numpy(toks).to(dev)
+            cache = lm32.init_decode_state(SLOTS14, MAXLEN14)
+            for t in range(plen):
+                logits, cache = lm32.decode_fn(params, toks[:, t:t + 1], cache, t + 1)
+            outs = [int(torch.argmax(logits[s]))]
+            for k in range(NEW14 - 1):
+                cur = torch.zeros((SLOTS14, 1), dtype=torch.int32, device=dev)
+                cur[s, 0] = outs[-1]
+                logits, cache = lm32.decode_fn(params, cur, cache, plen + k + 2)
+                outs.append(int(torch.argmax(logits[s])))
+            seq_ok.append(outs == done[w0 + s].out)
+    t_seq = time.perf_counter() - t_seq
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    print(f"  (e) ServeEngine({cfg.name} in float32, TF32 off, n_slots={SLOTS14}, "
+          f"max_len={MAXLEN14}): {REQS14} requests of {[len(p) for p in prompts]} prompt tokens, "
+          f"max_new={NEW14}, in {-(-REQS14 // SLOTS14)} waves: {n_out} tokens in {dt:.2f} s "
+          f"({n_out / dt:,.1f} tokens/s); each request equal to its one-by-one greedy decoding "
+          f"(first token at cur_len = plen + 2, caveat R5): {seq_ok} ({t_seq:.1f} s); {card}",
+          flush=True)
+    check(len(done) == REQS14 and all(r.done and len(r.out) == NEW14 for r in done),
+          "the engine did not finish every request")
+    check(all(seq_ok), "the engine's tokens differ from one-by-one decoding")
+    peak_gate("(e)")
+    del params, eng, cache, logits
+
+    # (c) glm4-9b: prefill at train_4k's sequence, batch 8, then 32 steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("glm4-9b")
+    lm = get_api(cfg)
+    params, dt_init = timed(lambda: lm.init_params(0))
+    prompt = prng.randint(prng.PRNGKey(2), (B14C, S14C), 0, cfg.vocab_size, device=dev)
+    (logits, cache), dt = timed(lambda: lm.prefill_fn(params, {"tokens": prompt}))
+    finite(logits, "(c) prefill")
+    print(f"  (c) {cfg.name} ({cfg.n_layers} layers, {tree_size_bytes(params) / 1e9:.2f} GB of "
+          f"{cfg.dtype} weights drawn in {dt_init:.1f} s): prefill of {B14C} × {S14C:,} tokens "
+          f"(train_4k's sequence) into a bf16 cache in {dt:.2f} s, {B14C * S14C / dt:,.0f} tokens/s; "
+          f"{card}", flush=True)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GEN14C)) for k, v in cache.items()}
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    _, times = decode_loop(lm, params, cache, nxt, S14C + 1, GEN14C, "(c)")
+    report_decode(f"(c) {cfg.name} at a {S14C + GEN14C:,}-long bf16 cache, batch {B14C}", B14C,
+                  times, cache, params)
+    del cache, logits
+    gate(f"(c) {cfg.name}", lm, params, prompt, nxt, {}, torch.bfloat16)
+    peak_gate("(c)")
+    del params, prompt
+
+    # (d) qwen2-vl-2b: 256 seeded vision embeddings over tokens 1 … 256, their
+    # M-RoPE positions on a 16 × 16 (h, w) grid at t = 1; text tokens at
+    # their index in all three streams (what decode_step's cur_len − 1 continues)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("qwen2-vl-2b")
+    lm = get_api(cfg)
+    params = lm.init_params(0)
+    nv = cfg.n_vision_tokens
+    check(nv == GRID14 * GRID14, f"{cfg.name} has {nv} vision tokens")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    vis = (torch.randn((B14D, nv, cfg.d_model), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    pos = torch.arange(S14D + 1, device=dev)[None, None].repeat(3, B14D, 1)
+    cell = torch.arange(nv, device=dev)
+    pos[0, :, 1:1 + nv] = 1
+    pos[1, :, 1:1 + nv] = 1 + cell // GRID14
+    pos[2, :, 1:1 + nv] = 1 + cell % GRID14
+    prompt = prng.randint(prng.PRNGKey(3), (B14D, S14D), 0, cfg.vocab_size, device=dev)
+    batch = {"tokens": prompt, "positions": pos[:, :, :S14D], "vision_embeds": vis}
+    (logits, cache), dt = timed(lambda: lm.prefill_fn(params, batch))
+    finite(logits, "(d) prefill")
+    print(f"  (d) {cfg.name} ({cfg.n_layers} layers, {tree_size_bytes(params) / 1e9:.2f} GB of "
+          f"{cfg.dtype} weights, M-RoPE sections {cfg.mrope_sections}): prefill of {B14D} × "
+          f"{S14D:,} tokens with {nv} vision embeddings on a {GRID14} × {GRID14} grid into a bf16 "
+          f"cache in {dt:.2f} s, {B14D * S14D / dt:,.0f} tokens/s; {card}", flush=True)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GEN14D)) for k, v in cache.items()}
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    _, times = decode_loop(lm, params, cache, nxt, S14D + 1, GEN14D, "(d)")
+    report_decode(f"(d) {cfg.name} at a {S14D + GEN14D:,}-long bf16 cache, batch {B14D}", B14D,
+                  times, cache, params)
+    del cache, logits
+    gate(f"(d) {cfg.name}", lm, params, prompt, nxt, {"positions": pos, "vision_embeds": vis},
+         torch.bfloat16)
+    peak_gate("(d)")
+    del params, prompt, vis, pos, batch
+    torch.cuda.empty_cache()
+    launches14 = ops.launch_counts()
+    print(f"  launches in phase 14: {launches14} (no kernel of the repo serves a model); {card}")
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s; {card}", flush=True)
+    return launches14
 
 
 def main() -> None:
@@ -2054,6 +2418,7 @@ def main() -> None:
     del res_g, lab_g, pca_g, km_g, res_c, lab_c, pca_c, km_c
 
     train_parity()
+    serve_parity()
 
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
@@ -2836,6 +3201,9 @@ def main() -> None:
     # ---------------------------------------------------------------- 13 train
     launches13 = phase13_train(card)
 
+    # ------------------------------------------------------------- 14 lm-serve
+    launches14 = phase14_serve(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -2851,10 +3219,12 @@ def main() -> None:
                           launches_lr)}
     # launches: each kernel's count on its own path's run (phase 5 or phase
     # 7); launches_by_phase: that count again and each later path's own,
-    # each read just after its reset
+    # each read just after its reset (phase 14 serves a model on no kernel
+    # of the repo: its counts are 0)
     later = {"9 resume": launches9, "10 refine": launches10_refine,
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
-             "11 serve": launches11, "12 sharded": launches12, "13 train": launches13}
+             "11 serve": launches11, "12 sharded": launches12, "13 train": launches13,
+             "14 lm-serve": launches14}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],

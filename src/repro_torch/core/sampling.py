@@ -54,9 +54,10 @@ def sample_indices(key, n: int, p: int, m: int, device="cpu") -> torch.Tensor:
     same (``torch.topk`` leaves the order of ties undefined).
 
     Rows are drawn and sorted ``max(1, SAMPLE_BLOCK // p)`` at a time, so a
-    call holds O(SAMPLE_BLOCK) temporaries whatever n is. The uniforms are
-    numbered by flat index, so rows ``[r0, r1)`` are the draw's flat range
-    ``[r0·p, r1·p)`` and the blocks give the one-call result bit for bit.
+    call holds O(SAMPLE_BLOCK) temporaries whatever n is. Rows ``[r0, r1)``
+    are the flat range ``[r0·p, r1·p)`` of the one (n, p) draw, in either
+    threefry layout (``prng.uniform``'s ``offset`` and ``total``), so the
+    blocks give the one-call result bit for bit.
     """
     if not (0 < m <= p):
         raise ValueError(f"need 0 < m <= p, got m={m}, p={p}")
@@ -64,7 +65,7 @@ def sample_indices(key, n: int, p: int, m: int, device="cpu") -> torch.Tensor:
     rows = max(1, SAMPLE_BLOCK // p)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
-        u = uniform(key, (r1 - r0, p), device=device, offset=r0 * p)
+        u = uniform(key, (r1 - r0, p), device=device, offset=r0 * p, total=n * p)
         order = torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
         del u
         out[r0:r1] = torch.sort(order.to(torch.int32), dim=-1).values

@@ -216,8 +216,10 @@ def _worker(args) -> int:
         from repro_torch.kernels import ops
 
         launched = f"; launches {json.dumps(ops.launch_counts(), sort_keys=True)}"
+    # one write of the whole line: the ranks share the coordinator's stdout, and
+    # an unbuffered print writes its end apart from its text
     print(f"rank {rank}: folded steps {start}..{args.steps - 1} in {dt:.2f}s; peak memory "
-          f"{peak}{launched}", flush=True)
+          f"{peak}{launched}\n", end="", flush=True)
 
     if args.time_allreduce:
         from repro_torch.stream.sharded import psum, psum_bytes

@@ -11,8 +11,10 @@ resumes the other's ``--ckpt-dir``.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch gemma3-1b \\
         --reduced --steps 4 --grad-compress-gamma 0.1 --ckpt-dir run --ckpt-every 2
 
-Only the dense family runs, on one device: ``--devices`` and the production
-meshes (``--mesh single|multi``) raise ``NotImplementedError``.
+The dense and vlm families run, on one device (a vlm batch carries the
+positions broadcast to the three M-RoPE streams and zero vision embeddings,
+as the reference's does): ``--devices`` and the production meshes (``--mesh
+single|multi``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = ap.parse_args(argv)
+
+    import torch
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.grad_compress import CompressConfig
@@ -83,6 +87,12 @@ def main(argv=None):
     t0 = time.time()
     for step in range(start_step, args.steps):
         batch = source.next_batch()
+        if cfg.family == "vlm":
+            B, S = batch["tokens"].shape
+            pos = torch.arange(S)[None].expand(B, S)
+            batch["positions"] = pos[None].expand(3, B, S)
+            batch["vision_embeds"] = torch.zeros((B, cfg.n_vision_tokens, cfg.d_model),
+                                                 dtype=getattr(torch, cfg.dtype))
         state, metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])

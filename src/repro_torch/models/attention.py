@@ -1,5 +1,5 @@
-"""Chunked (flash-style) attention for training (the port of
-``repro.models.attention.flash_attention``).
+"""Chunked (flash-style) attention for training and prefill, and the cached
+decode path (the port of ``repro.models.attention``).
 
 The reference's online-softmax double loop over query chunks and KV chunks,
 in plain PyTorch with the same chunking: float32 scores, GQA by grouping
@@ -11,8 +11,11 @@ A KV chunk that the mask hides from a whole query chunk is skipped. That
 gives the reference's numbers: such a chunk contributes weights that the
 first visible chunk's correction ``exp(NEG_INF − max)`` multiplies by 0.
 
-The cached decode path (``decode_attention``, ``update_cache``) belongs to
-serving, which is not ported yet.
+The decode path attends one token over the whole KV cache with plain
+float32 einsums, as the reference does: the cache is read in its dtype and
+upcast, positions at or past ``cur_len`` (and outside a sliding window) are
+masked. ``update_cache`` writes a step's key or value into the cache in
+place, where the reference returns an updated copy.
 """
 from __future__ import annotations
 
@@ -86,6 +89,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         # cast per chunk so the joined output is the input dtype, not float32
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))           # (B,qc,Hkv,G,hd)
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cur_len, *, window: int = 0) -> torch.Tensor:
+    """One-token attention over a KV cache.
+
+    q (B,1,H,hd); caches (B,Smax,Hkv,hd); cur_len: int — tokens valid in the
+    cache *including* the current one. Positions ≥ cur_len are masked; with
+    a sliding window, positions ≤ cur_len−1−window are too.
+    """
+    B, _, H, hd = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    cur_len = int(cur_len)
+    # the reference's numpy float64 scale makes a bfloat16 q float32, as in flash_attention
+    qg = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    pos = torch.arange(Smax, device=q.device)
+    ok = pos < cur_len
+    if window > 0:
+        ok &= pos > (cur_len - 1 - window)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def update_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """Write new (B,1,Hkv,hd), cast to the cache's dtype, into cache
+    (B,Smax,Hkv,hd) at sequence index pos, in place; returns the cache. The
+    index is clamped so the write fits, as ``lax.dynamic_update_slice`` does."""
+    pos = min(max(int(pos), 0), cache.shape[1] - new.shape[1])
+    cache[:, pos:pos + new.shape[1]] = new.to(cache.dtype)
+    return cache
 
 
 def init_attn_params(gen, d: int, n_heads: int, n_kv: int, head_dim: int, dtype, device,

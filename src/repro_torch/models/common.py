@@ -69,6 +69,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary dims are split into (t, h, w)
+    sections, each rotated by its own position stream, in float32.
+
+    x: (B, S, H, hd); positions_3d: (3, B, S); sections sum to hd//2.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)                          # (hd/2,)
+    # the position stream of each rotary dim, from comparisons on the device
+    # (a repeat_interleave by a tensor of counts would wait for the card)
+    dim = torch.arange(hd // 2, device=x.device)
+    sec_id = (dim >= sections[0]).long() + (dim >= sections[0] + sections[1]).long()
+    ang = positions_3d[sec_id].movedim(0, -1).float() * freqs       # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def init_embedding(gen, vocab: int, d: int, dtype, device) -> torch.Tensor:
     w = torch.empty((vocab, d), dtype=torch.float32, device=device)
     return (w.normal_(0.0, 1.0, generator=gen) * 0.02).to(dtype)

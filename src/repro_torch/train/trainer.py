@@ -30,6 +30,7 @@ from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import Dist
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.host import on_device
 from repro_torch.utils.prng import fold_in_str
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -64,7 +65,9 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
     """The (state, batch) → (state, metrics) step on ``device``.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S) (numpy arrays or
-    tensors); B must divide into ``accum_steps`` micro-batches.
+    tensors), for the vlm family also ``positions`` (3, B, S) and
+    ``vision_embeds`` (B, nv, d); B must divide into ``accum_steps``
+    micro-batches.
     """
     tr.check_supported(api.cfg, dist)
     device = resolve_device(device)
@@ -82,7 +85,9 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
         total, metrics = torch.zeros((), dtype=torch.float32, device=device), {}
         size = batch["tokens"].shape[0] // a
         for i in range(a):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            rows = slice(i * size, (i + 1) * size)
+            # the vlm family's positions are (3, B, S): their batch axis is 1
+            mb = {k: v[:, rows] if k == "positions" else v[rows] for k, v in batch.items()}
             for leaf in leaves:
                 leaf.requires_grad_(True)
             loss, metrics = api.loss_fn(params, mb, dist, q_chunk=tcfg.q_chunk,
@@ -102,8 +107,7 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
-        batch = {k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(device)
-                 for k, v in batch.items()}
+        batch = {k: on_device(v, device) for k, v in batch.items()}
         if batch["tokens"].shape[0] % tcfg.accum_steps:
             raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into "
                              f"{tcfg.accum_steps} micro-batches")

@@ -1,4 +1,5 @@
-"""Tensors to and from host numpy arrays, bfloat16 included.
+"""Tensors to and from host numpy arrays, bfloat16 included, and array-likes
+onto a device.
 
 numpy has no bfloat16: a bfloat16 tensor goes to the host as its 2-byte
 words in a ``|V2`` array, the bytes and header of the reference's
@@ -45,3 +46,9 @@ def from_host(a: np.ndarray, dtype: torch.dtype | None = None, device="cpu") -> 
             raise TypeError(f"a checkpoint leaf of {t.dtype} does not restore as {dtype}")
         t = t.to(dtype)
     return t.to(device)
+
+
+def on_device(v, device) -> torch.Tensor:
+    """A tensor, or a numpy array or array-like (copied), as a tensor on
+    ``device``."""
+    return (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(device)

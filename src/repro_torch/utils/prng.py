@@ -2,20 +2,37 @@
 
 The port's randomness contract is the reference's: every sign vector, mask and
 K-means++ draw regenerates from ``(root key, step, shard)``. So this module is
-threefry-2x32 in the layout JAX uses with ``jax_threefry_partitionable=True``
-(each element's bits are a hash of the key and the element's flat index).
+threefry-2x32 in both of JAX's layouts, chosen as JAX chooses them:
+
+- partitionable (``jax_threefry_partitionable=True``, the default here and in
+  JAX since 0.5): element ``j`` of a draw of ``N`` is a hash of the key and
+  the count pair ``(j >> 32, j & M32)``, its two output words xored; ``split``
+  hashes ``(0, i)`` into key ``i``.
+- original (the default of JAX 0.4): the counts ``0 … N−1`` are padded with
+  one zero to an even length and halved; pair ``j`` is ``(j, j + ⌈N/2⌉)``,
+  whose first word is element ``j`` and whose second is element
+  ``j + ⌈N/2⌉``. ``split(key, num)`` is such a draw of ``2·num`` words. Past
+  ``2^32 − 1`` words the draw is split into that many keys, one a block.
+
+:func:`set_threefry_partitionable` and the context manager
+:func:`threefry_partitionable` switch the layout for the whole process, after
+``jax.config.update("jax_threefry_partitionable", …)`` and
+``jax.threefry_partitionable(…)``; a process starts in the partitionable
+layout unless the environment sets ``REPRO_TORCH_THREEFRY_PARTITIONABLE=0``
+(as ``JAX_THREEFRY_PARTITIONABLE`` does for JAX). ``fold_in`` and
+``PRNGKey`` are the same in both.
 
 Keys are numpy ``uint32[2]`` on the host — the same key data
 ``jax.random.key_data`` returns. Bits are generated on the target device in
 int64 tensors holding 32-bit values, in chunks of rows, so an (n, p) draw never
 needs more than a bounded scratch.
-
-The original (non-partitionable) layout is not implemented.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
+import os
 
 import numpy as np
 import torch
@@ -26,6 +43,30 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _CHUNK = 1 << 24
 # elements the normal's erfinv takes at a time
 _ERFINV_CHUNK = 1 << 18
+# words the original layout hashes under one key before it splits the key
+_BLOCK = M32
+# the layout of every draw in this process: {"partitionable": bool}; a
+# process starts in the one REPRO_TORCH_THREEFRY_PARTITIONABLE names (0 or 1,
+# default 1), so a launcher's child processes can draw as the reference does
+_LAYOUT = {"partitionable": os.environ.get("REPRO_TORCH_THREEFRY_PARTITIONABLE", "1").strip()
+           .lower() not in ("0", "false", "no")}
+
+
+def set_threefry_partitionable(flag: bool) -> None:
+    """Draw in the partitionable layout (``True``, the default) or JAX's
+    original one (``False``) from now on, in every thread of the process."""
+    _LAYOUT["partitionable"] = bool(flag)
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """Draw in the given layout inside the block, then restore the one before."""
+    before = _LAYOUT["partitionable"]
+    set_threefry_partitionable(flag)
+    try:
+        yield
+    finally:
+        set_threefry_partitionable(before)
 
 
 def _threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
@@ -89,15 +130,27 @@ def key_for_step(key, step: int) -> np.ndarray:
 
 def split(key, num: int = 2) -> np.ndarray:
     """``jax.random.split`` → (num, 2) uint32 keys."""
+    if not _LAYOUT["partitionable"]:
+        words = np.empty(2 * num, dtype=np.uint32)   # threefry_2x32(key, iota(2·num))
+        for start, bits in _original_block(key, 2 * num, 0, 2 * num, "cpu"):
+            words[start:start + bits.numel()] = bits.numpy()
+        return words.reshape(num, 2)
     out = _hash_pairs(key, [0] * num, list(range(num)))
     return np.ascontiguousarray(out.T)
 
 
 # ------------------------------------------------------------------ bits ----
 
-def _bits_chunks(key, numel: int, device, offset: int = 0):
-    """Yield ``(start, bits)`` over the flat indices ``offset … offset + numel``,
-    ``start`` counted from ``offset``, ``bits`` int64."""
+def _bits_chunks(key, numel: int, device, offset: int = 0, total: int | None = None):
+    """Yield ``(start, bits)`` covering the flat indices ``offset … offset +
+    numel`` of a draw of ``total`` words (default ``offset + numel``) once,
+    in some order, ``start`` counted from ``offset``, ``bits`` int64."""
+    total = offset + numel if total is None else total
+    if offset < 0 or offset + numel > total:
+        raise ValueError(f"elements [{offset}, {offset + numel}) lie outside a draw of {total}")
+    if not _LAYOUT["partitionable"]:
+        yield from _original_chunks(key, numel, device, offset, total)
+        return
     k1, k2 = _key_ints(key)
     for start in range(0, numel, _CHUNK):
         count = min(_CHUNK, numel - start)
@@ -107,6 +160,52 @@ def _bits_chunks(key, numel: int, device, offset: int = 0):
         lo = idx.bitwise_and_(M32)
         y0, y1 = _threefry2x32(k1, k2, hi, lo)
         yield start, y0.bitwise_xor_(y1)
+
+
+def _original_chunks(key, numel: int, device, offset: int, total: int):
+    """:func:`_bits_chunks` in the original layout: the draw's blocks of
+    ``_BLOCK`` words, each under its own key of ``split(key, nblocks + 1)``
+    once there are more than one, and in each block the words asked for."""
+    nblocks, rem = divmod(total, _BLOCK)
+    keys = split(key, nblocks + 1) if nblocks else [key]
+    for b, bkey in enumerate(keys):
+        base, size = b * _BLOCK, (_BLOCK if b < nblocks else rem)
+        s, e = max(offset, base), min(offset + numel, base + size)
+        if s < e:
+            for start, bits in _original_block(bkey, size, s - base, e - base, device):
+                yield base + start - offset, bits
+
+
+def _original_block(key, n: int, s: int, e: int, device):
+    """Words ``[s, e)`` of ``threefry_2x32(key, iota(n))``: yield
+    ``(start, bits)`` with ``start`` counted from 0.
+
+    Pair ``a < h = ⌈n/2⌉`` hashes ``(a, a + h)`` (``(a, 0)`` where ``a + h``
+    is the odd draw's pad) into words ``a`` and ``a + h``. Words of the first
+    half need the pairs ``[s, min(e, h))``, words of the second the pairs
+    ``[max(s, h) − h, e − h)``; each pair that either needs is hashed once.
+    """
+    k1, k2 = _key_ints(key)
+    h = (n + 1) // 2
+    first = (s, min(e, h))
+    second = (max(s, h) - h, e - h)
+    ranges = [r for r in (first, second) if r[0] < r[1]]
+    if len(ranges) == 2 and ranges[1][0] <= ranges[0][1] and ranges[0][0] <= ranges[1][1]:
+        ranges = [(min(first[0], second[0]), max(first[1], second[1]))]
+    for lo, hi in ranges:
+        for a0 in range(lo, hi, _CHUNK):
+            a1 = min(hi, a0 + _CHUNK)
+            x0 = torch.arange(a0, a1, dtype=torch.int64, device=device)
+            x1 = x0 + h
+            x1.masked_fill_(x1 >= n, 0)
+            y0, y1 = _threefry2x32(k1, k2, x0, x1)
+            # word a of the first half, word a + h of the second
+            f0, f1 = max(a0, first[0]), min(a1, first[1])
+            if f0 < f1:
+                yield f0, y0[f0 - a0:f1 - a0]
+            g0, g1 = max(a0, second[0]), min(a1, second[1])
+            if g0 < g1:
+                yield g0 + h, y1[g0 - a0:g1 - a0]
 
 
 def random_bits(key, shape, device="cpu") -> torch.Tensor:
@@ -119,18 +218,21 @@ def random_bits(key, shape, device="cpu") -> torch.Tensor:
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device="cpu", offset: int = 0) -> torch.Tensor:
+            device="cpu", offset: int = 0, total: int | None = None) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits in [1, 2) − 1.
 
-    With ``offset`` the draw is the part of a larger draw under ``key`` that
-    starts at flat index ``offset``: rows ``[r0, r1)`` of an ``(n, p)`` draw
-    are ``uniform(key, (r1 - r0, p), offset=r0 * p)``.
+    With ``offset`` and ``total`` the draw is the part of a draw of ``total``
+    elements under ``key`` that starts at flat index ``offset``: rows
+    ``[r0, r1)`` of an ``(n, p)`` draw are ``uniform(key, (r1 - r0, p),
+    offset=r0 * p, total=n * p)``. The original layout pairs elements across
+    the halves of the whole draw, so it needs ``total``; the partitionable
+    one ignores it.
     """
     shape = tuple(shape)
     out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
-    for start, bits in _bits_chunks(key, out.numel(), device, offset):
+    for start, bits in _bits_chunks(key, out.numel(), device, offset, total):
         f = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
         f = f.to(torch.int32).view(torch.float32) - 1.0
         out[start:start + f.numel()] = torch.maximum(lo, f * span + lo)

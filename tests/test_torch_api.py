@@ -33,14 +33,10 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import estimators, kmeans, pca, sketch
 from repro_torch.data.pipeline import VectorStreamSource
 from repro_torch.models.api import get_api
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 CPU = dict(device="cpu")
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _kw(kw):

@@ -28,6 +28,7 @@ from repro_torch.core import kmeans as km
 from repro_torch.data import pipeline
 from repro_torch.utils import prng
 from tests.conftest import make_clusters
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 KEY = jax.random.PRNGKey(0)
 

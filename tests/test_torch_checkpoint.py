@@ -38,15 +38,11 @@ from repro_torch.stream import accumulators as acc
 from repro_torch.stream import state as tstate
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.utils import prng
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 P_DIM, B = 32, 24
 CPU = dict(device="cpu")
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _source(seed, step, shard):

@@ -31,6 +31,7 @@ from repro_torch.stream import StreamKMeansConfig
 from repro_torch.stream import state as state_mod
 from repro_torch.stream.engine import StreamEngine
 from repro_torch.utils import prng
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -235,7 +236,10 @@ print("RESULT" + json.dumps(out))
 
 def _env(**kw):
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(PYTHONPATH=SRC, JAX_PLATFORMS="cpu", **kw)
+    # the port's workers draw in the layout the reference's subprocess runs with
+    env.update(PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               REPRO_TORCH_THREEFRY_PARTITIONABLE=str(int(jax.config.jax_threefry_partitionable)),
+               **kw)
     return env
 
 

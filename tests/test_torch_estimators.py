@@ -14,15 +14,11 @@ from repro.core import sketch as jsketch
 from repro.data.pipeline import VectorStreamSource as JSource
 from repro_torch.core import estimators, kmeans, pca, sketch
 from repro_torch.data.pipeline import VectorStreamSource
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 KEY = jax.random.PRNGKey(9)
 P, N, GAMMA = 200, 96, 0.25
 
-
-@pytest.fixture
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _kd(key):
@@ -54,7 +50,7 @@ def test_source_bytes_match():
                                       b.batch_at(step, shard, seed=seed))
 
 
-def test_mean_and_cov_estimators(partitionable):
+def test_mean_and_cov_estimators():
     _, _, s, s_j = _sketches(0)
     _close(estimators.mean_estimator(s), jest.mean_estimator(s_j))
     for path in ("dense", "compact"):
@@ -64,7 +60,7 @@ def test_mean_and_cov_estimators(partitionable):
 
 
 @pytest.mark.parametrize("chunk_terms", [1 << 25, 1000])
-def test_compact_routes_match_the_scatter_add(partitionable, monkeypatch, chunk_terms):
+def test_compact_routes_match_the_scatter_add(monkeypatch, chunk_terms):
     """The card's two compact routes, run on the CPU through the plain
     segment sums: the sum by key in one chunk is the reference's n·m²
     scatter-add bit for bit (each key's products added in row order), in
@@ -87,7 +83,7 @@ def test_compact_routes_match_the_scatter_add(partitionable, monkeypatch, chunk_
         assert np.abs(got.numpy() - ref).max() <= 1e-5 * top
 
 
-def test_stream_fold_and_pca(partitionable):
+def test_stream_fold_and_pca():
     state = estimators.stream_init(256)  # p_pad of P = 200
     state_j = jest.stream_init(256)
     for step in range(3):
@@ -110,7 +106,7 @@ def test_stream_fold_and_pca(partitionable):
     _close(comps * signs, comps_j, tol=1e-4)
 
 
-def test_sparsified_pca_matches(partitionable):
+def test_sparsified_pca_matches():
     spec, spec_j, s, s_j = _sketches(1)
     res = pca.sparsified_pca(s, spec, k=3)
     res_j = jpca.sparsified_pca(s_j, spec_j, k=3)
@@ -123,7 +119,7 @@ def test_sparsified_pca_matches(partitionable):
     _close(dense.mean, dense_j.mean)
 
 
-def test_sparse_dists_and_kpp_init(partitionable):
+def test_sparse_dists_and_kpp_init():
     spec, _, s, s_j = _sketches(2)
     centers = np.random.default_rng(0).normal(size=(5, spec.p_pad)).astype(np.float32)
     _close(kmeans.sparse_sq_dists(s.values, s.indices, torch.from_numpy(centers)),

@@ -28,14 +28,10 @@ from repro_torch.data.pipeline import VectorStreamSource
 from repro_torch.stream import state as tstate
 from repro_torch.utils import prng
 from tests.conftest import spiked as _spiked
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 CPU = dict(device="cpu")
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def spiked(n, p, k, **kw):

@@ -25,14 +25,10 @@ from repro_torch.core import ros, sketch
 from repro_torch.core.sampling import sample_indices
 from repro_torch.utils import prng
 from repro_torch.utils.tree import tree_flatten_to_vector, tree_leaves_with_path
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 CPU = dict(device="cpu")
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 @pytest.fixture(autouse=True, scope="module")

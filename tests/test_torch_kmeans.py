@@ -22,12 +22,8 @@ from repro_torch.core import kmeans as km
 from repro_torch.core import sketch
 from repro_torch.kernels import ops, ref, spmm
 from repro_torch.utils import prng
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
-
-@pytest.fixture
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _blobs(n, p, k, seed=0, sep=3.0, noise=0.5):
@@ -71,7 +67,7 @@ def _sketches(x, seed, gamma=0.25):
     return spec, s, s_j
 
 
-def test_dense_distances_and_kpp_init(partitionable):
+def test_dense_distances_and_kpp_init():
     x, _, _ = _blobs(300, 32, 4, seed=1)
     c = x[:4]
     # the expanded form ‖x‖² − 2x·c + ‖c‖² cancels: its error is ulps of ‖x‖²,
@@ -85,7 +81,7 @@ def test_dense_distances_and_kpp_init(partitionable):
                                       np.asarray(jkm.kpp_init_dense(jkey, jnp.asarray(x), 4)))
 
 
-def test_lloyd_dense_and_sparse_from_one_start(partitionable):
+def test_lloyd_dense_and_sparse_from_one_start():
     """Both Lloyd loops from the same start: labels, iterations and centers."""
     x, _, _ = _blobs(600, 64, 4, seed=2)
     mu0 = x[[0, 150, 300, 450]]
@@ -145,7 +141,7 @@ def test_center_update_equals_the_scatter_add():
     assert ops.cluster_columns(s.values, s.indices, p) is None     # the CPU needs none
 
 
-def test_sparse_kmeans_core_best_of_restarts(partitionable):
+def test_sparse_kmeans_core_best_of_restarts():
     x, _, _ = _blobs(800, 64, 4, seed=8)
     spec, s, s_j = _sketches(x, seed=9)
     jkey, tkey = _keys(10)
@@ -160,7 +156,7 @@ def test_sparse_kmeans_core_best_of_restarts(partitionable):
 
 
 @pytest.mark.parametrize("precondition,two_pass", [(True, False), (False, False), (True, True)])
-def test_sparsified_kmeans_matches(partitionable, blobs, precondition, two_pass):
+def test_sparsified_kmeans_matches(blobs, precondition, two_pass):
     """Alg. 1 one-pass, its no-ROS ablation and Alg. 2, on test_kmeans.py's
     blobs: the reference's labels, centers and iterations, and its accuracy."""
     x, labels, centers = blobs
@@ -182,7 +178,7 @@ def test_sparsified_kmeans_matches(partitionable, blobs, precondition, two_pass)
         assert _center_err(res.centers, centers) < 2.0
 
 
-def test_standard_kmeans_matches(partitionable, blobs):
+def test_standard_kmeans_matches(blobs):
     x, labels, centers = blobs
     jkey, tkey = _keys(1)
     res = km.kmeans(torch.from_numpy(x), 5, tkey, n_init=3, max_iter=50)
@@ -195,7 +191,7 @@ def test_standard_kmeans_matches(partitionable, blobs):
     assert _center_err(res.centers, centers) < 1.0
 
 
-def test_two_pass_improves_centers(partitionable, blobs):
+def test_two_pass_improves_centers(blobs):
     x, _, centers = blobs
     tkey = prng.PRNGKey(3)
     r1 = km.sparsified_kmeans(torch.from_numpy(x), 5, tkey, gamma=0.15, n_init=3, max_iter=50)
@@ -204,7 +200,7 @@ def test_two_pass_improves_centers(partitionable, blobs):
     assert _center_err(r2.centers, centers) <= _center_err(r1.centers, centers) + 1e-6
 
 
-def test_empty_cluster_guard(partitionable):
+def test_empty_cluster_guard():
     """K > #distinct points: counts==0 coordinates keep previous centers, no NaNs."""
     x = np.ones((10, 16), np.float32)
     jkey, tkey = _keys(0)

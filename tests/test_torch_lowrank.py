@@ -39,14 +39,10 @@ from repro_torch.kernels import fwht, ops, ref
 from repro_torch.stream import StreamKMeansConfig
 from repro_torch.stream import state as tstate
 from repro_torch.utils import prng
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 BATCH, STEPS, ELL = 64, 3, 16
 
-
-@pytest.fixture
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _kd(key):
@@ -95,14 +91,14 @@ def _sparse(n, p, m, seed):
 # ------------------------------------------------------------- randomness --
 
 @pytest.mark.parametrize("shape", [(1000,), (300, 16), (4, 5, 6)])
-def test_normal_matches_jax(partitionable, shape):
+def test_normal_matches_jax(shape):
     k = jax.random.fold_in(jax.random.PRNGKey(7), len(shape))
     got = prng.normal(_kd(k), shape).numpy()
     _draws_equal(got, np.asarray(jax.random.normal(k, shape, jnp.float32)))
 
 
 @pytest.mark.parametrize("p,ell", [(1024, 16), (65536, 8)])
-def test_omega_matches_reference(partitionable, p, ell):
+def test_omega_matches_reference(p, ell):
     k = jax.random.PRNGKey(3)
     got = lowrank.omega(_kd(k), p, ell).numpy()
     _draws_equal(got, np.asarray(jlowrank.omega(k, p, ell)))
@@ -288,7 +284,7 @@ def _assert_lowrank_match(res, jres, top=4):
 
 
 @pytest.mark.parametrize("p,gamma", [(1000, 0.1), (40000, 0.05)])
-def test_lowrank_engine_matches_reference(partitionable, p, gamma):
+def test_lowrank_engine_matches_reference(p, gamma):
     jeng, teng = _engines(p, gamma)
     jres, res = jeng.run(STEPS), teng.run(STEPS)
     _assert_lowrank_match(res, jres)
@@ -308,7 +304,7 @@ def test_lowrank_engine_matches_reference(partitionable, p, gamma):
     _same_up_to_sign(comps, jcomps)
 
 
-def test_lowrank_engine_continues_reference_state(partitionable):
+def test_lowrank_engine_continues_reference_state():
     """The reference's step-1 state (RangeState + K-means) written with
     to_arrays loads into the port and continues to the reference's result."""
     jeng, teng = _engines(1000, 0.1)

@@ -1,4 +1,4 @@
-"""repro_torch.models (the dense family's training forward) against
+"""repro_torch.models (the dense and vlm families' training forward) against
 repro.models on the CPU.
 
 The reference's parameters (``init_lm_params``, stacked layers) are carried
@@ -109,6 +109,54 @@ def test_dense_forward_loss_and_grads(arch):
         np.testing.assert_array_equal(a, b, err_msg=name)
 
 
+def test_vlm_forward_loss_and_grads():
+    """qwen2-vl-2b reduced: M-RoPE over (3, B, S) positions with the vision
+    tokens on a (t, h, w) grid, vision embeddings written over tokens
+    1 … nv; logits, loss and every gradient leaf (the vision embeddings'
+    too) within 1e-5, with the reference's weights; the default positions
+    broadcast to the three streams."""
+    cfg, jcfg = get_arch("qwen2-vl-2b", reduced=True), jget_arch("qwen2-vl-2b", reduced=True)
+    assert cfg.family == "vlm" and cfg.mrope_sections == (4, 2, 2)
+    jparams = jtr.init_lm_params(jax.random.PRNGKey(3), jcfg)
+    params = _carry(jparams, cfg)
+    batch = _batch(cfg, 2)
+    nv = cfg.n_vision_tokens
+    pos = np.broadcast_to(np.arange(S)[None, None], (3, B, S)).copy()
+    pos[0, :, 1:1 + nv], pos[1, :, 1:1 + nv], pos[2, :, 1:1 + nv] = \
+        1, 1 + np.arange(nv) // 4, 1 + np.arange(nv) % 4
+    batch["positions"] = pos.astype(np.int32)
+    batch["vision_embeds"] = np.random.default_rng(5).normal(
+        size=(B, nv, cfg.d_model)).astype(np.float32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for kw, jkw in (({}, {}), ({"positions": tbatch["positions"],
+                               "vision_embeds": tbatch["vision_embeds"]},
+                              {"positions": jbatch["positions"],
+                               "vision_embeds": jbatch["vision_embeds"]})):
+        jlogits, _ = jtr.forward(jparams, jbatch["tokens"], jcfg, q_chunk=8, kv_chunk=16, **jkw)
+        logits, _ = tr.forward(params, tbatch["tokens"], cfg, q_chunk=8, kv_chunk=16, **kw)
+        _close(logits, jlogits, 1e-5)
+
+    def jloss_of(p, ve):
+        return jtr.lm_loss(p, dict(jbatch, vision_embeds=ve), jcfg, q_chunk=8, kv_chunk=16)
+
+    (jloss, jm), (jgrads, jgve) = jax.value_and_grad(jloss_of, argnums=(0, 1), has_aux=True)(
+        jparams, jbatch["vision_embeds"])
+    leaves = tree_leaves(params)
+    ve = tbatch["vision_embeds"].clone().requires_grad_(True)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, m = tr.lm_loss(params, dict(tbatch, vision_embeds=ve), cfg, q_chunk=8, kv_chunk=16)
+    grads = torch.autograd.grad(loss, leaves + [ve])
+    _close(loss, jloss, 1e-5)
+    _close(m["nll"], jm["nll"], 1e-5)
+    for (jk, jg), (name, _), g in zip(jax.tree_util.tree_leaves_with_path(jgrads),
+                                      tree_leaves_with_path(params), grads):
+        assert jax.tree_util.keystr(jk) == name
+        _close(g, jg, 1e-5)
+    _close(grads[-1], jgve, 1e-5)
+
+
 def test_bfloat16_model_loss():
     """gemma3-1b reduced in bfloat16 (the full config's dtype): the port's
     loss within 1e-2 of the reference's; bfloat16 leaves carried both ways."""
@@ -149,11 +197,9 @@ def test_flash_attention_matches_reference(q_chunk, kv_chunk, window, causal):
 
 
 def test_what_is_not_ported_raises():
-    """Serving and the other families name their ROADMAP item; a mesh too."""
+    """The other families name their ROADMAP item; a mesh too."""
     api = get_api(get_arch("gemma3-1b", reduced=True))
-    for call in (lambda: api.prefill_fn(None, None), lambda: api.decode_fn(None, None, None, 1),
-                 lambda: api.init_decode_state(1, 8),
-                 lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True)),
+    for call in (lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True)),
                  lambda: get_api(get_arch("mamba2-1.3b", reduced=True)),
                  lambda: tr.forward({}, torch.zeros((1, 4), dtype=torch.int32), api.cfg,
                                     tr.Dist(mesh="a mesh"))):

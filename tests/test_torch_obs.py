@@ -36,14 +36,10 @@ from repro_torch.data.pipeline import VectorStreamSource
 from repro_torch.kernels import ops
 from repro_torch.stream import EngineTelemetry, StreamEngine, StreamKMeansConfig
 from repro_torch.utils import prng
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-@pytest.fixture
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 @pytest.fixture
@@ -279,7 +275,7 @@ def test_engine_telemetry_is_bit_identical():
     assert reg.gauge("engine.state_bytes").value == recs[-1]["state_bytes"] > 0
 
 
-def test_engine_telemetry_matches_reference(partitionable, tmp_path):
+def test_engine_telemetry_matches_reference(tmp_path):
     """The same stream through both packages' engines with telemetry: the
     same counters, histogram counts, step-record keys, rows, steps and state
     bytes (the reference's tree_leaves sum), checkpoints included."""

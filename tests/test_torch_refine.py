@@ -33,15 +33,11 @@ from repro_torch.stream import accumulators as acc
 from repro_torch.utils import prng
 from tests.conftest import make_clusters, max_angle_sin
 from tests.conftest import spiked as _spiked
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 KEY = jax.random.PRNGKey(0)
 CPU = dict(device="cpu")
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def spiked(n, p, k, **kw):

@@ -13,14 +13,10 @@ from repro.core import sketch as jsketch
 from repro.kernels import ref as jref
 from repro_torch.core import ros, sampling, sketch
 from repro_torch.kernels import ops
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 KEY = jax.random.PRNGKey(5)
 
-
-@pytest.fixture
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _kd(key):
@@ -43,7 +39,7 @@ def test_fwht_matches(p):
 
 @pytest.mark.parametrize("transform,p", [("hadamard", 16), ("hadamard", 1000),
                                          ("dct", 16), ("dct", 1000)])
-def test_precondition_and_unmix_match(partitionable, transform, p):
+def test_precondition_and_unmix_match(transform, p):
     x = _x(4, p, seed=p)
     y = ros.precondition(torch.from_numpy(x), _kd(KEY), transform)
     yj = jros.precondition(jnp.asarray(x), KEY, transform)
@@ -54,7 +50,7 @@ def test_precondition_and_unmix_match(partitionable, transform, p):
     _close(back, x, tol=1e-4)
 
 
-def test_pad_len_and_signs(partitionable):
+def test_pad_len_and_signs():
     for p in [1, 2, 3, 1000, 1024, 1025]:
         assert ros.pad_len(p) == jros.pad_len(p)
         assert ros.pad_len(p, "dct") == p
@@ -67,7 +63,7 @@ def test_pad_len_and_signs(partitionable):
 @pytest.mark.parametrize("transform,p,gamma", [("hadamard", 1000, 0.1),
                                                ("hadamard", 256, 0.25),
                                                ("dct", 300, 0.1)])
-def test_sketch_matches(partitionable, transform, p, gamma):
+def test_sketch_matches(transform, p, gamma):
     spec_j = jsketch.make_spec(p, KEY, gamma=gamma, transform=transform)
     spec = sketch.make_spec(p, _kd(KEY), gamma=gamma, transform=transform)
     assert (spec.m, spec.p_pad, spec.gamma) == (spec_j.m, spec_j.p_pad, spec_j.gamma)
@@ -98,7 +94,7 @@ def test_make_spec_validation():
     assert sketch.make_spec(100, _kd(KEY), gamma=1.0).m == 128
 
 
-def test_subsample_and_gather_match(partitionable):
+def test_subsample_and_gather_match():
     y = _x(6, 64, seed=2)
     s = sampling.subsample(torch.from_numpy(y), _kd(KEY), 9)
     s_j = jsampling.subsample(jnp.asarray(y), KEY, 9)
@@ -111,7 +107,7 @@ def test_subsample_and_gather_match(partitionable):
 
 
 @pytest.mark.parametrize("p", [40000, 1 << 17])
-def test_sketch_above_the_single_row_ceiling_matches(partitionable, p):
+def test_sketch_above_the_single_row_ceiling_matches(p):
     """Past p_pad = 2^15, on the CPU (the plain path of the cluster sketch):
     the sketch and ops.sketch_fused against the reference's plain
     composition, p_pad = 2^16 (40000 padded) and 2^17; identical indices,

@@ -28,14 +28,10 @@ from repro_torch.sketchserve import SketchService, restore_service
 from repro_torch.stream import StreamKMeansConfig
 from repro_torch.stream import sharded
 from repro_torch.stream.engine import StreamEngine
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 CPU = dict(device="cpu")
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _kw(kw):

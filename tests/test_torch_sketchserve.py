@@ -29,6 +29,7 @@ from repro_torch.api import Plan, SparsifiedMean, SparsifiedPCA, fit_many
 from repro_torch.sketchserve import (ESTIMATORS, AdminRequest, QueryRequest, SketchService,
                                      restore_service)
 from repro_torch.sketchserve.snapshot import plan_from_json, plan_to_json
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P = 32
@@ -36,11 +37,6 @@ BS = 64
 CPU = dict(device="cpu")
 TIMEOUT = 60
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _kw(**kw):

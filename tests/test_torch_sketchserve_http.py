@@ -17,15 +17,11 @@ import repro.sketchserve as jserve
 from repro_torch.api import Plan
 from repro_torch.sketchserve import SketchService, serve_http
 from repro_torch.sketchserve.snapshot import plan_to_json
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 P = 32
 BS = 64
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _plan(**kw):

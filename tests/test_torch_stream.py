@@ -19,15 +19,11 @@ from repro_torch.data.pipeline import VectorStreamSource
 from repro_torch.stream import EngineTelemetry, StreamKMeansConfig
 from repro_torch.stream import state as tstate
 from repro_torch.utils import prng
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 P, BATCH, STEPS = 1000, 64, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-@pytest.fixture
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 def _engines():
@@ -52,7 +48,7 @@ def _assert_results_match(res, jres):
     close(res.kmeans_obj, jres.kmeans_obj, 1e-4)
 
 
-def test_stream_engine_matches_reference(partitionable):
+def test_stream_engine_matches_reference():
     jeng, teng = _engines()
     jres = jeng.run(STEPS)
     res = teng.run(STEPS)
@@ -70,7 +66,7 @@ def test_stream_engine_matches_reference(partitionable):
     np.testing.assert_array_equal(teng.assign(s).numpy(), np.asarray(jeng.assign(js)))
 
 
-def test_run_from_carried_reference_state(partitionable):
+def test_run_from_carried_reference_state():
     """Start the port from the reference engine's init_state() (and resume
     mid-stream from the reference's step-1 state): same result."""
     jeng, teng = _engines()

@@ -52,15 +52,11 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.api import get_api
 from repro_torch.train import checkpoint, optimizer, trainer
 from repro_torch.utils.tree import tree_leaves_with_path
+from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
 
-
-@pytest.fixture(autouse=True)
-def partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("repro_torch implements jax_threefry_partitionable=True only")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -156,6 +152,51 @@ def test_train_steps_match_reference(accum, gamma, dtype):
         flipped, total = _params_close(state["params"], jstate["params"], step + 1, bf16)
         assert flipped <= (3e-2 if bf16 else 1e-4) * total, (step, flipped, total)
         assert int(state["opt"]["step"]) == int(jstate["opt"]["step"]) == step + 1
+
+
+def test_vlm_train_steps_match_reference():
+    """qwen2-vl-2b reduced, 2 compressed steps beside the reference's
+    ``make_train_fn``, each batch with M-RoPE positions on a (t, h, w) grid
+    and vision embeddings: loss, nll and grad_norm within 1e-5 relative,
+    the residual within 1e-5 of its largest entry, parameters as
+    ``_params_close`` holds them, the count of those more than 1e-6 apart
+    at most 2e-4 of the 106,816 (1e-4 would allow 10; step 1 moves 11, the
+    largest by 6.8e-5, where Adam's first step meets ε)."""
+    jcfg, cfg = jget_arch("qwen2-vl-2b", reduced=True), get_arch("qwen2-vl-2b", reduced=True)
+    key = jax.random.PRNGKey(0)
+    opt = dict(peak_lr=LR, warmup_steps=1, total_steps=2)
+    jt = jtrainer.TrainerConfig(opt=jopt.OptConfig(**opt), q_chunk=16, kv_chunk=16,
+                                compress=JCompressConfig(gamma=0.1))
+    t = trainer.TrainerConfig(opt=optimizer.OptConfig(**opt), q_chunk=16, kv_chunk=16,
+                              compress=CompressConfig(gamma=0.1))
+    japi, api = jget_api(jcfg), get_api(cfg)
+    jstate = jtrainer.init_state(japi, jt, key)
+    state = trainer.init_state(api, t, np.asarray(jax.random.key_data(key)), device="cpu")
+    state["params"] = tr.params_from_reference(jax.tree.map(np.asarray, jstate["params"]), cfg,
+                                               device="cpu")
+    jfn = jtrainer.make_train_fn(japi, jt, jtrainer.NO_DIST, key)
+    fn = trainer.make_train_fn(api, t, tr.NO_DIST, np.asarray(jax.random.key_data(key)),
+                               device="cpu")
+    source = JSource(cfg.vocab_size, 32, 4, seed=0)
+    nv, rng = cfg.n_vision_tokens, np.random.default_rng(7)
+    pos = np.broadcast_to(np.arange(32)[None, None], (3, 4, 32)).copy()
+    pos[0, :, 1:1 + nv], pos[1, :, 1:1 + nv], pos[2, :, 1:1 + nv] = \
+        1, 1 + np.arange(nv) // 4, 1 + np.arange(nv) % 4
+    for step in range(2):
+        batch = {k: np.asarray(v) for k, v in source.next_batch().items()}
+        batch["positions"] = pos.astype(np.int32)
+        batch["vision_embeds"] = rng.normal(size=(4, nv, cfg.d_model)).astype(np.float32)
+        jstate, jm = jfn(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, m = fn(state, batch)
+        for name in ("loss", "nll", "grad_norm"):
+            assert _rel(m[name], jm[name]) < 1e-5, (step, name, float(m[name]), float(jm[name]))
+        for (name, r), (_, q) in zip(tree_leaves_with_path(state["residual"]),
+                                     tree_leaves_with_path(jstate["residual"])):
+            np.testing.assert_allclose(r.numpy(), np.asarray(q), rtol=0,
+                                       atol=1e-5 * float(np.abs(np.asarray(q)).max()),
+                                       err_msg=name)
+        flipped, total = _params_close(state["params"], jstate["params"], step + 1, False)
+        assert flipped <= 2e-4 * total, (step, flipped, total)
 
 
 def test_optimizer_factored_and_momentum_free():
@@ -297,7 +338,8 @@ def _losses(text: str) -> list[tuple[int, float]]:
 
 
 def _port_launch(*flags) -> str:
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2",
+               REPRO_TORCH_THREEFRY_PARTITIONABLE=str(int(jax.config.jax_threefry_partitionable)))
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
                           *flags], cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
