@@ -44,7 +44,11 @@ Phases, in order; any failure exits non-zero:
               decoded 8 steps, within 1e-5 of the CPU's logits, and one
               sample_indices draw in JAX's original threefry layout (4100
               rows of p = 16384, three row blocks) bit-equal to the CPU's
-              rows at the blocks' edges.
+              rows at the blocks' edges; the other families (family_parity):
+              reduced mamba2-1.3b (ssm_prefill of 24 tokens, 8 decode steps),
+              zamba2-1.2b (32 tokens decoded one by one into a float32 state)
+              and seamless-m4t-large-v2 (a cache over 24 frames, 8 decode
+              steps) in float32, within 1e-5 of the CPU's logits.
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
               (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
@@ -154,14 +158,16 @@ Phases, in order; any failure exits non-zero:
               --log-every, the all-reduce timed, a checkpoint after step 4
               and --resume to step 8 bit-equal to the uninterrupted run.
 
-13. train  — gemma3-1b at full width and depth (1,301,802,624 bf16
-              parameters), CompressConfig(gamma=0.1) with error feedback,
+13. train  — gemma3-1b at full width, its depth cut to DEPTH13 = 12 of
+              26 layers, two of its 5:1 local/global groups (926,052,480
+              bf16 parameters), CompressConfig(gamma=0.1) with error feedback,
               AdamW in float32, SyntheticLMSource(seed=0) at seq 4096, a
               global batch of 8 as ACCUM13 micro-batches, 6 steps through
               make_train_fn: every loss finite and the last two below the
-              first; K2 on its kernel path twice a step at (79,456, 16384)
-              and no plain version; wire_floats = 79,456 × 1638; peak memory
-              under 70 GiB; a checkpoint of the state after step 3, written
+              first; K2 on its kernel path twice a step at (56,522, 16384)
+              and no plain version; wire_floats = 56,522 × 1638 in float32
+              (92,583,040); peak memory under 70 GiB; a checkpoint of the
+              state after step 3, written
               by save's thread while steps 4-6 run, restored bit-equal and
               continued to step 6 with the uninterrupted run's losses and
               final parameters, bit for bit; at the final parameters K2 on a
@@ -197,14 +203,42 @@ Phases, in order; any failure exits non-zero:
               3.35 TB/s) and peak memory. No kernel of the repo serves a
               model, so the phase's launches are 0.
 
+15. lm-families — the ssm, hybrid and audio families at full width and depth in
+              bf16, random weights from a seeded torch.Generator: (a) training:
+              mamba2-1.3b, zamba2-1.2b and seamless-m4t-large-v2 each through
+              make_train_fn, AdamW and CompressConfig(gamma=0.1) with error
+              feedback on SyntheticLMSource(seed=0), 4 steps of 4 × 4096 (the
+              audio batch's frames as launch.train draws them), each as 2
+              micro-batches of 2: every loss finite, K2 twice a step on its kernel
+              path at (88,301 | 71,441 | 124,194, 16384), wire_floats = chunks
+              × 1638 (a float32 metric, so rounded to float32; the round
+              trip's own count exactly), ĝ + r' = g + r on a real gradient,
+              peak memory under 70 GiB; s a step, tokens/s, peak GiB and a
+              step's parts (a micro-batch's forward and backward, the
+              compression) printed; K2 on the real chunks, its first and last
+              row blocks bit-equal to its plain version, timed beside its
+              bound. (b) serving:
+              mamba2-1.3b ssm_prefill of 4 × 4096, then 16 decode steps from
+              its states; zamba2-1.2b 16 steps from cur_len 4081 of a 4 × 4096
+              state whose KV sites a seeded generator fills, and a 64-token
+              prompt decoded token by token; seamless-m4t-large-v2's
+              init_decode_cache over 4 × 4096 frames, then 16 steps; gates:
+              prefill and decode steps within TOL14 of max |logit| of forward
+              over the same tokens, argmax equal where the top-2 margin
+              exceeds it; ServeEngine (float32, TF32 off) equal to one-by-one
+              decoding for mamba2-1.3b and zamba2-1.2b; decode ms a step
+              beside its byte bound (the weights but the embedding, and the
+              state or cache, read once over 3.35 TB/s).
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
-or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's and
-14's paths' own),
+or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's, 14's
+and 15's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -260,6 +294,9 @@ B12, STEPS12, B12_LR, STEPS12_LR = 2048, 8, 1024, 4
 # the step after which it checkpoints, its peak-memory ceiling, AdamW's peak
 # lr, and flash_attention's query and KV chunks
 SEQ13, BATCH13, ACCUM13, STEPS13, CKPT13, PEAK13_GIB, LR13 = 4096, 8, 2, 6, 3, 70.0, 1e-3
+# its depth: 12 of gemma3-1b's 26 layers (two 5:1 local/global groups), cut
+# so that the whole script, phase 15 added, stays well inside its time
+DEPTH13 = 12
 Q13, KV13 = 1024, 1024
 # phase 14: LM serving at full width in bf16. (a) gemma3-1b at prefill_32k's
 # sequence, batch 2 (of 32), a float32 cache, and its prefill-then-decode gate
@@ -281,6 +318,20 @@ PEAK14_GIB = 70.0
 # depth (gemma3-1b's 26 layers; glm4-9b's 40: 0.022; qwen2-vl-2b's 28: 0.020),
 # so 0.08 (2.3× that); argmax equal wherever the top-2 margin exceeds it
 TOL14 = 0.08
+# phase 15: the ssm, hybrid and audio families at full width and depth in
+# bf16. Training: SyntheticLMSource(seed=0) at train_4k's sequence, a global
+# batch of B15 sequences as ACCUM15[arch] micro-batches (sized so the peak
+# stays under PEAK15_GIB), STEPS15 steps, CompressConfig(gamma=0.1) with error
+# feedback, AdamW's peak lr LR13 and attention chunks Q13 × KV13; the
+# gradient's chunks of 16384 each model must have. Serving: B15S × S15
+# (train_4k's sequence) and GEN15 decode steps; zamba2's prompt of PROMPT15
+# tokens decoded token by token; ServeEngine over REQS15 requests of NEW15
+# new tokens in SLOTS15 slots of MAXLEN15, in float32 with TF32 off
+SEQ15, B15, STEPS15, PEAK15_GIB = 4096, 4, 4, 70.0
+ACCUM15 = {"mamba2-1.3b": 2, "zamba2-1.2b": 2, "seamless-m4t-large-v2": 2}
+CHUNKS15 = {"mamba2-1.3b": 88_301, "zamba2-1.2b": 71_441, "seamless-m4t-large-v2": 124_194}
+B15S, S15, GEN15, PROMPT15 = 4, 4096, 16, 64
+SLOTS15, MAXLEN15, REQS15, NEW15 = 4, 64, 4, 8
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -321,8 +372,6 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def same_bits(a, b) -> list[str]:
     """The fields in which two engine states differ in any bit."""
-    import dataclasses
-
     import torch
 
     out = []
@@ -1183,14 +1232,14 @@ def phase13_train(card: str) -> dict[str, int]:
     from repro_torch.utils.tree import (tree_count_params, tree_leaves, tree_leaves_with_path,
                                         tree_map, tree_size_bytes, tree_unflatten)
 
-    cfg = get_arch("gemma3-1b")
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), n_layers=DEPTH13)
     model = get_api(cfg)
     comp = gc.CompressConfig(gamma=0.1)
     cp, m = comp.chunk_p, comp.m
     tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=LR13, warmup_steps=1, total_steps=STEPS13),
                          accum_steps=ACCUM13, compress=comp, q_chunk=Q13, kv_chunk=KV13)
     key = prng.PRNGKey(0)
-    print(f"== 13 train: {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
+    print(f"== 13 train: {cfg.name} at full width, {cfg.n_layers} of its 26 layers (d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV head of {cfg.hd}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.local_global_ratio}:1 local/global, window "
           f"{cfg.sliding_window}), {cfg.dtype} parameters; CompressConfig(gamma={comp.gamma}): "
@@ -1205,7 +1254,8 @@ def phase13_train(card: str) -> dict[str, int]:
     t_init = time.perf_counter() - t0
     n = tree_count_params(state["params"])
     nc = -(-n // cp)
-    check(n == 1_301_802_624 and nc == 79_456, f"gemma3-1b has {n:,} parameters, {nc:,} chunks")
+    check(n == 926_052_480 and nc == 56_522,
+          f"gemma3-1b at {DEPTH13} layers has {n:,} parameters, {nc:,} chunks")
     gib = lambda b: b / 2**30  # noqa: E731
     print(f"  state: {n:,} parameters, {nc:,} chunks of {cp}: params "
           f"{gib(tree_size_bytes(state['params'])):.2f} GiB, moments "
@@ -1267,7 +1317,9 @@ def phase13_train(card: str) -> dict[str, int]:
           and launches13["hd_precondition"] == 2 * STEPS13,
           f"K2 did not launch twice a step on the kernel path: {dispatch}")
     check(not [k for k in dispatch if k[1] == "ref"], f"a plain version ran: {dispatch}")
-    check(all(r["wire"] == nc * m for r in recs), f"wire_floats is not {nc} × {m}")
+    # the metric is a float32 scalar, as the reference's: nc × m rounded to float32
+    check(all(r["wire"] == int(np.float32(nc * m)) for r in recs),
+          f"wire_floats is not {nc} × {m} in float32")
     check(peak_run < PEAK13_GIB * 2**30, f"peak memory {gib(peak_run):.2f} GiB ≥ {PEAK13_GIB} GiB")
 
     # a step's parts at the final parameters, timed alone: one micro-batch's
@@ -1489,12 +1541,113 @@ def serve_parity() -> None:
     check(all(same), "the original layout's mask on the card differs from the CPU's")
 
 
+def family_parity() -> None:
+    """Phase 4's cases of the ssm, hybrid and audio families: each reduced
+    model in float32 on the card and on the CPU from the CPU's weights,
+    every logit within 1e-5 of max |logit|: mamba2-1.3b prefilled with 24
+    tokens (ssm_prefill's states) and decoded 8 steps; zamba2-1.2b decoding
+    32 tokens one by one into a float32 state (the shared block at its 2
+    sites); seamless-m4t-large-v2's cache over 24 frames and 8 decode steps."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import hybrid
+    from repro_torch.models.api import get_api
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_map
+
+    for arch in ("mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
+        lm = get_api(get_arch(arch, reduced=True))
+        cfg = lm.cfg
+        w = lm.init_params(0, "cpu")
+        toks = prng.randint(prng.PRNGKey(7), (2, 32), 0, cfg.vocab_size)
+        frames = 0.1 * prng.normal(prng.PRNGKey(8), (2, 24, cfg.d_model))
+
+        def run(device):
+            params = tree_map(lambda t: t.to(device), w)
+            out = []
+            if cfg.family == "ssm":
+                logits, state = lm.prefill_fn(params, {"tokens": toks[:, :24]}, device=device)
+                out.append(logits)
+                for t in range(8):
+                    logits, state = lm.decode_fn(params, toks[:, 24 + t:25 + t], state, 25 + t,
+                                                 device=device)
+                    out.append(logits)
+            elif cfg.family == "hybrid":
+                state = hybrid.init_decode_state(cfg, 2, 32, torch.float32, device=device)
+                for t in range(32):
+                    logits, state = lm.decode_fn(params, toks[:, t:t + 1], state, t + 1,
+                                                 device=device)
+                    out.append(logits)
+            else:
+                _, cache = lm.prefill_fn(params, {"frames": frames}, max_len=8,
+                                         cache_dtype=torch.float32, device=device)
+                for t in range(8):
+                    logits, cache = lm.decode_fn(params, toks[:, t:t + 1], cache, t + 1,
+                                                 device=device)
+                    out.append(logits)
+            return torch.stack(out).cpu()
+
+        got, want = run("cuda"), run("cpu")
+        err = float((got - want).abs().max() / want.abs().max())
+        print(f"  {arch} reduced in float32 ({cfg.family}): {got.shape[0]} steps' logits, |card - "
+              f"cpu| ≤ {err:.3g} of max |logit| (≤ 1e-5)")
+        check(err <= 1e-5, f"{arch}: serving on the card differs from the CPU")
+
+
+def timed(fn):
+    """(fn's result, its seconds on a host clock synchronised with the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def weights_read(params) -> int:
+    """Bytes a decode step reads of the weights: all but the embedding table,
+    of which it gathers B rows."""
+    from repro_torch.utils.tree import tree_size_bytes
+
+    return tree_size_bytes(params) - params["embed"].numel() * params["embed"].element_size()
+
+
+def decode_greedy(lm, params, state, first, start: int, steps: int, label: str):
+    """Greedy decode from token ``first`` (B, 1) at cur_len ``start``, every
+    step timed and its logits checked finite; returns (the state or cache,
+    the step times)."""
+    import torch
+
+    cur, times = first, []
+    for t in range(steps):
+        (logits, state), dt = timed(lambda: lm.decode_fn(params, cur, state, start + t))
+        check(bool(torch.isfinite(logits).all()), f"{label} decode step {t}: a logit is not finite")
+        cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        times.append(dt)
+    return state, times
+
+
+def report_decode(label: str, b: int, times, state, params, card: str) -> tuple[float, float]:
+    """Print decode ms a step (the median) beside its byte bound: the state or
+    cache and the weights a step reads, once, over 3.35 TB/s."""
+    from repro_torch.utils.tree import tree_size_bytes
+
+    ms = float(np.median(times)) * 1e3
+    b_state, b_w = tree_size_bytes(state), weights_read(params)
+    bound_ms = (b_state + b_w) / PEAK_BYTES_PER_S * 1e3
+    print(f"  {label}: decode {ms:.2f} ms a step (median of {len(times)}; first "
+          f"{times[0] * 1e3:.2f}), {b / (ms / 1e3):,.0f} tokens/s; byte bound {bound_ms:.3f} ms "
+          f"(state or cache {b_state / 1e9:.3f} GB + weights {b_w / 1e9:.2f} GB over 3.35 TB/s; "
+          f"{bound_ms / ms:.3f} of it); {card}", flush=True)
+    return ms, bound_ms
+
+
 def phase14_serve(card: str) -> dict[str, int]:
     """Phase 14 (module docstring): LM serving at full width. Returns the
     kernels' launches over the phase (the repo's kernels serve no model)."""
     t14 = time.perf_counter()
-    import dataclasses
-
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -1513,46 +1666,8 @@ def phase14_serve(card: str) -> dict[str, int]:
     torch.cuda.empty_cache()
     ops.reset_counts()
 
-    def weights_read(params) -> int:
-        """Bytes a decode step reads of the weights: all but the embedding
-        table, of which it gathers B rows."""
-        return tree_size_bytes(params) - params["embed"].numel() * params["embed"].element_size()
-
-    def cache_bytes(cache) -> int:
-        return sum(t.numel() * t.element_size() for t in cache.values())
-
     def finite(t, what):
         check(bool(torch.isfinite(t).all()), f"{what}: a logit is not finite")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def decode_loop(lm, params, cache, first, start, steps, label):
-        """Greedy decode from token ``first`` (B, 1) at cur_len ``start``;
-        every step timed and its logits checked; returns (the first step's
-        logits, the step times)."""
-        cur, times, first_logits = first, [], None
-        for t in range(steps):
-            (logits, cache), dt = timed(lambda: lm.decode_fn(params, cur, cache, start + t))
-            finite(logits, f"{label} decode step {t}")
-            first_logits = logits if t == 0 else first_logits
-            cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
-            times.append(dt)
-        return first_logits, times
-
-    def report_decode(label, b, times, cache, params):
-        ms = float(np.median(times)) * 1e3
-        b_cache, b_w = cache_bytes(cache), weights_read(params)
-        bound_ms = (b_cache + b_w) / PEAK_BYTES_PER_S * 1e3
-        print(f"  {label}: decode {ms:.2f} ms a step (median of {len(times)}; first "
-              f"{times[0] * 1e3:.2f}), {b / (ms / 1e3):,.0f} tokens/s; byte bound {bound_ms:.2f} ms "
-              f"(cache {b_cache / 1e9:.2f} GB + weights {b_w / 1e9:.2f} GB over 3.35 TB/s; "
-              f"{bound_ms / ms:.2f} of it); {card}", flush=True)
-        return ms, bound_ms
 
     def gate(label, lm, params, tokens, nxt, kw, cache_dtype):
         """prefill(S) then one decode_step against forward over S + 1 tokens:
@@ -1605,9 +1720,9 @@ def phase14_serve(card: str) -> dict[str, int]:
           f"{B14A * S14A / dt:,.0f} tokens/s; {card}", flush=True)
     cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GEN14A)) for k, v in cache.items()}
     first = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    _, times = decode_loop(lm, params, cache, first, S14A + 1, GEN14A, "(a)")
+    _, times = decode_greedy(lm, params, cache, first, S14A + 1, GEN14A, "(a)")
     report_decode(f"(a) {cfg.name} at a {S14A + GEN14A:,}-long float32 cache, batch {B14A}",
-                  B14A, times, cache, params)
+                  B14A, times, cache, params, card)
     del cache, logits
     gate(f"(a) {cfg.name}", lm, params, prompt[:, :GATE14], prompt[:, GATE14:GATE14 + 1], {},
          torch.float32)
@@ -1625,12 +1740,12 @@ def phase14_serve(card: str) -> dict[str, int]:
             cache[name][i].normal_(generator=gen)
     start = S14A - GEN14B + 1
     first = prng.randint(prng.PRNGKey(1), (B14B, 1), 0, cfg.vocab_size, device=dev)
-    print(f"  (b) {cfg.name}: init_kv_cache({B14B}, {S14A:,}) in bf16, {cache_bytes(cache) / 1e9:.2f} "
+    print(f"  (b) {cfg.name}: init_kv_cache({B14B}, {S14A:,}) in bf16, {tree_size_bytes(cache) / 1e9:.2f} "
           f"GB (decode_32k's cache length; batch 128 → {B14B}), filled from a seeded generator "
           f"(N(0, 1)); {GEN14B} decode steps from cur_len = {start}; {card}", flush=True)
-    _, times = decode_loop(lm, params, cache, first, start, GEN14B, "(b)")
+    _, times = decode_greedy(lm, params, cache, first, start, GEN14B, "(b)")
     report_decode(f"(b) {cfg.name} at a {S14A:,}-long bf16 cache, batch {B14B}", B14B, times, cache,
-                  params)
+                  params, card)
     del cache
     peak_gate("(b)")
 
@@ -1700,9 +1815,9 @@ def phase14_serve(card: str) -> dict[str, int]:
           f"{card}", flush=True)
     cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GEN14C)) for k, v in cache.items()}
     nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    _, times = decode_loop(lm, params, cache, nxt, S14C + 1, GEN14C, "(c)")
+    _, times = decode_greedy(lm, params, cache, nxt, S14C + 1, GEN14C, "(c)")
     report_decode(f"(c) {cfg.name} at a {S14C + GEN14C:,}-long bf16 cache, batch {B14C}", B14C,
-                  times, cache, params)
+                  times, cache, params, card)
     del cache, logits
     gate(f"(c) {cfg.name}", lm, params, prompt, nxt, {}, torch.bfloat16)
     peak_gate("(c)")
@@ -1736,9 +1851,9 @@ def phase14_serve(card: str) -> dict[str, int]:
           f"cache in {dt:.2f} s, {B14D * S14D / dt:,.0f} tokens/s; {card}", flush=True)
     cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, GEN14D)) for k, v in cache.items()}
     nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    _, times = decode_loop(lm, params, cache, nxt, S14D + 1, GEN14D, "(d)")
+    _, times = decode_greedy(lm, params, cache, nxt, S14D + 1, GEN14D, "(d)")
     report_decode(f"(d) {cfg.name} at a {S14D + GEN14D:,}-long bf16 cache, batch {B14D}", B14D,
-                  times, cache, params)
+                  times, cache, params, card)
     del cache, logits
     gate(f"(d) {cfg.name}", lm, params, prompt, nxt, {"positions": pos, "vision_embeds": vis},
          torch.bfloat16)
@@ -1751,7 +1866,327 @@ def phase14_serve(card: str) -> dict[str, int]:
     return launches14
 
 
+def _rows_gate(label: str, got, want, card: str) -> float:
+    """Logits (..., V) against the reference rows ``want``: within TOL14 of
+    max |logit| and argmax equal where the top-2 margin exceeds that;
+    returns the error."""
+    import torch
+
+    got, want = got.float().reshape(-1, want.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > TOL14 * scale
+    same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+    print(f"  {label}: {err:.4f} of max |logit| (≤ {TOL14}); argmax equal in the {int(clear.sum())} "
+          f"of {want.shape[0]} rows whose top-2 margin exceeds it: {same}; {card}", flush=True)
+    check(err <= TOL14 and same, f"{label}: beyond {TOL14} of the forward's logits")
+    return err
+
+
+def phase15_families(card: str) -> dict[str, int]:
+    """Phase 15 (module docstring): the ssm, hybrid and audio families
+    trained with K2 gradient compression and served at full width. Returns
+    the kernels' launches summed over the three training runs, each read
+    just after its reset."""
+    t15 = time.perf_counter()
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.core import ros
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encdec, hybrid, mamba_lm
+    from repro_torch.models.api import get_api
+    from repro_torch.models.transformer import NO_DIST
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_count_params, tree_leaves, tree_size_bytes
+
+    gib = lambda b: b / 2**30  # noqa: E731
+    dev = torch.device("cuda")
+    comp = gc.CompressConfig(gamma=0.1)
+    cp, m = comp.chunk_p, comp.m
+    key = prng.PRNGKey(0)
+    print(f"== 15 lm-families: mamba2-1.3b, zamba2-1.2b and seamless-m4t-large-v2 at full width "
+          f"and depth in bf16 (random weights from torch.Generator), trained {STEPS15} steps of "
+          f"{B15} × {SEQ15} with CompressConfig(gamma={comp.gamma}) and served at {B15S} × {S15} "
+          f"(logit tolerance {TOL14} of max |logit|)", flush=True)
+
+    def audio_frames(step, cfg, b, s):
+        """launch.train's frames: 0.1 · normal(fold_in(key, step), (b, s, d)) in
+        the config's dtype."""
+        dtype = getattr(torch, cfg.dtype)
+        x = prng.normal(prng.fold_in(key, step), (b, s, cfg.d_model), device=dev, dtype=dtype)
+        return torch.tensor(0.1, dtype=dtype, device=dev) * x
+
+    # ------------------------------------------------------------ training
+    launches15, k2_15 = {}, {}
+    for arch in ("mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
+        cfg = get_arch(arch)
+        model = get_api(cfg)
+        accum = ACCUM15[arch]
+        tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=LR13, warmup_steps=1,
+                                                   total_steps=STEPS15),
+                             accum_steps=accum, compress=comp, q_chunk=Q13, kv_chunk=KV13)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state, t_init = timed(lambda: init_state(model, tcfg, key, device="cuda"))
+        n = tree_count_params(state["params"])
+        nc = -(-n // cp)
+        check(nc == CHUNKS15[arch], f"{arch}: {n:,} parameters in {nc:,} chunks, not "
+                                    f"{CHUNKS15[arch]:,}")
+        fn = make_train_fn(model, tcfg, NO_DIST, key, device="cuda")
+        src = SyntheticLMSource(cfg.vocab_size, SEQ15, B15, seed=0)
+        print(f"  {arch} ({cfg.family}; {cfg.n_layers} layers{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}): {n:,} parameters, {nc:,} chunks of "
+              f"{cp}; state {gib(tree_size_bytes(state)):.2f} GiB drawn in {t_init:.2f} s; "
+              f"{B15} × {SEQ15} a step as {accum} micro-batches", flush=True)
+        ops.reset_counts()
+        recs = []
+        for step in range(STEPS15):
+            batch = {k: v.to(dev) for k, v in src.batch_for(step).items()}
+            if cfg.family == "audio":
+                batch["frames"] = audio_frames(step, cfg, B15, SEQ15)
+            k2 = ops.DISPATCH[("hd_precondition", "kernel")]
+            (state, met), dt = timed(lambda: fn(state, batch))
+            rec = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                       wire=int(met["wire_floats"]), s=dt,
+                       k2=ops.DISPATCH[("hd_precondition", "kernel")] - k2)
+            recs.append(rec)
+            print(f"    step {step}: loss {rec['loss']!r}, grad_norm {rec['grad_norm']:.4f}, "
+                  f"wire_floats {rec['wire']:,}, {dt:.3f} s ({B15 * SEQ15 / dt:,.0f} tokens/s), K2 "
+                  f"launches {rec['k2']}", flush=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = ops.launch_counts()
+        dispatch = dict(ops.DISPATCH)
+        for name, c in launches.items():
+            launches15[name] = launches15.get(name, 0) + c
+        step_s = float(np.median([r["s"] for r in recs[1:]]))
+        print(f"  {arch}: {step_s:.3f} s a step (median of steps 1-{STEPS15 - 1}; step 0 "
+              f"{recs[0]['s']:.3f} s), {B15 * SEQ15 / step_s:,.0f} tokens/s; peak memory "
+              f"{gib(peak):.2f} GiB ({gib(base):.2f} GiB held before); launches {launches}; {card}",
+              flush=True)
+        losses = [r["loss"] for r in recs]
+        check(all(math.isfinite(v) for v in losses), f"{arch}: a loss is not finite: {losses}")
+        check(all(r["k2"] == 2 for r in recs) and launches["hd_precondition"] == 2 * STEPS15,
+              f"{arch}: K2 did not launch twice a step on the kernel path: {dispatch}")
+        check(not [k for k in dispatch if k[1] == "ref"], f"{arch}: a plain version ran: {dispatch}")
+        # the metric is a float32 scalar, as the reference's: nc × m rounded to float32
+        check(all(r["wire"] == int(np.float32(nc * m)) for r in recs),
+              f"{arch}: wire_floats is not {nc} × {m} in float32")
+        check(peak < PEAK15_GIB * 2**30, f"{arch}: peak memory {gib(peak):.2f} GiB ≥ {PEAK15_GIB}")
+        # the error-feedback identity on one micro-batch's gradient plus the residual
+        params = state["params"]
+        leaves = tree_leaves(params)
+        mb = {k: v[:B15 // accum] for k, v in batch.items()}
+        (loss, _), t_fwd = timed(lambda: model.loss_fn(params, mb, NO_DIST, q_chunk=Q13,
+                                                       kv_chunk=KV13))
+        grads, t_bwd = timed(lambda: torch.autograd.grad(loss, leaves))
+        with torch.no_grad():
+            flat = torch.zeros((nc * cp,), dtype=torch.float32, device=dev)
+            off = 0
+            for g, r in zip(grads, tree_leaves(state["residual"])):
+                flat[off:off + g.numel()].add_(g.reshape(-1)).add_(r.reshape(-1))
+                off += g.numel()
+            del grads, loss
+            v0 = flat.clone()
+            (g_hat, res_flat, wire), t_comp = timed(lambda: gc.compress_flat(
+                flat, prng.fold_in_str(key, "grad-compress"), STEPS15, comp))
+            err = float((g_hat[:n] + res_flat[:n] - v0[:n]).abs().max())
+            scale = float(v0[:n].abs().max())
+        print(f"  {arch}: max |ĝ + r' − (g + r)| {err:.3g} of max |g + r| {scale:.3g}; wire "
+              f"{wire:,}; a step's parts, each timed alone: one micro-batch's forward "
+              f"{t_fwd:.3f} s and backward {t_bwd:.3f} s (× {accum}), compression {t_comp:.3f} s, "
+              f"against the step's {step_s:.3f} s; {card}", flush=True)
+        check(wire == nc * m and err <= 1e-6 * scale,
+              f"{arch}: the error-feedback identity ĝ + r' = g + r does not hold")
+        # K2 at this gradient's shape on its real chunks (g + r): its first and
+        # last row blocks bit-equal to the plain version, its time beside its
+        # bound (each value read and written once)
+        del g_hat, res_flat, flat
+        with torch.no_grad():
+            x = v0.view(nc, cp)
+            signs = ros.signs_for(gc.mask_spec(comp, prng.fold_in_str(key, "grad-compress"))
+                                  .signs_key(), cp, device="cuda")
+            got = ops.hd_precondition(x, signs)
+            same = all(torch.equal(got[r0:r0 + 4096], ref.ref_hd_precondition(x[r0:r0 + 4096],
+                                                                              signs, False))
+                       for r0 in (0, nc - 4096))
+            del got
+            ms = time_ms(lambda: ops.hd_precondition(x, signs), 3, warmup=1)
+        b_k2 = bound(2 * 4.0 * nc * cp, float(nc * cp) * (cp.bit_length() - 1 + 2))
+        k2_15[arch] = (nc, ms, b_k2[0])
+        print(f"  {arch}: K2 hd_precondition ({nc:,}, {cp}): first and last 4096 rows bit-equal to "
+              f"its plain version: {same}; {ms:.4f} ms, bound {b_k2[0]:.4f} ms ({b_k2[1]}; "
+              f"{b_k2[0] / ms:.2f} of it); {card}", flush=True)
+        check(same, f"{arch}: K2 at ({nc}, {cp}) is not bit-equal to its plain version")
+        del state, params, leaves, v0, x, fn, batch, mb
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- serving
+    # (a) mamba2-1.3b: ssm_prefill of B15S × S15, then GEN15 steps from its states
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("mamba2-1.3b")
+    lm = get_api(cfg)
+    params = lm.init_params(0)
+    prompt = prng.randint(prng.PRNGKey(4), (B15S, S15), 0, cfg.vocab_size, device=dev)
+    (logits, states), dt = timed(lambda: lm.prefill_fn(params, {"tokens": prompt}))
+    check(bool(torch.isfinite(logits).all()), "(a) prefill: a logit is not finite")
+    print(f"  (a) {cfg.name}: ssm_prefill of {B15S} × {S15:,} tokens in {dt:.2f} s, "
+          f"{B15S * S15 / dt:,.0f} tokens/s; states {tree_size_bytes(states) / 1e9:.3f} GB; {card}",
+          flush=True)
+    with torch.inference_mode():
+        full = mamba_lm.forward(params, prompt, cfg)
+    _rows_gate(f"(a) {cfg.name} ssm_prefill's logits against forward's row {S15 - 1}", logits,
+               full[:, -1], card)
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    states, times = decode_greedy(lm, params, states, first, S15 + 1, GEN15, "(a)")
+    report_decode(f"(a) {cfg.name} from ssm_prefill's states, batch {B15S}", B15S, times, states,
+                  params, card)
+    cut = S15 - cfg.ssm_chunk
+    _, st = lm.prefill_fn(params, {"tokens": prompt[:, :cut]})
+    dec, _ = lm.decode_fn(params, prompt[:, cut:cut + 1], st, cut + 1)
+    _rows_gate(f"(a) {cfg.name} ssm_prefill of {cut} tokens then one decode_step against forward's "
+               f"row {cut}", dec, full[:, cut], card)
+    del full, states, st, logits
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (a): peak memory {gib(peak):.2f} GiB; {card}", flush=True)
+    check(peak < PEAK15_GIB * 2**30, f"(a): peak memory {gib(peak):.2f} GiB")
+    del params
+
+    # (b) zamba2-1.2b: a B15S × S15 state whose KV sites hold seeded N(0, 1)
+    # keys and values, GEN15 steps from cur_len S15 − GEN15 + 1; then a
+    # PROMPT15-token prompt decoded token by token against forward
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("zamba2-1.2b")
+    lm = get_api(cfg)
+    params = lm.init_params(0)
+    state = lm.init_decode_state(B15S, S15)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    for name in ("k", "v"):
+        for i in range(hybrid.n_shared_sites(cfg)):
+            state[name][i].normal_(generator=gen)
+    start = S15 - GEN15 + 1
+    first = prng.randint(prng.PRNGKey(5), (B15S, 1), 0, cfg.vocab_size, device=dev)
+    print(f"  (b) {cfg.name}: init_decode_state({B15S}, {S15:,}) in bf16 "
+          f"({hybrid.n_shared_sites(cfg)} KV sites, {tree_size_bytes(state) / 1e9:.3f} GB), the "
+          f"sites filled from a seeded generator; {GEN15} decode steps from cur_len = {start}; "
+          f"{card}", flush=True)
+    state, times = decode_greedy(lm, params, state, first, start, GEN15, "(b)")
+    report_decode(f"(b) {cfg.name} at a {S15:,}-long cache, batch {B15S}", B15S, times, state,
+                  params, card)
+    del state
+    toks = prng.randint(prng.PRNGKey(6), (B15S, PROMPT15), 0, cfg.vocab_size, device=dev)
+    state = lm.init_decode_state(B15S, PROMPT15)
+    outs, t0 = [], time.perf_counter()
+    for t in range(PROMPT15):
+        logits, state = lm.decode_fn(params, toks[:, t:t + 1], state, t + 1)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t_prompt = time.perf_counter() - t0
+    with torch.inference_mode():
+        full = hybrid.forward(params, toks, cfg, q_chunk=PROMPT15, kv_chunk=PROMPT15)
+    _rows_gate(f"(b) {cfg.name} a {PROMPT15}-token prompt decoded token by token ({t_prompt:.2f} s) "
+               f"against forward over it, every row", torch.stack(outs, 1), full, card)
+    pre = lm.prefill_fn(params, {"tokens": toks})[0]
+    _rows_gate(f"(b) {cfg.name} hyb_prefill's logits against forward's last row", pre, full[:, -1],
+               card)
+    del full, outs, state, params, pre
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (b): peak memory {gib(peak):.2f} GiB; {card}", flush=True)
+    check(peak < PEAK15_GIB * 2**30, f"(b): peak memory {gib(peak):.2f} GiB")
+
+    # (c) seamless-m4t-large-v2: init_decode_cache over B15S × S15 frames,
+    # then GEN15 teacher-forced steps against forward over the same tokens
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("seamless-m4t-large-v2")
+    lm = get_api(cfg)
+    params = lm.init_params(0)
+    frames = audio_frames(1000, cfg, B15S, S15)
+    (none, cache), dt = timed(lambda: lm.prefill_fn(params, {"frames": frames}, max_len=GEN15))
+    check(none is None, "the audio prefill returned logits")
+    print(f"  (c) {cfg.name}: init_decode_cache over {B15S} × {S15:,} frames (the encoder once, "
+          f"the cross K/V of {cfg.n_layers} layers, {tree_size_bytes(cache) / 1e9:.3f} GB) in "
+          f"{dt:.2f} s, {B15S * S15 / dt:,.0f} frames/s; {card}", flush=True)
+    toks = prng.randint(prng.PRNGKey(7), (B15S, GEN15), 0, cfg.vocab_size, device=dev)
+    outs, times = [], []
+    for t in range(GEN15):
+        (logits, cache), dts = timed(lambda: lm.decode_fn(params, toks[:, t:t + 1], cache, t + 1))
+        outs.append(logits)
+        times.append(dts)
+    report_decode(f"(c) {cfg.name} over {S15:,} frames, batch {B15S}", B15S, times, cache, params, card)
+    with torch.inference_mode():
+        full = encdec.forward(params, frames, toks, cfg)
+    _rows_gate(f"(c) {cfg.name} {GEN15} decode steps against forward over the same tokens, every "
+               f"row", torch.stack(outs, 1), full, card)
+    del full, outs, cache, params, frames
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (c): peak memory {gib(peak):.2f} GiB; {card}", flush=True)
+    check(peak < PEAK15_GIB * 2**30, f"(c): peak memory {gib(peak):.2f} GiB")
+
+    # (d) ServeEngine for ssm and hybrid, in float32 with TF32 off: each
+    # request's tokens equal to its one-by-one greedy decoding, alone in its
+    # slot with the wave's right-aligned padding (the engine's shapes)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        torch.cuda.empty_cache()
+        lm32 = get_api(dataclasses.replace(get_arch(arch), dtype="float32"))
+        rng = np.random.default_rng(15)
+        prompts = [rng.integers(0, lm32.cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in rng.integers(8, 25, REQS15)]
+        params = lm32.init_params(0)
+        eng = ServeEngine(lm32, params, n_slots=SLOTS15, max_len=MAXLEN15)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new=NEW15))
+        done, dt = timed(eng.run)
+        n_out = sum(len(r.out) for r in done)
+        plen = max(len(pr) for pr in prompts)
+        seq_ok = []
+        for s_, pr in enumerate(prompts):
+            toks = np.zeros((SLOTS15, plen), np.int32)
+            toks[s_, plen - len(pr):] = pr
+            toks = torch.from_numpy(toks).to(dev)
+            state = lm32.init_decode_state(SLOTS15, MAXLEN15)
+            for t in range(plen):
+                logits, state = lm32.decode_fn(params, toks[:, t:t + 1], state, t + 1)
+            outs = [int(torch.argmax(logits[s_]))]
+            for k in range(NEW15 - 1):
+                cur = torch.zeros((SLOTS15, 1), dtype=torch.int32, device=dev)
+                cur[s_, 0] = outs[-1]
+                logits, state = lm32.decode_fn(params, cur, state, plen + k + 2)
+                outs.append(int(torch.argmax(logits[s_])))
+            seq_ok.append(outs == done[s_].out)
+        print(f"  (d) ServeEngine({arch} in float32, TF32 off, n_slots={SLOTS15}, "
+              f"max_len={MAXLEN15}): {REQS15} requests of {[len(p) for p in prompts]} prompt "
+              f"tokens, max_new={NEW15}: {n_out} tokens in {dt:.2f} s ({n_out / dt:,.1f} tokens/s); "
+              f"each equal to its one-by-one greedy decoding: {seq_ok}; {card}", flush=True)
+        check(len(done) == REQS15 and all(r.done and len(r.out) == NEW15 for r in done),
+              f"{arch}: the engine did not finish every request")
+        check(all(seq_ok), f"{arch}: the engine's tokens differ from one-by-one decoding")
+        del params, eng, state, logits
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    torch.cuda.empty_cache()
+    print(f"  K2 at the gradients' shapes (rows, ms, bound ms): {k2_15}; {card}")
+    print(f"  launches in phase 15's training runs: {launches15}; {card}")
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s; {card}", flush=True)
+    return launches15
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2419,6 +2854,7 @@ def main() -> None:
 
     train_parity()
     serve_parity()
+    family_parity()
 
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
@@ -3204,6 +3640,9 @@ def main() -> None:
     # ------------------------------------------------------------- 14 lm-serve
     launches14 = phase14_serve(card)
 
+    # --------------------------------------------------------- 15 lm-families
+    launches15 = phase15_families(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -3220,17 +3659,18 @@ def main() -> None:
     # launches: each kernel's count on its own path's run (phase 5 or phase
     # 7); launches_by_phase: that count again and each later path's own,
     # each read just after its reset (phase 14 serves a model on no kernel
-    # of the repo: its counts are 0)
+    # of the repo: its counts are 0; phase 15's are its three training runs')
     later = {"9 resume": launches9, "10 refine": launches10_refine,
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
              "11 serve": launches11, "12 sharded": launches12, "13 train": launches13,
-             "14 lm-serve": launches14}
+             "14 lm-serve": launches14, "15 lm-families": launches15}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],
                                        **{ph: c[name] for ph, c in later.items()}},
                     **entries[name])
                for name, (source, replaces, counts) in sources.items()]
+    print(f"the whole script: {time.perf_counter() - t_script:.1f} s; {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

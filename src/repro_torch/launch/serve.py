@@ -10,10 +10,26 @@ The flags are the reference's plus ``--device``, and so are the two output
 lines. The prompt is ``jax.random.randint(PRNGKey(seed), (batch,
 prompt_len), 0, vocab)`` bit for bit (``prng.randint``); the weights come
 from a ``torch.Generator`` seeded with ``--seed`` (not the reference's
-draws). The dense and vlm families prefill the prompt into a float32 cache
-padded by ``--gen`` and then decode greedily, the generated token ``t``
-at ``cur_len = prompt_len + t + 1``. ``--devices`` and the other families
-raise ``NotImplementedError``.
+draws). Per family, as the reference's branches:
+
+- dense, vlm: the prompt is prefilled into a float32 cache padded by
+  ``--gen``, then decoded greedily, the generated token ``t`` at ``cur_len =
+  prompt_len + t + 1``;
+- ssm, hybrid: the prompt is decoded token by token into
+  ``init_decode_state(batch, prompt_len + gen)``, then greedily as above;
+- audio: the frames ``0.1 · normal(PRNGKey(seed), (batch, prompt_len,
+  d_model))`` (float32, bit for bit) are encoded into a float32 cache
+  (``init_decode_cache``) and ``--gen`` tokens decoded from token 0, the
+  step ``t`` at ``cur_len = t + 1``. The frames take the parameters' dtype
+  first: torch's matmul does not promote a bfloat16 weight to float32, as
+  JAX's does, so a bfloat16 model encodes bfloat16 frames.
+
+``--devices`` and the moe family raise ``NotImplementedError``.
+
+    # on the CPU, the other families
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-1.3b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch seamless-m4t-large-v2 \\
+        --reduced
 """
 from __future__ import annotations
 
@@ -36,9 +52,10 @@ def main(argv=None):
     import torch
 
     from repro_torch.configs.registry import get_arch
+    from repro_torch.models import encdec
     from repro_torch.models.api import get_api
     from repro_torch.utils.device import not_ported, resolve_device
-    from repro_torch.utils.prng import PRNGKey, randint
+    from repro_torch.utils.prng import PRNGKey, normal, randint
 
     if args.devices:
         raise not_ported("serving over several devices (--devices)", "LM side, last")
@@ -50,15 +67,35 @@ def main(argv=None):
     prompt = randint(PRNGKey(args.seed), (B, args.prompt_len), 0, cfg.vocab_size, device=device)
 
     t0 = time.time()
-    logits, cache = api.prefill_fn(params, {"tokens": prompt}, cache_dtype=torch.float32,
-                                   device=device)
-    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, args.gen)) for k, v in cache.items()}
-    cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    toks = [cur]
-    for t in range(args.gen - 1):
-        logits, cache = api.decode_fn(params, cur, cache, args.prompt_len + t + 1, device=device)
+    max_len = args.prompt_len + args.gen
+    if cfg.family == "audio":
+        frames = 0.1 * normal(PRNGKey(args.seed), (B, args.prompt_len, cfg.d_model), device=device)
+        # float32 frames: the encoder runs in float32 whatever the weights' dtype
+        cache = encdec.init_decode_cache(params, frames, cfg, max_len, dtype=torch.float32)
+        cur = torch.zeros((B, 1), dtype=torch.int32, device=device)
+        toks = []
+        for t in range(args.gen):
+            logits, cache = api.decode_fn(params, cur, cache, t + 1, device=device)
+            cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            toks.append(cur)
+    else:
+        if cfg.family in ("dense", "vlm"):
+            logits, cache = api.prefill_fn(params, {"tokens": prompt}, cache_dtype=torch.float32,
+                                           device=device)
+            cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, args.gen))
+                     for k, v in cache.items()}
+        else:
+            cache = api.init_decode_state(B, max_len, device=device)
+            for t in range(args.prompt_len):
+                logits, cache = api.decode_fn(params, prompt[:, t:t + 1], cache, t + 1,
+                                              device=device)
         cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        toks.append(cur)
+        toks = [cur]
+        for t in range(args.gen - 1):
+            logits, cache = api.decode_fn(params, cur, cache, args.prompt_len + t + 1,
+                                          device=device)
+            cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            toks.append(cur)
     out = torch.cat(toks, 1)
     dt = time.time() - t0
     print(f"arch={cfg.name} generated {tuple(out.shape)} in {dt:.2f}s "

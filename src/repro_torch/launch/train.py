@@ -10,11 +10,17 @@ resumes the other's ``--ckpt-dir``.
     # on the CPU: a smoke-scale gemma3-1b, compressed, checkpointed every 2 steps
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch gemma3-1b \\
         --reduced --steps 4 --grad-compress-gamma 0.1 --ckpt-dir run --ckpt-every 2
+    # the ssm, hybrid and audio families the same way
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch mamba2-1.3b \\
+        --reduced --steps 4 --grad-compress-gamma 0.1
 
-The dense and vlm families run, on one device (a vlm batch carries the
-positions broadcast to the three M-RoPE streams and zero vision embeddings,
-as the reference's does): ``--devices`` and the production meshes (``--mesh
-single|multi``) raise ``NotImplementedError``.
+The dense, vlm, ssm, hybrid and audio families run, on one device. A vlm
+batch carries the positions broadcast to the three M-RoPE streams and zero
+vision embeddings, an audio batch the frames ``0.1 · normal(fold_in(key,
+step), (B, S, d_model))`` in the config's dtype, both as the reference's do
+(the frames bit for bit, ``prng.normal``). The moe family, ``--devices``
+and the production meshes (``--mesh single|multi``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ def main(argv=None):
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
     from repro_torch.utils.device import not_ported
-    from repro_torch.utils.prng import PRNGKey
+    from repro_torch.utils.prng import PRNGKey, fold_in, normal
 
     if args.devices or args.mesh != "host":
         raise not_ported("training over several devices (--devices, --mesh single|multi)",
@@ -93,6 +99,12 @@ def main(argv=None):
             batch["positions"] = pos[None].expand(3, B, S)
             batch["vision_embeds"] = torch.zeros((B, cfg.n_vision_tokens, cfg.d_model),
                                                  dtype=getattr(torch, cfg.dtype))
+        if cfg.family == "audio":
+            B, S = batch["tokens"].shape
+            dtype = getattr(torch, cfg.dtype)
+            frames = normal(fold_in(key, step), (B, S, cfg.d_model), device=args.device,
+                            dtype=dtype)
+            batch["frames"] = torch.tensor(0.1, dtype=dtype, device=frames.device) * frames
         state, metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])

@@ -3,15 +3,20 @@ the chunked cross-entropy (the port of ``repro.models.common``).
 
 Functional style over parameter dicts of tensors, as the reference's: the
 same arithmetic in the same dtypes — norms and RoPE in float32, cast back to
-the activations' dtype; matmuls in the parameters' dtype.
+the activations' dtype; matmuls in the operands' promoted dtype (``matmul``).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.host import from_host, to_host
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float, dtype,
@@ -22,6 +27,47 @@ def truncated_normal_init(gen: torch.Generator, shape, scale: float, dtype,
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * (scale / math.sqrt(fan_in))).to(dtype)
+
+
+def tree_from_reference(tree: dict, keys, cfg, device) -> dict:
+    """A reference parameter tree (nested dicts of numpy arrays, layers
+    stacked; bfloat16 as ``ml_dtypes`` arrays or their 2-byte words) as
+    tensors on ``device``, its top-level ``keys`` and its ``embed`` and
+    ``lm_head`` in ``cfg``'s dtype checked."""
+    if set(tree) != set(keys):
+        raise KeyError(f"a {cfg.family} LM's parameters have the keys {sorted(keys)}, got "
+                       f"{sorted(tree)}")
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    out = tree_map(lambda a: from_host(np.asarray(a), device=device), tree)
+    for name in ("embed", "lm_head"):
+        if out[name].dtype != dtype:
+            raise TypeError(f"{name} is {out[name].dtype}, the config says {dtype}")
+    return out
+
+
+def params_to_reference(params: dict) -> dict:
+    """The inverse of :func:`tree_from_reference`: nested dicts of numpy
+    arrays on the host (bfloat16 leaves as their 2-byte words)."""
+    return tree_map(to_host, params)
+
+
+def unstack(layers: dict) -> list[dict]:
+    """A stacked layer tree (each leaf ``(n_layers, ...)``) as one parameter
+    dict a layer: one unbind a stacked leaf, whose backward stacks the
+    layers' gradients once."""
+    unbound = [leaf.unbind(0) for leaf in tree_leaves(layers)]
+    return [tree_unflatten(layers, [u[i] for u in unbound]) for i in range(len(unbound[0]))]
+
+
+def run_blocks(block, x: torch.Tensor, lps, remat: bool, *args) -> torch.Tensor:
+    """x through ``block(x, lp, *args)`` for each layer's ``lp`` in turn, each
+    recomputed in the backward pass when ``remat`` and autograd is on (the
+    reference's ``jax.checkpoint``)."""
+    remat = remat and torch.is_grad_enabled()
+    for lp in lps:
+        x = checkpoint(block, x, lp, *args, use_reentrant=False) if remat else block(x, lp, *args)
+    return x
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -35,10 +81,19 @@ def init_rms(d: int, device, lead: tuple = ()) -> torch.Tensor:
     return torch.zeros((*lead, d), dtype=torch.float32, device=device)  # stored as offset from 1
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the two operands' promoted dtype, as JAX's ``@``: float32
+    activations through bfloat16 weights stay float32."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x·gate) ⊙ (x·up) )."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return matmul(F.silu(matmul(x, w_gate)) * matmul(x, w_up), w_down)
 
 
 def init_swiglu(gen, d: int, f: int, dtype, device, lead: tuple = ()) -> dict:

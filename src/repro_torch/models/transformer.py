@@ -30,7 +30,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -44,11 +43,13 @@ from repro_torch.models.common import (
     init_rms,
     init_swiglu,
     rms_norm,
+    run_blocks,
     truncated_normal_init,
+    unstack,
 )
 from repro_torch.utils.device import not_ported, resolve_device
 from repro_torch.utils.host import from_host, to_host
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,7 @@ def check_supported(cfg: ModelConfig, dist: Dist = NO_DIST) -> None:
                          "LM side, last")
 
 
-def _generator(seed: int, device: torch.device) -> torch.Generator:
+def generator(seed: int, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
@@ -82,7 +83,7 @@ def init_lm_params(seed: int, cfg: ModelConfig, device="cuda") -> dict:
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
     check_supported(cfg)
     device = resolve_device(device)
-    gen = _generator(seed, device)
+    gen = generator(seed, device)
     dtype = getattr(torch, cfg.dtype)
     lead = (cfg.n_layers,)
     layers = {
@@ -100,28 +101,8 @@ def init_lm_params(seed: int, cfg: ModelConfig, device="cuda") -> dict:
     }
 
 
-def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """The reference's parameter tree (nested dicts of numpy arrays, layers
-    stacked; bfloat16 as ``ml_dtypes`` arrays or their 2-byte words) as the
-    port's tensors on ``device``: the port then computes what the reference
-    computes."""
-    check_supported(cfg)
-    device = resolve_device(device)
-    want = {"embed", "layers", "final_norm", "lm_head"}
-    if set(tree) != want:
-        raise KeyError(f"a dense or vlm LM's parameters have the keys {sorted(want)}, got {sorted(tree)}")
-    dtype = getattr(torch, cfg.dtype)
-    out = tree_map(lambda a: from_host(np.asarray(a), device=device), tree)
-    for name in ("embed", "lm_head"):
-        if out[name].dtype != dtype:
-            raise TypeError(f"{name} is {out[name].dtype}, the config says {dtype}")
-    return out
-
-
-def params_to_reference(params: dict) -> dict:
-    """The inverse of :func:`params_from_reference`: nested dicts of numpy
-    arrays on the host (bfloat16 leaves as their 2-byte words)."""
-    return tree_map(to_host, params)
+# the top-level keys of the dense and vlm families' parameter tree
+TREE_KEYS = frozenset({"embed", "layers", "final_norm", "lm_head"})
 
 
 def kv_cache_from_reference(cache: dict, device="cuda") -> dict:
@@ -187,7 +168,8 @@ def _ffn_block(p, x, cfg: ModelConfig):
     return x + apply_swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.rms_eps))
 
 
-def _layer(x, lp, cfg, positions, is_global, q_chunk, kv_chunk):
+def _layer(x, layer, cfg, positions, q_chunk, kv_chunk):
+    lp, is_global = layer
     x = _attention_block(lp, x, cfg, positions, is_global, q_chunk, kv_chunk)
     return _ffn_block(lp, x, cfg)
 
@@ -217,15 +199,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dist: Dist = N
     """tokens (B, S) → (logits (B, S, V), aux_loss)."""
     check_supported(cfg, dist)
     x, positions = _embed_inputs(params, tokens, cfg, positions, vision_embeds)
-    # one unbind a stacked leaf: its backward stacks the layers' gradients once
-    unbound = [leaf.unbind(0) for leaf in tree_leaves(params["layers"])]
-    for i, flag in enumerate(layer_flags(cfg)):
-        lp = tree_unflatten(params["layers"], [u[i] for u in unbound])
-        if cfg.remat:
-            x = checkpoint(_layer, x, lp, cfg, positions, flag, q_chunk, kv_chunk,
-                           use_reentrant=False)
-        else:
-            x = _layer(x, lp, cfg, positions, flag, q_chunk, kv_chunk)
+    x = run_blocks(_layer, x, zip(unstack(params["layers"]), layer_flags(cfg)), cfg.remat, cfg,
+                   positions, q_chunk, kv_chunk)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = x @ params["lm_head"]
     return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)

@@ -337,15 +337,45 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return x * torch.where(x.abs() == 1.0, torch.full_like(p, math.inf), p)
 
 
-def normal(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal`` in float32: √2·erfinv(uniform(-1⁺, 1)), bit for
-    bit as JAX's on a CPU host with FMA (see :func:`erfinv`)."""
+def normal(key, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal`` in float32 or bfloat16: √2·erfinv(uniform(-1⁺, 1)),
+    bit for bit as JAX's on a CPU host with FMA (see :func:`erfinv`).
+
+    In bfloat16 JAX draws one random byte an element (a bfloat16 mantissa
+    has 7 bits), takes its top 7 bits as the uniform's mantissa, and
+    multiplies bfloat16 √2 by erfinv's float32 value rounded to bfloat16:
+    128 possible values, taken from a table of them."""
+    if dtype == torch.bfloat16:
+        return _normal_bf16(key, tuple(shape), device)
+    if dtype != torch.float32:
+        raise TypeError(f"normal draws float32 or bfloat16, not {dtype}")
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device=device).reshape(-1)
     root2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=device)
     for part in u.split(_ERFINV_CHUNK):   # each slice's temporaries stay in cache
         part.copy_(root2 * erfinv(part))
     return u.reshape(shape)
+
+
+def _random_bytes(key, n: int, device) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint8)`` as an int64 tensor: the low byte
+    of each word in the partitionable layout; in the original one a draw of
+    ⌈n/4⌉ words, each giving four elements from its low byte up."""
+    if _LAYOUT["partitionable"]:
+        return random_bits(key, (n,), device).bitwise_and_(0xFF)
+    words = random_bits(key, (-(-n // 4),), device)
+    return torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)], dim=1).reshape(-1)[:n]
+
+
+def _normal_bf16(key, shape: tuple, device) -> torch.Tensor:
+    bf16 = torch.bfloat16
+    one = torch.tensor(1.0, dtype=bf16)
+    lo = torch.tensor(-1.0 + 2.0 ** -8, dtype=bf16)          # nextafter(-1, 0) in bfloat16
+    # the 128 uniforms in bfloat16 arithmetic, as JAX computes them
+    mant = (torch.arange(128, dtype=torch.int16) | 0x3F80).view(bf16) - one
+    u = torch.maximum(lo, mant * (one - lo) + lo)
+    table = (torch.tensor(np.sqrt(2.0), dtype=bf16) * erfinv(u.float()).to(bf16)).to(device)
+    return table[_random_bytes(key, math.prod(shape), device) >> 1].reshape(shape)
 
 
 def bernoulli(key, p: float = 0.5, shape=(), device="cpu") -> torch.Tensor:

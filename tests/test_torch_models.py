@@ -25,7 +25,7 @@ from repro.models import transformer as jtr
 from repro_torch.configs import base
 from repro_torch.configs.registry import ARCHS, get_arch, get_shape
 from repro_torch.models import attention, transformer as tr
-from repro_torch.models.api import get_api
+from repro_torch.models.api import get_api, params_from_reference, params_to_reference
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
 DENSE = ["gemma3-1b", "glm4-9b", "phi3-medium-14b", "deepseek-coder-33b"]
@@ -56,7 +56,7 @@ def _batch(cfg, seed=0):
 
 
 def _carry(jparams, cfg):
-    return tr.params_from_reference(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    return params_from_reference(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
 
 
 def test_configs_are_the_reference_copies():
@@ -103,7 +103,7 @@ def test_dense_forward_loss_and_grads(arch):
                                       tree_leaves_with_path(params), grads):
         assert jax.tree_util.keystr(jk) == name
         _close(g, jg, 1e-5)
-    back = tr.params_to_reference(params)
+    back = params_to_reference(params)
     for (name, a), (_, b) in zip(tree_leaves_with_path(back),
                                  tree_leaves_with_path(jax.tree.map(np.asarray, jparams))):
         np.testing.assert_array_equal(a, b, err_msg=name)
@@ -167,7 +167,7 @@ def test_bfloat16_model_loss():
     assert params["embed"].dtype == torch.bfloat16 and params["final_norm"].dtype == torch.float32
     np.testing.assert_array_equal(
         params["embed"].float().numpy(), np.asarray(jparams["embed"].astype(jnp.float32)))
-    words = tr.params_to_reference(params)["lm_head"]
+    words = params_to_reference(params)["lm_head"]
     assert words.dtype == np.dtype("V2")
     np.testing.assert_array_equal(words.view(np.int16),
                                   np.asarray(jparams["lm_head"]).view(np.int16))
@@ -197,14 +197,26 @@ def test_flash_attention_matches_reference(q_chunk, kv_chunk, window, causal):
 
 
 def test_what_is_not_ported_raises():
-    """The other families name their ROADMAP item; a mesh too."""
+    """MoE, leading dense layers and a mesh name their ROADMAP item; the
+    ssm, hybrid and audio families are served (their parity tests:
+    tests/test_torch_{ssm,hybrid,encdec}.py)."""
     api = get_api(get_arch("gemma3-1b", reduced=True))
     for call in (lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True)),
-                 lambda: get_api(get_arch("mamba2-1.3b", reduced=True)),
+                 lambda: get_api(dataclasses.replace(api.cfg, first_k_dense=1)).init_params(
+                     0, "cpu"),
                  lambda: tr.forward({}, torch.zeros((1, 4), dtype=torch.int32), api.cfg,
                                     tr.Dist(mesh="a mesh"))):
         with pytest.raises(NotImplementedError, match="LM side, last"):
             call()
+    for arch, family in (("mamba2-1.3b", "ssm"), ("zamba2-1.2b", "hybrid"),
+                         ("seamless-m4t-large-v2", "audio")):
+        ported = get_api(get_arch(arch, reduced=True))
+        assert ported.cfg.family == family
+        params = ported.init_params(0, "cpu")
+        assert params["embed"].shape == (ported.cfg.vocab_size, ported.cfg.d_model)
+        with pytest.raises(NotImplementedError, match="LM side, last"):
+            ported.decode_fn(params, np.zeros((1, 1), np.int32), None, 1,
+                             tr.Dist(mesh="a mesh"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             api.init_params(0)

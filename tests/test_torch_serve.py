@@ -35,7 +35,7 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import api as api_mod
 from repro_torch.models import attention, transformer as tr
-from repro_torch.models.api import ModelAPI, get_api
+from repro_torch.models.api import ModelAPI, get_api, params_from_reference
 from repro_torch.serve import Request, ServeEngine
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
@@ -69,7 +69,7 @@ def _models(arch, dtype="float32", seed=1):
     jcfg = dataclasses.replace(jget_arch(arch, reduced=True), dtype=dtype)
     cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype=dtype)
     jparams = jtr.init_lm_params(jax.random.PRNGKey(seed), jcfg)
-    return jcfg, cfg, jparams, tr.params_from_reference(jax.tree.map(np.asarray, jparams), cfg,
+    return jcfg, cfg, jparams, params_from_reference(jax.tree.map(np.asarray, jparams), cfg,
                                                         device="cpu")
 
 
@@ -313,7 +313,7 @@ def test_launcher_matches_reference(arch, monkeypatch, capsys):
 
     def carried(cfg):
         a = real(cfg)
-        return dataclasses.replace(a, init_params=lambda seed, device="cuda": tr.params_from_reference(
+        return dataclasses.replace(a, init_params=lambda seed, device="cuda": params_from_reference(
             jax.tree.map(np.asarray, jparams), cfg, device))
 
     monkeypatch.setattr(api_mod, "get_api", carried)
@@ -326,8 +326,9 @@ def test_launcher_matches_reference(arch, monkeypatch, capsys):
 
 
 def test_what_is_not_served_raises():
-    """Without a card the serving calls default to "cuda" and raise; the
-    other families and --devices name their ROADMAP item."""
+    """Without a card the serving calls default to "cuda" and raise, for
+    every served family; the moe family and --devices name their ROADMAP
+    item."""
     api = get_api(get_arch("gemma3-1b", reduced=True))
     from repro_torch.launch import serve as launch
 
@@ -338,9 +339,19 @@ def test_what_is_not_served_raises():
                      lambda: launch.main(["--arch", "glm4-9b", "--reduced"])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
-    for arch in ("qwen3-moe-235b-a22b", "mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="LM side, last"):
-            get_api(get_arch(arch, reduced=True))
+    with pytest.raises(NotImplementedError, match="LM side, last"):
+        get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))
+    # the ssm, hybrid and audio families serve, on the card by default
+    for arch in ("mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
+        lm = get_api(get_arch(arch, reduced=True))
+        if lm.init_decode_state is None:
+            assert lm.cfg.family == "audio"
+        elif not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                lm.init_decode_state(1, 8)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                lm.decode_fn({}, np.zeros((1, 1), np.int32), {}, 1)
     with pytest.raises(NotImplementedError, match="LM side, last"):
         launch.main(["--arch", "glm4-9b", "--reduced", "--devices", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="LM side, last"):

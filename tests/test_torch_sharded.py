@@ -24,6 +24,7 @@ from repro_torch.api import Plan, SparsifiedCov, SparsifiedKMeans, SparsifiedMea
 from repro_torch.api.plan import mesh_spec
 from repro_torch.cluster import process_mesh
 from repro_torch.core import estimators, sketch
+from repro_torch.core.sampling import SparseRows
 from repro_torch.sketchserve import SketchService, restore_service
 from repro_torch.stream import StreamKMeansConfig
 from repro_torch.stream import sharded
@@ -158,9 +159,12 @@ def test_one_shot_sharded_mean_cov_any_row_count():
     # a masked pad adds nothing to the K-means step
     st = api.make_engine(Plan(backend="stream", gamma=0.25), p, 1, lambda *a: x, device="cpu",
                          kmeans=StreamKMeansConfig(k=3)).init_state()
-    pad = sketch.sketch(torch.from_numpy(np.concatenate([x, np.zeros((4, p), np.float32)])),
-                        spec)
-    a, _ = sharded.sharded_kmeans_step(st.kmeans, sketch.sketch(torch.from_numpy(x), spec), mesh)
+    # the 100 rows' own sketch plus 4 masked rows (zero values on the first
+    # rows' coordinates): a draw's rows depend on its size in JAX's original
+    # threefry layout, so 104 rows are not sketched afresh
+    pad = SparseRows(torch.cat([s.values, torch.zeros_like(s.values[:4])]),
+                     torch.cat([s.indices, s.indices[:4]]), s.p)
+    a, _ = sharded.sharded_kmeans_step(st.kmeans, s, mesh)
     b, _ = sharded.sharded_kmeans_step(
         st.kmeans, pad, mesh, mask=np.r_[np.ones(100), np.zeros(4)])
     assert int(b.count) == 100 and torch.equal(a.centers, b.centers)

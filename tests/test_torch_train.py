@@ -22,6 +22,16 @@ one ulp apart (or 1e-6, for the float32 norm scales) are counted, at most 3%
 of all after 3 steps: Adam's early steps are about sign(ĝ)·lr, so every
 gradient entry near 0 that the rounding flips moves its coordinate by up
 to 2·lr.
+
+Under JAX's original threefry layout (``JAX_THREEFRY_PARTITIONABLE=0``) the
+same seeds draw other tokens, and more of Adam's first-step coordinates meet
+ε: 19 float32 coordinates after the first step, above the count's 1e-4. Two
+trajectories run apart then carry them into every later gradient, past the
+residual's 1e-5 (1.1e-5 at steps 1 and 2 with 2 micro-batches). So in that
+layout each step starts from the port's state, carried into the reference
+bit for bit, and ``_params_near_eps`` holds the parameters to bounds that
+come from one AdamW step's arithmetic (its docstring derives them); the
+other bounds are the ones above.
 """
 import dataclasses
 import json
@@ -49,9 +59,10 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.grad_compress import CompressConfig
 from repro_torch.data.pipeline import SyntheticLMSource
 from repro_torch.models import transformer as tr
-from repro_torch.models.api import get_api
+from repro_torch.models.api import get_api, params_from_reference
 from repro_torch.train import checkpoint, optimizer, trainer
-from repro_torch.utils.tree import tree_leaves_with_path
+from repro_torch.utils.host import to_host
+from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,6 +112,60 @@ def _params_close(params, jparams, steps, bf16):
     return flipped, total
 
 
+def _as_jax(t):
+    """A port leaf as the reference's array, a bfloat16 one bit for bit."""
+    a = to_host(t)
+    return jnp.asarray(a.view(ml_dtypes.bfloat16) if a.dtype.kind == "V" else a)
+
+
+# √v̂ of a float32 coordinate that one step may move more than 1e-6 apart,
+# in units of AdamW's ε (``_params_near_eps``)
+NEAR_EPS = 10
+
+
+def _params_near_eps(params, jparams, jv, step, ocfg):
+    """(coordinates apart, all coordinates) after one step from one state;
+    asserts each coordinate's bound.
+
+    Both packages apply p ← p − lr·(m̂/(√v̂ + ε) + wd·p) to the same p. Where
+    √v̂ ≫ ε the direction m̂/(√v̂ + ε) does not depend on the gradients'
+    scale, and gradients a few float32 units apart move it by about as
+    much: far below the 1e-3 (1e-6 / lr) that puts two parameters 1e-6
+    apart. Where √v̂ is within a few ε of 0 (at the first step √v̂ = |ĝ|),
+    the ε term sets the direction, whose derivative ε/(|ĝ| + ε)² in ĝ is up
+    to 1/ε: a gradient entry's last bits can move it by up to 2 (up to lr
+    each way, 2·lr apart). So a float32 coordinate more than 1e-6 apart must
+    have the reference's √v̂ within NEAR_EPS·ε (the 19 of the first step
+    have |ĝ| ≤ 6·ε), and each is within 2·lr. A bf16 coordinate is within
+    2·lr plus half a bf16 unit of each of the two values (2^-8·(|p| + |q|):
+    both packages round p − lr·(…) to bf16, each its own value); those more
+    than one unit apart, and float32 ones of a bf16 model more than 1e-6
+    apart (its gradients are bf16 roundings apart), are counted."""
+    flipped, total = 0, 0
+    bf16 = any(p.dtype == torch.bfloat16 for _, p in tree_leaves_with_path(params))
+    for (name, p), (_, q), (_, v) in zip(tree_leaves_with_path(params),
+                                         tree_leaves_with_path(jparams),
+                                         tree_leaves_with_path(jv)):
+        p, q = p.detach(), _as_torch(q)
+        assert p.dtype == q.dtype, name
+        d = (p.float() - q.float()).abs()
+        total += d.numel()
+        if p.dtype == torch.bfloat16:
+            ulps = (p.view(torch.int16).int() - q.view(torch.int16).int()).abs()
+            flipped += int(((ulps > 1) | (p.float() * q.float() < 0)).sum())
+            assert bool((d <= 2 * LR + 2.0**-8 * (p.float().abs() + q.float().abs())).all()), name
+            continue
+        assert float(d.max()) <= 2 * LR, name
+        if bf16:
+            flipped += int((d > 1e-6).sum())
+            continue
+        sv = np.sqrt(np.asarray(v, np.float64) / (1 - ocfg.b2 ** (step + 1)))
+        apart = d.numpy() > 1e-6
+        assert bool((sv[apart] <= NEAR_EPS * ocfg.eps).all()), \
+            (name, float(sv[apart].max()) / ocfg.eps)
+    return flipped, total
+
+
 @pytest.mark.parametrize("accum,gamma,dtype", [(1, 0.1, "float32"), (1, 0.0, "float32"),
                                                (2, 0.1, "float32"), (1, 0.1, "bfloat16")])
 def test_train_steps_match_reference(accum, gamma, dtype):
@@ -118,15 +183,17 @@ def test_train_steps_match_reference(accum, gamma, dtype):
     jstate = jtrainer.init_state(japi, jt, key)
     state = trainer.init_state(api, t, np.asarray(jax.random.key_data(key)), device="cpu")
     assert sorted(state) == sorted(jstate) and sorted(state["opt"]) == sorted(jstate["opt"])
-    state["params"] = tr.params_from_reference(jax.tree.map(np.asarray, jstate["params"]), cfg,
+    state["params"] = params_from_reference(jax.tree.map(np.asarray, jstate["params"]), cfg,
                                                device="cpu")
     jfn = jtrainer.make_train_fn(japi, jt, jtrainer.NO_DIST, key)
     fn = trainer.make_train_fn(api, t, tr.NO_DIST, np.asarray(jax.random.key_data(key)),
                                device="cpu")
     source = JSource(cfg.vocab_size, 32, 4, seed=0)
+    # the module docstring's two layouts
+    carried = not jax.config.jax_threefry_partitionable
     for step in range(3):
         batch = source.next_batch()
-        jstate, jm = jfn(jstate, batch)
+        jstate, jm = jfn(tree_map(_as_jax, state) if carried else jstate, batch)
         state, m = fn(state, {k: np.asarray(v) for k, v in batch.items()})
         assert sorted(m) == sorted(jm)
         for name in ("loss", "grad_norm") + (("nll",) if accum == 1 else ()):
@@ -149,8 +216,13 @@ def test_train_steps_match_reference(accum, gamma, dtype):
                     np.testing.assert_allclose(r.numpy(), q.numpy(), rtol=0,
                                                atol=1e-5 * float(q.abs().max()), err_msg=name)
             assert num <= (3e-2) ** 2 * den, (step, (num / den) ** 0.5)
-        flipped, total = _params_close(state["params"], jstate["params"], step + 1, bf16)
-        assert flipped <= (3e-2 if bf16 else 1e-4) * total, (step, flipped, total)
+        if carried:
+            flipped, total = _params_near_eps(state["params"], jstate["params"],
+                                              jstate["opt"]["v"], step, t.opt)
+            assert not bf16 or flipped <= 3e-2 * total, (step, flipped, total)
+        else:
+            flipped, total = _params_close(state["params"], jstate["params"], step + 1, bf16)
+            assert flipped <= (3e-2 if bf16 else 1e-4) * total, (step, flipped, total)
         assert int(state["opt"]["step"]) == int(jstate["opt"]["step"]) == step + 1
 
 
@@ -172,7 +244,7 @@ def test_vlm_train_steps_match_reference():
     japi, api = jget_api(jcfg), get_api(cfg)
     jstate = jtrainer.init_state(japi, jt, key)
     state = trainer.init_state(api, t, np.asarray(jax.random.key_data(key)), device="cpu")
-    state["params"] = tr.params_from_reference(jax.tree.map(np.asarray, jstate["params"]), cfg,
+    state["params"] = params_from_reference(jax.tree.map(np.asarray, jstate["params"]), cfg,
                                                device="cpu")
     jfn = jtrainer.make_train_fn(japi, jt, jtrainer.NO_DIST, key)
     fn = trainer.make_train_fn(api, t, tr.NO_DIST, np.asarray(jax.random.key_data(key)),
