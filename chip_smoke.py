@@ -48,7 +48,14 @@ Phases, in order; any failure exits non-zero:
               reduced mamba2-1.3b (ssm_prefill of 24 tokens, 8 decode steps),
               zamba2-1.2b (32 tokens decoded one by one into a float32 state)
               and seamless-m4t-large-v2 (a cache over 24 frames, 8 decode
-              steps) in float32, within 1e-5 of the CPU's logits.
+              steps) in float32, within 1e-5 of the CPU's logits; data
+              parallel (dp_parity): two gloo ranks on the card (this script
+              with --dp-worker) train the reduced gemma3-1b in float32 for 3
+              steps with CompressConfig(gamma=0.1), each on 2 of the 4 rows,
+              within 1e-5 of one process on the 4 rows (losses, grad_norm,
+              the ranks' mean residual), K2 twice a step on each rank, and
+              perworker_mean_estimate on the 2 ranks within 1e-5 of max
+              |value| of the single-process formula.
 5. main     — the full-size stream: Plan(backend="stream", gamma=0.05,
               batch_size=4096), p = 16384, 16 steps, streaming K-means
               (K = 10, r = 3), then pca_from_stream(k=8); every kernel of the
@@ -62,14 +69,14 @@ Phases, in order; any failure exits non-zero:
               by chunked products), each held against its plain version and
               the compact routes repeated bit for bit.
 7. lowrank  — the second path at full width: Plan(cov_path="lowrank",
-              rank=128), p = 65536, 8 steps of 4096 rows, streaming K-means
-              (K = 10, r = 3), then cov_lowrank.top(8) unmixed; every kernel of
-              the path (the sketch in K3's cluster gather mode, K3 in the
-              unmixes, K4, K5, K6) must have launched, the outputs must be
-              finite, the state O(l·p); read after 2, 4 and 8 steps of the one
-              stream, the subspace of the planted directions that the
-              range-finder resolves at each n must match the planted one, and
-              after 8 steps their eigenvalues too.
+              rank=128), p = 65536, 4 steps of 4096 rows (cut from 8),
+              streaming K-means (K = 10, r = 3), then cov_lowrank.top(8)
+              unmixed; every kernel of the path (the sketch in K3's cluster
+              gather mode, K3 in the unmixes, K4, K5, K6) must have launched,
+              the outputs must be finite, the state O(l·p); read after 2 and
+              4 steps of the one stream, the subspace of the planted
+              directions that the range-finder resolves at each n must match
+              the planted one, and after 4 steps their eigenvalues too.
 8. front    — the estimator front door at phase 5's width: 65,536 rows of
               p = 16384 on the card (the phase-5 source's planted U and λ),
               fit_many over SparsifiedMean, SparsifiedCov, SparsifiedPCA(8) and
@@ -84,7 +91,9 @@ Phases, in order; any failure exits non-zero:
               rows; and the low-rank
               SparsifiedPCA at p = 65536, whose RangeState and top-8 must be
               bit-equal to make_engine(...).run(2) on the same source.
-9. resume   — phase 5's Plan, source and K-means with track_reassignments:
+9. resume   — phase 5's Plan, source (its batches kept on the host since
+              phase 5: the same (seed, step)s, not made again) and K-means
+              with track_reassignments:
               one step folded twice from the same state and batch is
               bit-identical (cov_path "dense" and "compact"); run(8) with a
               checkpoint every 4 steps, restore_state in a fresh engine,
@@ -138,7 +147,7 @@ Phases, in order; any failure exits non-zero:
 
 12. sharded — the paper's distributed setting at phase 5's width:
               Plan(backend="sharded", n_shards=2, batch_size=2048), p = 16384,
-              γ = 0.05, 8 steps with streaming K-means (K = 10, r = 3,
+              γ = 0.05, 4 steps with streaming K-means (K = 10, r = 3,
               reassignments tracked). (a) one process in a one-rank NCCL
               group: the engine against backend="stream" (mean and centers
               within 1e-5, the covariance trace 1e-5 relative, count and
@@ -155,18 +164,18 @@ Phases, in order; any failure exits non-zero:
               the stream backend; (b) python -m repro_torch.launch.cluster
               with 2 processes on the one card over gloo: equal to (a), each
               rank launching K1, K4 and K6, cluster.hosts == 2 from
-              --log-every, the all-reduce timed, a checkpoint after step 4
-              and --resume to step 8 bit-equal to the uninterrupted run.
+              --log-every, the all-reduce timed, a checkpoint after step 2
+              and --resume to step 4 bit-equal to the uninterrupted run.
 
-13. train  — gemma3-1b at full width, its depth cut to DEPTH13 = 12 of
-              26 layers, two of its 5:1 local/global groups (926,052,480
+13. train  — gemma3-1b at full width, its depth cut to DEPTH13 = 6 of
+              26 layers, one of its 5:1 local/global groups (765,016,704
               bf16 parameters), CompressConfig(gamma=0.1) with error feedback,
               AdamW in float32, SyntheticLMSource(seed=0) at seq 4096, a
               global batch of 8 as ACCUM13 micro-batches, 6 steps through
               make_train_fn: every loss finite and the last two below the
-              first; K2 on its kernel path twice a step at (56,522, 16384)
-              and no plain version; wire_floats = 56,522 × 1638 in float32
-              (92,583,040); peak memory under 70 GiB; a checkpoint of the
+              first; K2 on its kernel path twice a step at (46,693, 16384)
+              and no plain version; wire_floats = 46,693 × 1638 in float32
+              (76,483,136); peak memory under 70 GiB; a checkpoint of the
               state after step 3, written
               by save's thread while steps 4-6 run, restored bit-equal and
               continued to step 6 with the uninterrupted run's losses and
@@ -191,7 +200,7 @@ Phases, in order; any failure exits non-zero:
               (d) qwen2-vl-2b prefill of 4 × 4096 with 256 seeded vision
               embeddings on a 16 × 16 M-RoPE grid, 16 decode steps; (e)
               ServeEngine(n_slots=4, max_len=128) over 8 requests of 8–64
-              prompt tokens, max_new=16 (2 waves), gemma3-1b in float32 with
+              prompt tokens, max_new=8 (2 waves), gemma3-1b in float32 with
               TF32 off, every request's tokens equal to its one-by-one
               greedy decoding (each alone in its slot of its wave). Gates:
               every logit finite; peak memory under 70 GiB a case; for (a)
@@ -207,7 +216,7 @@ Phases, in order; any failure exits non-zero:
               bf16, random weights from a seeded torch.Generator: (a) training:
               mamba2-1.3b, zamba2-1.2b and seamless-m4t-large-v2 each through
               make_train_fn, AdamW and CompressConfig(gamma=0.1) with error
-              feedback on SyntheticLMSource(seed=0), 4 steps of 4 × 4096 (the
+              feedback on SyntheticLMSource(seed=0), 3 steps of 4 × 4096 (the
               audio batch's frames as launch.train draws them), each as 2
               micro-batches of 2: every loss finite, K2 twice a step on its kernel
               path at (88,301 | 71,441 | 124,194, 16384), wire_floats = chunks
@@ -230,9 +239,27 @@ Phases, in order; any failure exits non-zero:
               beside its byte bound (the weights but the embedding, and the
               state or cache, read once over 3.35 TB/s).
 
+16. dp-train — data-parallel training: python -m repro_torch.launch.train
+              --devices 2 --dist-backend gloo on the one card, gemma3-1b at
+              full width, its depth cut to DEPTH16 = 6 of 26 layers (one
+              5:1 local/global group; two ranks share the 80 GB), bf16,
+              AdamW, CompressConfig(gamma=0.1) with error feedback, seq
+              4096, a global batch of 4 (2 rows a rank as 2 micro-batches),
+              4 steps with a checkpoint after step 2. Gates: every loss
+              finite; K2 on its kernel path twice a step on each rank; each
+              step's exchange exactly chunks × m × 4 bytes (counted by the
+              trainer, printed beside the dense 4·p); the launcher again,
+              resuming at 2 ranks from step 2, bit-equal in losses and final
+              parameters (their SHA-256); one process restored from the step-2
+              checkpoint (the elastic path, 2 → 1: the ranks' mean
+              residual) continuing to step 4 with finite losses within 0.05
+              of the 2 ranks'; peak memory under 35 GiB a rank. It prints s
+              a step, tokens/s, the exchange's ms and bytes a step and the
+              mask's share of a step (K2 at a rank's shape is phase 13's).
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
-or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's, 14's
-and 15's paths' own),
+or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's, 14's,
+15's and 16's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -259,11 +286,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
 P, BATCH, STEPS, GAMMA, K, N_INIT, PCA_K = 16384, 4096, 16, 0.05, 10, 3, 8
-# the low-rank path: p, sketch width l, steps, and the steps after which its gates are read
-P_LR, ELL, STEPS_LR = 65536, 128, 8
+# the low-rank path: p, sketch width l, steps (cut from 8 to 4 since phase 16
+# came: its host source takes ≈ 8 s a step), and the steps after which its
+# gates are read; phase 10's replay at p = 65536 keeps 8 steps, staged on
+# the card
+P_LR, ELL, STEPS_LR, STEPS10_LR = 65536, 128, 4, 8
 # columns of K6's check past the grid's y limit
 P_BIG = 1 << 25
-READ_LR = (2, 4, STEPS_LR)
+READ_LR = (2, STEPS_LR)
 # the dense stream: the sketch, the unmixes, the K-means assignment (K4) and
 # the K-means sums (K6's transposition and walk)
 PATH1 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm_t", "transpose_columns")
@@ -286,17 +316,19 @@ GROUP_ROWS, HTTP_ROWS, TEL_STEPS, QUERY_ROUNDS, TIMEOUT_S = 4 * BATCH, 256, 4, 2
 # the serving path at p = 16384: K1, K2 (the finalize's unmix), K4, K5, K6
 PATH11 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm", "spmm_t",
           "transpose_columns")
-# phase 12: rows a shard a step and steps of the dense sharded stream; the
-# low-rank sharded path's rows a shard and steps
-B12, STEPS12, B12_LR, STEPS12_LR = 2048, 8, 1024, 4
+# phase 12: rows a shard a step and steps of the dense sharded stream (cut
+# from 8 to 4 since phase 16 came, to keep the whole script inside its time);
+# the low-rank sharded path's rows a shard and steps
+B12, STEPS12, B12_LR, STEPS12_LR = 2048, 4, 1024, 4
 # phase 13: gemma3-1b trained at full width: the config's train_4k sequence
 # length, a global batch of 8 sequences as ACCUM13 micro-batches, its steps and
 # the step after which it checkpoints, its peak-memory ceiling, AdamW's peak
 # lr, and flash_attention's query and KV chunks
 SEQ13, BATCH13, ACCUM13, STEPS13, CKPT13, PEAK13_GIB, LR13 = 4096, 8, 2, 6, 3, 70.0, 1e-3
-# its depth: 12 of gemma3-1b's 26 layers (two 5:1 local/global groups), cut
-# so that the whole script, phase 15 added, stays well inside its time
-DEPTH13 = 12
+# its depth: 6 of gemma3-1b's 26 layers (one 5:1 local/global group), cut
+# so that the whole script, phases 15 and 16 added, stays inside its time
+# (cut from 26, then 12)
+DEPTH13 = 6
 Q13, KV13 = 1024, 1024
 # phase 14: LM serving at full width in bf16. (a) gemma3-1b at prefill_32k's
 # sequence, batch 2 (of 32), a float32 cache, and its prefill-then-decode gate
@@ -310,7 +342,7 @@ S14A, B14A, GEN14A, GATE14 = 32768, 2, 16, 4096
 B14B, GEN14B = 32, 16
 S14C, B14C, GEN14C = 4096, 8, 32
 S14D, B14D, GEN14D, GRID14 = 4096, 4, 16, 16
-SLOTS14, MAXLEN14, REQS14, NEW14 = 4, 128, 8, 16
+SLOTS14, MAXLEN14, REQS14, NEW14 = 4, 128, 8, 8       # NEW14 16 → 8 since phase 16 came
 PEAK14_GIB = 70.0
 # prefill then one decode_step against forward over one more token, in bf16:
 # the port against the reference (each rounding its bf16 matmuls its own way)
@@ -326,12 +358,22 @@ TOL14 = 0.08
 # gradient's chunks of 16384 each model must have. Serving: B15S × S15
 # (train_4k's sequence) and GEN15 decode steps; zamba2's prompt of PROMPT15
 # tokens decoded token by token; ServeEngine over REQS15 requests of NEW15
-# new tokens in SLOTS15 slots of MAXLEN15, in float32 with TF32 off
-SEQ15, B15, STEPS15, PEAK15_GIB = 4096, 4, 4, 70.0
+# new tokens in SLOTS15 slots of MAXLEN15, in float32 with TF32 off. The
+# training steps were cut from 4 to 3 since phase 16 came
+SEQ15, B15, STEPS15, PEAK15_GIB = 4096, 4, 3, 70.0
 ACCUM15 = {"mamba2-1.3b": 2, "zamba2-1.2b": 2, "seamless-m4t-large-v2": 2}
 CHUNKS15 = {"mamba2-1.3b": 88_301, "zamba2-1.2b": 71_441, "seamless-m4t-large-v2": 124_194}
 B15S, S15, GEN15, PROMPT15 = 4, 4096, 16, 64
 SLOTS15, MAXLEN15, REQS15, NEW15 = 4, 64, 4, 8
+# phase 16: data-parallel training through launch.train --devices 2 over gloo
+# on the one card: gemma3-1b at full width cut to DEPTH16 layers (one 5:1
+# local/global group; two ranks share the 80 GB), train_4k's sequence, a
+# global batch of B16 (B16 / 2 rows a rank as ACCUM16 micro-batches), STEPS16
+# steps with a checkpoint after CKPT16; a rank's peak-memory ceiling; how
+# far the one-process continuation from the checkpoint (2 → 1 ranks) may
+# stray from the 2 ranks' losses
+SEQ16, B16, ACCUM16, STEPS16, CKPT16, DEPTH16 = 4096, 4, 2, 4, 2, 6
+PEAK16_GIB, ELASTIC16 = 35.0, 0.05
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -1254,7 +1296,7 @@ def phase13_train(card: str) -> dict[str, int]:
     t_init = time.perf_counter() - t0
     n = tree_count_params(state["params"])
     nc = -(-n // cp)
-    check(n == 926_052_480 and nc == 56_522,
+    check(n == 765_016_704 and nc == 46_693,
           f"gemma3-1b at {DEPTH13} layers has {n:,} parameters, {nc:,} chunks")
     gib = lambda b: b / 2**30  # noqa: E731
     print(f"  state: {n:,} parameters, {nc:,} chunks of {cp}: params "
@@ -1398,7 +1440,9 @@ def phase13_train(card: str) -> dict[str, int]:
         lib = time_ms(lambda: torch.matmul(rows, hmat), 3) * nc / 4096
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
         del hmat, rows
-        print(f"  x @ (H·D) on 4096 of the rows (TF32 off), scaled to {nc:,}: {lib:.2f} ms", flush=True)
+        scaled = {arch: round(lib / nc * c, 2) for arch, c in CHUNKS15.items()}
+        print(f"  x @ (H·D) on 4096 of the rows (TF32 off), scaled to {nc:,} (phase 16's shape "
+              f"too): {lib:.2f} ms; to phase 15's: {scaled} ms", flush=True)
         # the step's mask: the row blocks against one-call draws on the CPU
         step = STEPS13
         mk = sketch_mod.batch_key(spec, step, 0)
@@ -1593,6 +1637,179 @@ def family_parity() -> None:
         print(f"  {arch} reduced in float32 ({cfg.family}): {got.shape[0]} steps' logits, |card - "
               f"cpu| ≤ {err:.3g} of max |logit| (≤ 1e-5)")
         check(err <= 1e-5, f"{arch}: serving on the card differs from the CPU")
+
+
+def _dp_setup():
+    """dp_parity's model, trainer config, weights and 3 global batches: a
+    reduced gemma3-1b in float32 (weights from a seeded CPU generator),
+    CompressConfig(gamma=0.1) with error feedback, 4 rows of 64 tokens a
+    step, every mesh axis carrying data."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.grad_compress import CompressConfig
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.models.api import get_api
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainerConfig
+
+    lm = get_api(get_arch("gemma3-1b", reduced=True))
+    tcfg = TrainerConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=3),
+                         compress=CompressConfig(gamma=0.1), q_chunk=16, kv_chunk=16, dp_only=True)
+    src = SyntheticLMSource(lm.cfg.vocab_size, 64, 4, seed=0)
+    return lm, tcfg, lm.init_params(0, "cpu"), [src.batch_for(s) for s in range(3)]
+
+
+def _dp_start(lm, tcfg, weights) -> dict:
+    """dp_parity's initial state on the card: ``weights`` and zero moments."""
+    from repro_torch.train.trainer import init_state
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_map
+
+    st = init_state(lm, tcfg, prng.PRNGKey(0), device="cuda")
+    st["params"] = tree_map(lambda t: t.clone().to("cuda"), weights)
+    return st
+
+
+# dp_parity's per-worker estimate: a vector of P_PW values a rank (padded to
+# whole chunks of PW_CHUNK), its key's seed and step
+P_PW, PW_CHUNK, PW_STEP = 200_000, 1 << 14, 5
+
+
+def _dp_worker(argv) -> None:
+    """``python3 chip_smoke.py --dp-worker --coordinator HOST:PORT --out DIR
+    --process-id R``: rank R of dp_parity's two gloo ranks on the card. It
+    runs the data-parallel trainer over make_host_mesh(1, 2) and the
+    per-worker estimate of its row of a seeded (2, P_PW) matrix, and writes
+    what it got to DIR/rank{R}.pt."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dp-worker", action="store_true")
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch import cluster
+    from repro_torch.cluster.bootstrap import make_mesh
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.trainer import make_dist, make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_map
+
+    cluster.initialize(args.coordinator, 2, args.process_id, backend="gloo", device="cuda")
+    lm, tcfg, weights, batches = _dp_setup()
+    st = _dp_start(lm, tcfg, weights)
+    fn = make_train_fn(lm, tcfg, make_dist(make_host_mesh(1, 2), lm.cfg, dp_only=True),
+                       prng.PRNGKey(0), device="cuda")
+    ops.reset_counts()
+    steps = []
+    for b in batches:
+        st, met = fn(st, b)
+        steps.append({"metrics": {k: float(v) for k, v in met.items()},
+                      "state": tree_map(lambda t: t.detach().to("cpu", copy=True), st)})
+    counts, dispatch = ops.launch_counts(), {f"{k[0]}/{k[1]}": v for k, v in ops.DISPATCH.items()}
+    grads = np.random.default_rng(16).normal(size=(2, P_PW)).astype(np.float32)
+    cfg = gc.CompressConfig(gamma=0.1, chunk_p=PW_CHUNK, error_feedback=False, mode="per-worker")
+    est = gc.perworker_mean_estimate(torch.from_numpy(grads[args.process_id]).cuda(),
+                                     prng.PRNGKey(3), PW_STEP, cfg, make_mesh((2,), ("data",)),
+                                     ("data",))
+    torch.save({"steps": steps, "counts": counts, "dispatch": dispatch, "est": est.cpu()},
+               os.path.join(args.out, f"rank{args.process_id}.pt"))
+    torch.distributed.barrier()
+    cluster.shutdown()
+
+
+def dp_parity() -> None:
+    """Phase 4's data-parallel case: two gloo ranks on the one card
+    (_dp_worker) train a reduced gemma3-1b for 3 compressed steps, each step
+    held against one process's step on the same global batch from the
+    ranks' state before it (their parameters and moments, their mean
+    residual): loss and grad_norm within 1e-5 of their largest value, the
+    ranks' mean residual after it within 1e-5 of the single process's
+    largest entry; the ranks' parameters and moments bit-equal, K2 twice a
+    step on each rank. (Runs left apart for 3 steps differ by more: Adam's
+    first step moves a parameter whose gradient is near its ε by up to lr
+    either way, as ``train_parity`` counts.) And perworker_mean_estimate on
+    the 2 ranks against the single-process formula, within 1e-5 of max
+    |value|."""
+    import torch
+
+    from repro_torch.cluster.bootstrap import free_port, run_ranks
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.core import ros
+    from repro_torch.core import sketch as sketch_mod
+    from repro_torch.core.sampling import sample_indices
+    from repro_torch.models.transformer import NO_DIST
+    from repro_torch.train.trainer import make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map
+
+    tmp = tempfile.mkdtemp(prefix="dp4-")
+    try:
+        t0 = time.perf_counter()
+        rc = run_ranks([sys.executable, os.path.abspath(__file__), "--dp-worker", "--coordinator",
+                        f"127.0.0.1:{free_port()}", "--out", tmp], 2)
+        t_ranks = time.perf_counter() - t0
+        check(rc == 0, f"dp_parity: a rank exited {rc}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lm, tcfg, weights, batches = _dp_setup()
+    fn = make_train_fn(lm, tcfg, NO_DIST, prng.PRNGKey(0), device="cuda")
+    start, rel, res_err, same = _dp_start(lm, tcfg, weights), [], [], True
+    for step, b in enumerate(batches):
+        one, met = fn(start, b)
+        dp = [r["steps"][step] for r in ranks]
+        same &= dp[0]["metrics"] == dp[1]["metrics"] and all(
+            torch.equal(x, y) for (n, x), (_, y) in zip(tree_leaves_with_path(dp[0]["state"]),
+                                                        tree_leaves_with_path(dp[1]["state"]))
+            if not n.startswith("['residual']"))
+        rel.append({k: abs(dp[0]["metrics"][k] - float(met[k]))
+                    / max(abs(dp[0]["metrics"][k]), abs(float(met[k])), 1e-30)
+                    for k in ("loss", "grad_norm")})
+        mean = tree_map(lambda a, c: (a + c) / 2, dp[0]["state"]["residual"],
+                        dp[1]["state"]["residual"])
+        res_err.append(max(float((a - c.cpu()).abs().max() / c.abs().max())
+                           for a, c in zip(tree_leaves(mean), tree_leaves(one["residual"]))))
+        start = tree_map(lambda t: t.to("cuda", copy=True), dict(dp[0]["state"], residual=mean))
+    worst = max(max(r.values()) for r in rel)
+    print(f"  data parallel, gemma3-1b reduced, 3 steps with CompressConfig(gamma=0.1) on 2 gloo "
+          f"ranks of the card ({t_ranks:.1f} s with their start), each step against one process's "
+          f"from the ranks' state: losses {[d['metrics']['loss'] for d in ranks[0]['steps']]}; "
+          f"relative |2 ranks − 1| by step {rel} (≤ 1e-5); the ranks' mean residual by step "
+          f"{[f'{e:.3g}' for e in res_err]} of its largest (≤ 1e-5); the ranks' parameters and "
+          f"moments bit-equal {same}; K2 launches by rank "
+          f"{[r['counts']['hd_precondition'] for r in ranks]}", flush=True)
+    check(same, "dp_parity: the ranks differ")
+    check(worst <= 1e-5 and max(res_err) <= 1e-5,
+          "dp_parity: the 2 ranks differ from one process on the global batch")
+    check(all(r["counts"]["hd_precondition"] == 6 and "hd_precondition/ref" not in r["dispatch"]
+              for r in ranks), "dp_parity: K2 did not launch twice a step on each rank")
+    # the per-worker estimate against the single-process formula on the card
+    cfg = gc.CompressConfig(gamma=0.1, chunk_p=PW_CHUNK, error_feedback=False, mode="per-worker")
+    grads = torch.from_numpy(np.random.default_rng(16).normal(size=(2, P_PW)).astype(np.float32))
+    spec = gc.mask_spec(cfg, prng.PRNGKey(3))
+    signs_key = spec.signs_key()
+    acc = 0.0
+    for w in (0, 1):
+        v = torch.nn.functional.pad(grads[w].cuda(), (0, -P_PW % PW_CHUNK)).view(-1, PW_CHUNK)
+        y = ros.precondition(v, signs_key, "hadamard")
+        idx = sample_indices(sketch_mod.batch_key(spec, PW_STEP, w), y.shape[0], PW_CHUNK, cfg.m,
+                             device="cuda").long()
+        scat = torch.zeros_like(y).scatter_(1, idx, torch.gather(y, 1, idx))
+        acc = acc + scat * (PW_CHUNK / cfg.m)
+    want = ros.unmix(acc / 2, signs_key, "hadamard").reshape(-1)[:P_PW].cpu()
+    err = float((ranks[0]["est"] - want).abs().max() / want.abs().max())
+    print(f"  perworker_mean_estimate on 2 gloo ranks, {P_PW:,} values in chunks of {PW_CHUNK} "
+          f"(m = {cfg.m}): {err:.3g} of max |value| from the single-process formula (≤ 1e-5); "
+          f"the ranks bit-equal {torch.equal(ranks[0]['est'], ranks[1]['est'])}", flush=True)
+    check(err <= 1e-5 and torch.equal(ranks[0]["est"], ranks[1]["est"]),
+          "dp_parity: the per-worker estimate differs from the single-process formula")
+    del start, one, ranks
 
 
 def timed(fn):
@@ -2183,6 +2400,160 @@ def phase15_families(card: str) -> dict[str, int]:
     print(f"  launches in phase 15's training runs: {launches15}; {card}")
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s; {card}", flush=True)
     return launches15
+
+
+def _summaries(out: str) -> list[dict]:
+    """The launcher's rank-summary lines, by rank."""
+    return sorted((json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                   if line.startswith("rank-summary ")), key=lambda s: s["rank"])
+
+
+def phase16_dp_train(card: str) -> dict[str, int]:
+    """Phase 16 (module docstring): data-parallel training of gemma3-1b at
+    full width through ``python -m repro_torch.launch.train --devices 2
+    --dist-backend gloo`` on the one card. Returns the kernels' launches of
+    the uninterrupted 2-rank run, summed over its ranks (each rank's counts
+    start at 0 in its own process)."""
+    t16 = time.perf_counter()
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_api
+    from repro_torch.models.transformer import NO_DIST
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import TrainerConfig, abstract_params, init_state, make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_count_params
+
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), n_layers=DEPTH16)
+    model = get_api(cfg)
+    comp = gc.CompressConfig(gamma=0.1)
+    cp, m = comp.chunk_p, comp.m
+    n = tree_count_params(abstract_params(model))
+    nc = -(-n // cp)
+    tokens = B16 * SEQ16
+    print(f"== 16 dp-train: python -m repro_torch.launch.train --devices 2 --dist-backend gloo on "
+          f"the one card: {cfg.name} at full width, {DEPTH16} of its 26 layers ({n:,} bf16 "
+          f"parameters, {nc:,} chunks of {cp}, m {m}), AdamW, CompressConfig(gamma={comp.gamma}) "
+          f"with error feedback, seq {SEQ16}, a global batch of {B16} ({B16 // 2} rows a rank as "
+          f"{ACCUM16} micro-batches), {STEPS16} steps, a checkpoint after step {CKPT16}", flush=True)
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--devices", "2", "--dist-backend",
+            "gloo", "--device", "cuda", "--arch", cfg.name, "--layers", str(DEPTH16), "--seq",
+            str(SEQ16), "--batch", str(B16), "--accum", str(ACCUM16), "--steps", str(STEPS16),
+            "--grad-compress-gamma", str(comp.gamma), "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=SRC)
+
+    def launch(*extra):
+        t0 = time.perf_counter()
+        out = subprocess.run(base + list(extra), capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=900)
+        check(out.returncode == 0, f"dp-train: the launcher exited {out.returncode}:\n"
+                                   f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        return out.stdout, time.perf_counter() - t0
+
+    # a checkpoint holds the bf16 parameters, the float32 moments, the ranks'
+    # mean residual and each rank's: 22 bytes a parameter, kept in host
+    # memory (/dev/shm), as the phases before write theirs to the machine's
+    # disk. Only the step-CKPT16 checkpoint is written (--no-final-ckpt)
+    ck_bytes = 22 * n
+    free = shutil.disk_usage("/dev/shm").free
+    check(free > 1.2 * ck_bytes, f"dp-train: /dev/shm has {free / 1e9:.1f} GB free, the phase's "
+                                 f"checkpoint needs {1.2 * ck_bytes / 1e9:.1f}")
+    tmp = tempfile.mkdtemp(prefix="phase16_", dir="/dev/shm")
+    try:
+        run_dir = os.path.join(tmp, "run")
+        out, t_run = launch("--ckpt-dir", run_dir, "--ckpt-every", str(CKPT16), "--no-final-ckpt",
+                            "--time-exchange", "2")
+        for line in out.splitlines():
+            if line.startswith("step "):
+                print(f"    {line}")
+        runs = _summaries(out)
+        check([r["rank"] for r in runs] == [0, 1] and all(r["world"] == 2 and r["backend"] == "gloo"
+                                                          and r["device"].startswith("cuda")
+                                                          for r in runs),
+              f"dp-train: not 2 gloo ranks on the card: {runs}")
+        losses = runs[0]["losses"]
+        step_s = float(np.median(runs[0]["step_s"][1:]))
+        ex, mask = runs[0]["exchange_ms"], runs[0]["mask_ms"]
+        payload = runs[0]["payload_bytes"]
+        ck_size = os.path.getsize(os.path.join(ckpt_mod.latest_step_dir(run_dir), "arrays.npz"))
+        print(f"  2 ranks, uninterrupted with a checkpoint after step {CKPT16} ({ck_size:,} bytes): "
+              f"{t_run:.1f} s with the processes' start (rank 0: {runs[0]['ready_s']:.1f} s to its "
+              f"first step, {runs[0]['wall_s']:.1f} s to its summary); losses {losses}; {step_s:.3f} s a step "
+              f"(median of rank 0's steps 1-{STEPS16 - 1}; step 0 {runs[0]['step_s'][0]:.3f} s), "
+              f"{tokens / step_s:,.0f} tokens/s; peak memory "
+              f"{[round(r['peak_gib'], 2) for r in runs]} GiB a rank; {card}", flush=True)
+        print(f"  the exchange a step: {payload:,} bytes ({nc:,} × {m} float32) against the dense "
+              f"gradient's 4·p = {runs[0]['dense_bytes']:,} ({payload / runs[0]['dense_bytes']:.4f} "
+              f"of it); all-reduced over gloo in {ex[0]:.1f} ms (min of 2, median {ex[1]:.1f}); "
+              f"counted over the run {runs[0]['exchange_bytes']}; the mask (sample_indices, "
+              f"{nc:,} × {m}) {mask[0]:.1f} ms (median {mask[1]:.1f}), {mask[1] / 1e3 / step_s:.3f} "
+              f"of a step; launches {[r['launches'] for r in runs]}; {card}", flush=True)
+        check(all(math.isfinite(v) for v in losses) and len(losses) == STEPS16,
+              f"dp-train: a loss is not finite: {losses}")
+        check(all(r["losses"] == losses and r["params_sha256"] == runs[0]["params_sha256"]
+                  for r in runs), "dp-train: the ranks' losses or parameters differ")
+        check(all(r["launches"]["hd_precondition"] == 2 * STEPS16
+                  and r["dispatch"].get("hd_precondition/kernel") == 2 * STEPS16
+                  and not [k for k in r["dispatch"] if k.endswith("/ref")] for r in runs),
+              "dp-train: K2 did not launch twice a step on each rank's kernel path")
+        check(runs[0]["params"] == n and payload == nc * m * 4
+              and all(r["exchange_bytes"] == {"shared-mask": STEPS16 * nc * m * 4} for r in runs),
+              f"dp-train: the exchange is not {nc} × {m} × 4 bytes a step")
+        check(all(r["peak_gib"] < PEAK16_GIB for r in runs),
+              f"dp-train: peak memory ≥ {PEAK16_GIB} GiB a rank")
+
+        # --resume at 2 ranks from the step-CKPT16 checkpoint: bit for bit
+        out_r, t_res = launch("--ckpt-dir", run_dir, "--no-final-ckpt")
+        check(f"restored checkpoint at step {CKPT16}" in out_r, "dp-train: the resume did not restore")
+        res_runs = _summaries(out_r)
+        print(f"  --resume at 2 ranks from step {CKPT16}: {t_res:.1f} s with the start (rank 0: "
+              f"{res_runs[0]['ready_s']:.1f} s to its first step, the restore among them); losses "
+              f"{res_runs[0]['losses']} against {losses[CKPT16:]}; final parameters' SHA-256 "
+              f"{res_runs[0]['params_sha256'][:16]}… against {runs[0]['params_sha256'][:16]}…; "
+              f"{card}", flush=True)
+        check(all(r["losses"] == losses[CKPT16:] and r["params_sha256"] == runs[0]["params_sha256"]
+                  for r in res_runs), "dp-train: the resumed run differs from the uninterrupted one")
+
+        # the elastic path 2 → 1: this process restores the step-2 checkpoint
+        # (the ranks' mean residual) and continues on the global batch
+        tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=3e-4, warmup_steps=max(1, STEPS16 // 20),
+                                                   total_steps=STEPS16),
+                             accum_steps=ACCUM16, compress=comp, q_chunk=min(512, SEQ16),
+                             kv_chunk=min(1024, SEQ16))
+        key = prng.PRNGKey(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(model, tcfg, key, device="cuda")
+        (state, extra), t_restore = timed(lambda: ckpt_mod.restore(run_dir, state))
+        fn = make_train_fn(model, tcfg, NO_DIST, key, device="cuda")
+        src = SyntheticLMSource(cfg.vocab_size, SEQ16, B16, seed=0)
+        ops.reset_counts()
+        elastic = []
+        for s in range(CKPT16, STEPS16):
+            state, met = fn(state, src.batch_for(s))
+            elastic.append(float(met["loss"]))
+        k2_one = ops.launch_counts()["hd_precondition"]
+        gap = max(abs(a - b) for a, b in zip(elastic, losses[CKPT16:]))
+        print(f"  elastic 2 → 1: one process restored the step-{CKPT16} checkpoint (the ranks' mean "
+              f"residual) in {t_restore:.2f} s and continued: losses {elastic} against the 2 ranks' "
+              f"{losses[CKPT16:]}, {gap:.3g} apart (≤ {ELASTIC16}); K2 launches {k2_one}; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
+        check(extra["pipeline"]["step"] == CKPT16 and all(math.isfinite(v) for v in elastic)
+              and gap <= ELASTIC16, "dp-train: the elastic restore at one process is off")
+
+        del state, fn
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches16 = {name: sum(r["launches"][name] for r in runs) for name in runs[0]["launches"]}
+    print(f"  launches in phase 16 (both ranks' uninterrupted run): {launches16}")
+    print(f"  phase 16: {time.perf_counter() - t16:.1f} s; {card}", flush=True)
+    return launches16
 
 
 def main() -> None:
@@ -2855,10 +3226,12 @@ def main() -> None:
     train_parity()
     serve_parity()
     family_parity()
+    dp_parity()
 
     # ------------------------------------------------------------------ 5 main
     print(f"== 5 main path: p={P}, {BATCH} rows a step, {STEPS} steps, K={K}, r={N_INIT}", flush=True)
-    src = VectorStreamSource(p=P, batch=BATCH, seed=0)
+    # its batches are kept for phase 9, which streams the same (seed, step)s
+    src = _Memo(VectorStreamSource(p=P, batch=BATCH, seed=0))
     plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH)
     eng = api.make_engine(plan, P, prng.PRNGKey(1), src, kmeans=StreamKMeansConfig(k=K, n_init=N_INIT))
     torch.cuda.synchronize()
@@ -2886,10 +3259,10 @@ def main() -> None:
           "PCA output is not finite")
     comps = pca.components.double().cpu().numpy()
     q, _ = np.linalg.qr(comps.T)
-    cosines = np.linalg.svd(q.T @ src._u.astype(np.float64), compute_uv=False)
+    cosines = np.linalg.svd(q.T @ src.source._u.astype(np.float64), compute_uv=False)
     sine = float(np.sqrt(max(0.0, 1.0 - cosines.min() ** 2)))
     evals = pca.eigenvalues.cpu().numpy()
-    planted = src._lam.astype(np.float64) ** 2
+    planted = src.source._lam.astype(np.float64) ** 2
     print(f"  top-{PCA_K} subspace vs planted: sine of largest principal angle {sine:.4f} (< 0.35)")
     print(f"  eigenvalues {np.round(evals, 2).tolist()} vs planted {np.round(planted, 2).tolist()}")
     check(sine < 0.35, f"top-{PCA_K} subspace is off the planted one: sine {sine:.3f}")
@@ -2934,7 +3307,7 @@ def main() -> None:
           f"{time_ms(lambda: sample_indices(key, BATCH, P, m, device=dev), 3, 1):.2f} ms")
     t0 = time.perf_counter()
     for step in range(3):
-        src.batch_at(step)
+        src.source.batch_at(step)
     print(f"  host source batch_at ({BATCH}, {P}): {(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
     # the folds that repeat bit for bit, a step at phase 5's shapes, against
     # the float scatter-adds (index_add_, atomics on the card) they replace;
@@ -3004,13 +3377,15 @@ def main() -> None:
         check(walked == keyed, f"the compact covariance at m={m_c} took the wrong route")
         del idx_c, vals_c, first, again
     del idx5, vals5, lab5
+    memo5 = src          # phase 5's batches, for phase 9
     del eng, res, pca, src
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- 7 lowrank
     print(f"== 7 the low-rank path: p={P_LR}, l={ELL}, {BATCH} rows a step, {STEPS_LR} steps, "
           f"K={K}, r={N_INIT}", flush=True)
-    src = VectorStreamSource(p=P_LR, batch=BATCH, seed=0)
+    # its first two batches are kept for phase 8's low-rank estimator
+    src = _Memo(VectorStreamSource(p=P_LR, batch=BATCH, seed=0))
     plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, cov_path="lowrank", rank=ELL)
     t0 = time.perf_counter()
     eng = api.make_engine(plan, P_LR, prng.PRNGKey(1), src,
@@ -3061,7 +3436,7 @@ def main() -> None:
     # eigenvalues' errors are of the noise edge's own size, not a fraction of
     # λ², so the 10 % eigenvalue gate is read at the full n only
     for n_rows, comps_n, evals_n in readings:
-        planted_gates(comps_n, evals_n, n_rows, P_LR, src._u, src._lam, ELL, "low-rank",
+        planted_gates(comps_n, evals_n, n_rows, P_LR, src.source._u, src.source._lam, ELL, "low-rank",
                       eigenvalues=n_rows == rows)
     state, t_src, t_dev = eng.state, 0.0, 0.0
     for step in range(STEPS_LR, STEPS_LR + 2):
@@ -3094,6 +3469,8 @@ def main() -> None:
     # ------------------------------------------------------------ 8 front door
     print(f"== 8 the front door at full width: p={P}, {STEPS * BATCH} rows on the card, "
           f"Plan(gamma={GAMMA}, batch_size={BATCH}), batch then stream", flush=True)
+    memo7 = src
+    memo7.cache = {k: v for k, v in memo7.cache.items() if k[0] < 2}
     del src
     t8 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3298,7 +3675,7 @@ def main() -> None:
     # RangeState and top-8, bit for bit
     plan_lr8 = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH, cov_path="lowrank",
                         rank=ELL)
-    src_lr = VectorStreamSource(p=P_LR, batch=BATCH, seed=0)
+    src_lr = memo7       # phase 7's first two batches, the same (seed, step)s
     t0 = time.perf_counter()
     est_lr = api.SparsifiedPCA(PCA_K, plan_lr8, key=1).fit_stream(src_lr, 2)
     torch.cuda.synchronize()
@@ -3312,10 +3689,10 @@ def main() -> None:
     top_e, top_k = est_lr.cov_lowrank_.top(PCA_K), res_lr.cov_lowrank.top(PCA_K)
     check(all(torch.equal(a, b_) for a, b_ in zip(top_e, top_k)),
           "the low-rank estimator's top-8 differs from the engine's")
-    print(f"  low-rank SparsifiedPCA(8, rank={ELL}).fit_stream at p={P_LR}, 2 steps: {t_est:.2f} s; "
-          f"RangeState and top-{PCA_K} bit-equal to make_engine(...).run(2); phase 8 took "
-          f"{time.perf_counter() - t8:.1f} s")
-    del est_lr, eng, res_lr, st_e, st_k, top_e, top_k
+    print(f"  low-rank SparsifiedPCA(8, rank={ELL}).fit_stream at p={P_LR}, 2 steps (phase 7's "
+          f"batches, kept): {t_est:.2f} s; RangeState and top-{PCA_K} bit-equal to "
+          f"make_engine(...).run(2); phase 8 took {time.perf_counter() - t8:.1f} s")
+    del est_lr, eng, res_lr, st_e, st_k, top_e, top_k, src_lr, memo7
 
     # ---------------------------------------------------------------- 9 resume
     print(f"== 9 resume: phase 5's Plan and source, p={P}, K={K}, r={N_INIT}, "
@@ -3324,7 +3701,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     plan9 = api.Plan(backend="stream", gamma=GAMMA, batch_size=BATCH)
-    src9 = VectorStreamSource(p=P, batch=BATCH, seed=0)
+    src9 = memo5        # phase 5's batches (a pure function of seed and step), not made again
 
     def engine9(cov_path="dense"):
         return api.make_engine(plan9.replace(cov_path=cov_path), P, prng.PRNGKey(1), src9,
@@ -3369,7 +3746,8 @@ def main() -> None:
         t_write = time.perf_counter() - t0
         same = {name: torch.equal(getattr(leg2, name), res5[name]) for name in res5}
         total = leg1.reassign_counts.sum(0) + leg2.reassign_counts.sum(0)
-        print(f"  run({STEPS // 2}) with a checkpoint every {STEPS // 4} steps {t_leg1:.2f} s; "
+        print(f"  (phase 5's batches, kept on the host) run({STEPS // 2}) with a checkpoint every "
+              f"{STEPS // 4} steps {t_leg1:.2f} s; "
               f"restore_state {t_restore:.2f} s (next_step {next_step}); run({STEPS}, "
               f"start_step={next_step}) {t_leg2:.2f} s; bit-equal to phase 5's run: {same}")
         print(f"  reassign_total {leg2.reassign_total.tolist()} = leg 1's {leg1.reassign_counts.sum(0).tolist()}"
@@ -3382,7 +3760,7 @@ def main() -> None:
         check(np.array_equal(leg2.reassign_total, total), "reassign_total is not the legs' sum")
         check(all(launches9[name] > 0 for name in PATH9), f"a kernel of the path never launched: "
                                                           f"{launches9}")
-        del eng9, eng9b, state, leg1, leg2, res5
+        del eng9, eng9b, state, leg1, leg2, res5, src9, memo5
 
         # the fused run over phase 8's rows, stopped after 8 of 16 chunks
         def consumers9():
@@ -3484,8 +3862,8 @@ def main() -> None:
     src10 = VectorStreamSource(p=P_LR, batch=BATCH, seed=0)
     gen = torch.Generator(device=dev).manual_seed(10)
     u10, lam10 = torch.from_numpy(src10._u).to(dev), torch.from_numpy(src10._lam).to(dev)
-    xs = torch.empty((STEPS_LR, 1, BATCH, P_LR), device=dev)
-    for t in range(STEPS_LR):
+    xs = torch.empty((STEPS10_LR, 1, BATCH, P_LR), device=dev)
+    for t in range(STEPS10_LR):
         torch.matmul(torch.randn((BATCH, src10.k), generator=gen, device=dev) * lam10, u10.T,
                      out=xs[t, 0])
         xs[t, 0].add_(torch.randn((BATCH, P_LR), generator=gen, device=dev), alpha=0.05)
@@ -3518,7 +3896,7 @@ def main() -> None:
     t_replay = time.perf_counter() - t0
     launches10b = ops.launch_counts()
     res_r2 = eng10.replay_scanned(xs, passes=2)
-    n10 = STEPS_LR * BATCH
+    n10 = STEPS10_LR * BATCH
     comps_r = sketch_mod.unmix_dense(res_r.cov_lowrank.top(PCA_K)[0], eng10.spec)
     print(f"  run_scanned {t_scan:.2f} s; replay_scanned(passes=2) with K-means {t_replay:.2f} s; "
           f"launches {launches10b}; reassigned by rebuild 1: {res_r.refine_reassigned}")
@@ -3643,6 +4021,9 @@ def main() -> None:
     # --------------------------------------------------------- 15 lm-families
     launches15 = phase15_families(card)
 
+    # ------------------------------------------------------------ 16 dp-train
+    launches16 = phase16_dp_train(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -3663,7 +4044,7 @@ def main() -> None:
     later = {"9 resume": launches9, "10 refine": launches10_refine,
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
              "11 serve": launches11, "12 sharded": launches12, "13 train": launches13,
-             "14 lm-serve": launches14, "15 lm-families": launches15}
+             "14 lm-serve": launches14, "15 lm-families": launches15, "16 dp-train": launches16}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],
@@ -3678,4 +4059,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--dp-worker" in sys.argv[1:]:
+        _dp_worker(sys.argv[1:])
+    else:
+        main()

@@ -23,7 +23,11 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
@@ -72,6 +76,39 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     dist.init_process_group(backend, init_method=f"tcp://{addr}", world_size=world,
                             rank=rank)
     return is_multiprocess()
+
+
+def run_ranks(cmd: list[str], nproc: int) -> int:
+    """Run ``cmd --process-id r`` for ranks r = 0 … nproc − 1, with this
+    package on ``PYTHONPATH``, and wait for them: the first rank to fail
+    stops the others. Returns 0, or the first failing rank's exit code."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=src + (os.pathsep + path if path else ""))
+    procs = [subprocess.Popen(cmd + ["--process-id", str(pid)], env=env)
+             for pid in range(nproc)]
+    rc = 0
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            if failed:
+                rc = failed[0]
+                break
+            time.sleep(0.2)
+        rc = rc or next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    if rc:
+        print(f"a rank failed with exit code {rc}", file=sys.stderr)
+    return rc
 
 
 def shutdown() -> None:

@@ -29,11 +29,8 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
-
-_SRC = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -74,7 +71,7 @@ def _parser() -> argparse.ArgumentParser:
 def _spawn(args) -> int:
     """Coordinator: build the kernels once, then one worker a rank; the
     first rank to fail stops the others."""
-    from repro_torch.cluster.bootstrap import free_port
+    from repro_torch.cluster.bootstrap import free_port, run_ranks
 
     if args.device.startswith("cuda"):
         from repro_torch.kernels import _build
@@ -91,32 +88,7 @@ def _spawn(args) -> int:
     for flag in ("resume", "track_reassignments"):
         if getattr(args, flag):
             cmd += [f"--{flag.replace('_', '-')}"]
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=_SRC + (os.pathsep + path if path else ""))
-    procs = [subprocess.Popen(cmd + ["--process-id", str(pid)], env=env)
-             for pid in range(args.nproc)]
-    rc = 0
-    try:
-        while any(p.poll() is None for p in procs):
-            failed = [p.returncode for p in procs if p.returncode not in (None, 0)]
-            if failed:
-                rc = failed[0]
-                break
-            time.sleep(0.2)
-        rc = rc or next((p.returncode for p in procs if p.returncode), 0)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.terminate()
-        for p in procs:
-            try:
-                p.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-    if rc:
-        print(f"a rank failed with exit code {rc}", file=sys.stderr)
-    return rc
+    return run_ranks(cmd, args.nproc)
 
 
 def _write_out(path: str, res) -> None:

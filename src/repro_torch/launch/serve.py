@@ -24,7 +24,9 @@ draws). Per family, as the reference's branches:
   first: torch's matmul does not promote a bfloat16 weight to float32, as
   JAX's does, so a bfloat16 model encodes bfloat16 frames.
 
-``--devices`` and the moe family raise ``NotImplementedError``.
+``--devices N`` is the reference's: it serves on one device all the same
+(the reference only forces N host devices); on the card it refuses more than
+the host's cards. The moe family raises ``NotImplementedError``.
 
     # on the CPU, the other families
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-1.3b --reduced
@@ -41,7 +43,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--devices", type=int, default=0, help="force N host devices (not ported)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="devices the host must have (serving runs on one)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
@@ -54,14 +57,15 @@ def main(argv=None):
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import encdec
     from repro_torch.models.api import get_api
-    from repro_torch.utils.device import not_ported, resolve_device
+    from repro_torch.utils.device import resolve_device
     from repro_torch.utils.prng import PRNGKey, normal, randint
 
-    if args.devices:
-        raise not_ported("serving over several devices (--devices)", "LM side, last")
     cfg = get_arch(args.arch, reduced=args.reduced)
     api = get_api(cfg)
     device = resolve_device(args.device)
+    if device.type == "cuda" and args.devices > torch.cuda.device_count():
+        raise ValueError(f"--devices {args.devices}, but this host has "
+                         f"{torch.cuda.device_count()} cards")
     params = api.init_params(args.seed, device)
     B = args.batch
     prompt = randint(PRNGKey(args.seed), (B, args.prompt_len), 0, cfg.vocab_size, device=device)

@@ -1,40 +1,62 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [--reduced] ...``
 
-End to end on one device: config → state → synthetic token pipeline
-→ train loop with checkpoints and restart, and optional sketched gradient
-compression (the paper's technique as a distributed-optimization feature).
-The flags are the reference's (``python -m repro.launch.train``) plus
-``--device``; its log line and its checkpoints too, so either launcher
-resumes the other's ``--ckpt-dir``.
+End to end: config → mesh → state → synthetic token pipeline → train loop
+with checkpoints and restart, and optional sketched gradient compression
+(the paper's technique as a distributed-optimization feature). The flags are
+the reference's (``python -m repro.launch.train``) plus ``--device``,
+``--dist-backend``, ``--layers``, ``--final-ckpt`` and ``--time-exchange``;
+its log line and its checkpoints too, so either launcher resumes the other's
+``--ckpt-dir``.
 
     # on the CPU: a smoke-scale gemma3-1b, compressed, checkpointed every 2 steps
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch gemma3-1b \\
         --reduced --steps 4 --grad-compress-gamma 0.1 --ckpt-dir run --ckpt-every 2
-    # the ssm, hybrid and audio families the same way
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch mamba2-1.3b \\
+    # data parallel: 2 ranks on the CPU (gloo), then 2 ranks sharing one card
+    PYTHONPATH=src python -m repro_torch.launch.train --devices 2 --device cpu --arch gemma3-1b \\
         --reduced --steps 4 --grad-compress-gamma 0.1
+    PYTHONPATH=src python -m repro_torch.launch.train --devices 2 --dist-backend gloo \\
+        --arch gemma3-1b --layers 6 --seq 4096 --batch 4 --accum 2 --steps 4 \\
+        --grad-compress-gamma 0.1
 
-The dense, vlm, ssm, hybrid and audio families run, on one device. A vlm
-batch carries the positions broadcast to the three M-RoPE streams and zero
-vision embeddings, an audio batch the frames ``0.1 · normal(fold_in(key,
-step), (B, S, d_model))`` in the config's dtype, both as the reference's do
-(the frames bit for bit, ``prng.normal``). The moe family, ``--devices``
-and the production meshes (``--mesh single|multi``) raise
-``NotImplementedError``.
+``--devices N`` starts N ranks (this command is their coordinator: it builds
+the CUDA kernels once, spawns N copies of itself, and fails if a rank
+fails, the others stopped). The collectives go over ``--dist-backend``:
+NCCL (the default on the card) takes one card a rank and refuses more ranks
+than cards, naming gloo; gloo serves ranks that share a card or run on the
+CPU. ``--mesh host`` puts the N ranks on the reference's host mesh
+``(max(1, N // 2), min(2, N))``, ``single`` and ``multi`` on the pod meshes
+(16 × 16, 2 × 16 × 16: one rank a position). Every mesh axis carries data
+(``dp_only``): each rank takes its block of the ``--batch`` rows, the
+compressed gradient crosses ranks as the shared-mask exchange, and rank 0
+prints the log line and writes the checkpoints (with each rank's residual).
+Each rank prints a ``rank-summary`` JSON line at the end: its losses, step
+times, peak memory, kernel launches, the exchange's bytes and a SHA-256 of
+its final parameters; with ``--time-exchange K`` also the exchange's and the
+mask's times. ``--no-final-ckpt`` writes only the ``--ckpt-every``
+checkpoints.
+
+The dense, vlm, ssm, hybrid and audio families run. A vlm batch carries the
+positions broadcast to the three M-RoPE streams and zero vision embeddings,
+an audio batch the frames ``0.1 · normal(fold_in(key, step), (B, S,
+d_model))`` in the config's dtype, both as the reference's do (the frames
+bit for bit, ``prng.normal``). The moe family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import sys
 import time
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true", help="smoke-scale config")
-    ap.add_argument("--devices", type=int, default=0, help="force N host devices (not ported)")
+    ap.add_argument("--devices", type=int, default=0, help="data-parallel ranks (0: one process)")
     ap.add_argument("--mesh", default="host", choices=["host", "single", "multi"],
-                    help="host: the one device; single/multi: pod meshes (not ported)")
+                    help="host: the ranks' host mesh; single/multi: the pod meshes")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -46,26 +68,87 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="collectives backend of --devices (default: nccl on cuda, gloo on cpu)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers (0: its own)")
+    ap.add_argument("--final-ckpt", action=argparse.BooleanOptionalAction, default=True,
+                    help="with --ckpt-dir, checkpoint the last step's state too")
+    ap.add_argument("--time-exchange", type=int, default=0,
+                    help="after the run, time K exchanges of a step's kept values and K masks")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="rank mode: this process's rank (the coordinator spawns these)")
+    ap.add_argument("--coordinator", default=None, help="host:port of rank 0's rendezvous")
+    return ap
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    if args.devices and args.process_id is None:
+        return _spawn(args, argv)
+    return _train(args)
+
+
+def _spawn(args, argv) -> int:
+    """Coordinator: build the kernels once, then one process a rank."""
+    from repro_torch.cluster.bootstrap import free_port, run_ranks
+
+    if args.device.startswith("cuda"):
+        from repro_torch.kernels import _build
+
+        _build.build_all()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+           "--coordinator", f"127.0.0.1:{free_port()}"]
+    rc = run_ranks(cmd, args.devices)
+    if rc:
+        raise SystemExit(rc)
+    return 0
+
+
+def _train(args):
+    t_main = time.perf_counter()
+    import dataclasses
 
     import torch
 
+    from repro_torch import cluster, obs
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.grad_compress import CompressConfig
     from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.api import get_api
-    from repro_torch.models.transformer import NO_DIST
     from repro_torch.train import checkpoint
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
-    from repro_torch.utils.device import not_ported
+    from repro_torch.train.trainer import (TrainerConfig, abstract_state, init_state, make_dist,
+                                           make_train_fn, state_shardings)
+    from repro_torch.utils.device import resolve_device
     from repro_torch.utils.prng import PRNGKey, fold_in, normal
 
-    if args.devices or args.mesh != "host":
-        raise not_ported("training over several devices (--devices, --mesh single|multi)",
-                         "LM side, last")
+    if args.process_id is not None:
+        if not args.coordinator:
+            raise SystemExit("rank mode (--process-id) needs --coordinator")
+        # named, so that one rank still gets its (one-process) group
+        backend = args.dist_backend or ("nccl" if args.device.startswith("cuda") else "gloo")
+        cluster.initialize(args.coordinator, args.devices, args.process_id, backend=backend,
+                           device=args.device)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    elif args.devices:
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.devices))
+    rank, world = cluster.process_index(), cluster.process_count()
+
     cfg = get_arch(args.arch, reduced=args.reduced)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     api = get_api(cfg)
+    if args.mesh == "host":
+        mesh = make_host_mesh(max(1, world // 2), min(2, world)) if world > 1 else None
+    else:
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
+
     compress = None
     if args.grad_compress_gamma > 0:
         compress = CompressConfig(gamma=args.grad_compress_gamma)
@@ -74,22 +157,31 @@ def main(argv=None):
                       total_steps=args.steps),
         accum_steps=args.accum, compress=compress,
         q_chunk=min(512, args.seq), kv_chunk=min(1024, args.seq),
+        sp=mesh is not None, dp_only=True,
     )
     key = PRNGKey(args.seed)
-    step_fn = make_train_fn(api, tcfg, NO_DIST, key, device=args.device)
-    state = init_state(api, tcfg, key, device=args.device)
+    dist = make_dist(mesh, cfg, sp=tcfg.sp, dp_only=tcfg.dp_only)
+    step_fn = make_train_fn(api, tcfg, dist, key, device=device)
+    state = init_state(api, tcfg, key, device=device)
+    shardings = (state_shardings(abstract_state(api, tcfg), mesh, tcfg.dp_only)
+                 if mesh is not None else None)
 
     source = SyntheticLMSource(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     start_step = 0
     if args.ckpt_dir:
         try:
-            state, extra = checkpoint.restore(args.ckpt_dir, state)
+            state, extra = checkpoint.restore(args.ckpt_dir, state, shardings=shardings)
             start_step = int(extra.get("pipeline", {}).get("step", 0))
             source.state.step = start_step
-            print(f"restored checkpoint at step {start_step}")
+            if rank == 0:
+                print(f"restored checkpoint at step {start_step}")
         except FileNotFoundError:
             pass
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, step_s, saved = [], [], None
+    t_ready = time.perf_counter() - t_main
     t0 = time.time()
     for step in range(start_step, args.steps):
         batch = source.next_batch()
@@ -102,22 +194,107 @@ def main(argv=None):
         if cfg.family == "audio":
             B, S = batch["tokens"].shape
             dtype = getattr(torch, cfg.dtype)
-            frames = normal(fold_in(key, step), (B, S, cfg.d_model), device=args.device,
-                            dtype=dtype)
+            frames = normal(fold_in(key, step), (B, S, cfg.d_model), device=device, dtype=dtype)
             batch["frames"] = torch.tensor(0.1, dtype=dtype, device=frames.device) * frames
+        t1 = time.perf_counter()
         state, metrics = step_fn(state, batch)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            loss = float(metrics["loss"])
-            print(f"step {step:5d} loss {loss:.4f} gnorm {float(metrics['grad_norm']):.3f} "
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t1)
+        if rank == 0 and (step % args.log_every == 0 or step == args.steps - 1):
+            print(f"step {step:5d} loss {losses[-1]:.4f} gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} ({(time.time()-t0):.1f}s)", flush=True)
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+        last = step + 1 == args.steps
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0 and (args.final_ckpt or not last):
             checkpoint.save(args.ckpt_dir, step + 1, state,
-                            extra={"pipeline": source.state.to_json()})
-    if args.ckpt_dir:
+                            extra={"pipeline": source.state.to_json()}, mesh=mesh)
+            saved = step + 1
+    if args.ckpt_dir and args.final_ckpt and saved != args.steps:
         checkpoint.save(args.ckpt_dir, args.steps, state,
-                        extra={"pipeline": source.state.to_json()}, async_=False)
-    print("done")
+                        extra={"pipeline": source.state.to_json()}, async_=False, mesh=mesh)
+    checkpoint.wait_for_pending()
+    if args.process_id is not None:
+        summary = dict(rank=rank, world=world, backend=torch.distributed.get_backend(),
+                       device=str(device), steps=[start_step, args.steps], losses=losses,
+                       step_s=step_s, tokens_a_step=args.batch * args.seq,
+                       exchange_bytes=_exchanged(obs), params_sha256=_digest(state["params"]),
+                       ready_s=t_ready)
+        if device.type == "cuda":
+            from repro_torch.kernels import ops
+
+            torch.cuda.synchronize(device)
+            summary.update(peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                           launches=ops.launch_counts(),
+                           dispatch={f"{op}/{path}": n for (op, path), n in ops.DISPATCH.items()})
+        if args.time_exchange and compress is not None:
+            summary.update(_time_exchange(state, compress, mesh, device, args.time_exchange))
+        summary["wall_s"] = time.perf_counter() - t_main
+        # one write of the whole line: the ranks share the coordinator's stdout
+        print(f"rank-summary {json.dumps(summary)}\n", end="", flush=True)
+        torch.distributed.barrier()
+        cluster.shutdown()
+    if rank == 0:
+        print("done")
+
+
+def _digest(tree) -> str:
+    """SHA-256 of the tree's leaves' bytes, in its leaf order."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.utils.host import to_host
+    from repro_torch.utils.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(np.ascontiguousarray(to_host(leaf)).reshape(-1).view(np.uint8).data)
+    return h.hexdigest()
+
+
+def _exchanged(obs) -> dict:
+    """The exchange's bytes by mode, from the default registry."""
+    return {m.labels["mode"]: m.value for m in obs.default_registry().metrics()
+            if m.name == "grad_compress.exchange_bytes"}
+
+
+def _time_exchange(state, compress, mesh, device, reps: int) -> dict:
+    """Each rank: ``reps`` shared-mask exchanges of a step's (chunks, m)
+    float32 kept values and ``reps`` masks, timed by the host clock around a
+    synchronised call (the least and the median, ms), beside the payload's
+    and the dense gradient's bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.core import sketch as sketch_mod
+    from repro_torch.core.sampling import sample_indices
+    from repro_torch.utils.prng import PRNGKey
+    from repro_torch.utils.tree import tree_count_params
+
+    n = tree_count_params(state["params"])
+    nc, m = -(-n // compress.chunk_p), compress.m
+    vals = torch.ones((nc, m), dtype=torch.float32, device=device)
+    spec = gc.mask_spec(compress, PRNGKey(0))
+
+    def timed(fn):
+        out = []
+        for i in range(reps):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            torch.distributed.barrier()
+            t = time.perf_counter()
+            fn(i)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            out.append((time.perf_counter() - t) * 1e3)
+        return [min(out), float(np.median(out))]
+
+    ex = timed(lambda i: gc.exchange_mean(vals, mesh))
+    mask = timed(lambda i: sample_indices(sketch_mod.batch_key(spec, i, 0), nc,
+                                          compress.chunk_p, m, device=device))
+    return dict(params=n, chunks=nc, m=m, payload_bytes=vals.numel() * vals.element_size(),
+                dense_bytes=4 * n, exchange_ms=ex, mask_ms=mask)
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -32,7 +32,7 @@ from repro_torch.models import encdec, hybrid, mamba_lm
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import params_to_reference, tree_from_reference  # noqa: F401
 from repro_torch.models.transformer import NO_DIST
-from repro_torch.utils.device import not_ported, resolve_device
+from repro_torch.utils.device import MOE_AND_TP, not_ported, resolve_device
 from repro_torch.utils.host import on_device
 
 
@@ -67,7 +67,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "audio":
         return _audio_api(cfg)
     if cfg.family not in ("dense", "vlm"):
-        raise not_ported(f"the {cfg.family} family", "LM side, last")
+        raise not_ported(f"the {cfg.family} family", MOE_AND_TP)
 
     def loss_fn(params, batch, dist=NO_DIST, **kw):
         return tr.lm_loss(params, batch, cfg, dist, **kw)

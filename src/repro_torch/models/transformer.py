@@ -20,8 +20,12 @@ Serving runs under ``torch.inference_mode()`` and recomputes nothing.
 token's key and value into the cache in place (the reference returns an
 updated copy) and attends over the whole cache in float32.
 
-Only the single-device context ``NO_DIST`` runs; a mesh, leading dense
-layers (``first_k_dense``) and MoE layers raise ``not_ported``.
+A ``Dist`` carries the reference's distribution fields. As under GSPMD they
+place values and change none: the port's data-parallel trainer replicates
+the parameters on each rank and gives it a block of the batch
+(``train/trainer.py``), so every function here computes the same values with
+a mesh as without. Leading dense layers (``first_k_dense``) and MoE layers
+raise ``not_ported``.
 """
 from __future__ import annotations
 
@@ -47,33 +51,45 @@ from repro_torch.models.common import (
     truncated_normal_init,
     unstack,
 )
-from repro_torch.utils.device import not_ported, resolve_device
+from repro_torch.utils.device import MOE_AND_TP, not_ported, resolve_device
 from repro_torch.utils.host import from_host, to_host
 from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class Dist:
-    """Distribution context (``mesh=None`` ⇒ one device, the only one ported)."""
+    """Distribution context threaded through model code (``mesh=None`` ⇒ one
+    device): the reference's fields, a ``launch.mesh`` mesh and its axes."""
 
     mesh: Any = None
+    dp_axes: tuple[str, ...] = ("data",)
+    tp_axis: str | None = "model"
+    head_axis: str | None = None   # q-head sharding (only when H % tp == 0)
+    kv_head_axis: str | None = None
+    use_ep: bool = True            # MoE: all-to-all EP over tp_axis
+    sp: bool = False               # sequence-parallel activations between blocks
+    seq_shard_cache: bool = False  # decode: shard KV cache sequence over tp_axis
+
+    @property
+    def seq_axis(self) -> str | None:
+        """Megatron-SP: activations between blocks are sequence-sharded over TP."""
+        return self.tp_axis if self.sp else None
 
 
 NO_DIST = Dist()
 
 
 def check_supported(cfg: ModelConfig, dist: Dist = NO_DIST) -> None:
-    """Raise ``not_ported`` for what this module lacks: a mesh, MoE layers,
-    leading dense layers."""
-    if dist is not None and dist.mesh is not None:
-        raise not_ported("the transformer over a mesh (Dist with a mesh)", "LM side, last")
+    """Raise ``not_ported`` for what this module lacks: MoE layers and
+    leading dense layers (a ``Dist``'s mesh changes no value here)."""
     if cfg.family == "moe" or cfg.first_k_dense:
-        raise not_ported(f"the {cfg.family} family's MoE and leading dense layers",
-                         "LM side, last")
+        raise not_ported(f"the {cfg.family} family's MoE and leading dense layers", MOE_AND_TP)
 
 
 def generator(seed: int, device: torch.device) -> torch.Generator:
-    gen = torch.Generator(device=device)
+    """A generator seeded with ``seed`` on ``device``; on the meta device (shapes
+    only, nothing drawn) a CPU generator."""
+    gen = torch.Generator(device="cpu" if torch.device(device).type == "meta" else device)
     gen.manual_seed(int(seed))
     return gen
 

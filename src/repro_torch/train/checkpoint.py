@@ -20,6 +20,14 @@ A bfloat16 leaf is written as its 2-byte words in a ``|V2`` array, the bytes
 and header the reference's ``ml_dtypes`` array gives, and read back from
 them: ``np.load`` returns such a leaf as ``|V2`` words in either package.
 
+A data-parallel run's state (``save(..., mesh=)``, called by every rank;
+rank 0 writes) is stored in the same layout, its ``residual`` the ranks'
+mean, so the reference and a run at any world size restore it; beside it
+each rank's own residual, ``['rank_residual'][r]…``. ``restore(...,
+shardings=)`` is the elastic path: a run with as many ranks as wrote the
+checkpoint takes each rank's own residual back (a resume bit for bit),
+another world size the mean.
+
 Reads take each ``.npy`` member of ``arrays.npz`` straight from the file
 (``np.fromfile`` at the member's offset) and hold it to the zip's CRC-32,
 ``READ_THREADS`` members at a time; ``np.load`` copies a member through
@@ -42,35 +50,95 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch.cluster.bootstrap import process_count, process_index
 from repro_torch.utils.host import from_host, is_bf16_words, to_host
-from repro_torch.utils.tree import tree_leaves_with_path, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten
 
 _SAVE_LOCK = threading.Lock()
 _PENDING: list[threading.Thread] = []
 # members of arrays.npz read at once
 READ_THREADS = 8
+# the names of a data-parallel checkpoint's mean residual and of each rank's
+_RES, _RANKS = "['residual']", "rank_residual"
 
 
 def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
-         async_: bool = True, keep_last: int = 3) -> None:
+         async_: bool = True, keep_last: int = 3, mesh=None) -> None:
     """Snapshot the tree ``state`` (+ JSON-serializable ``extra``, e.g. the
     data pipeline's cursor) as step ``step``; its leaves are copied to the
-    host before this returns, so the caller may update them in place."""
-    _save_arrays(ckpt_dir, step, {k: to_host(v) for k, v in tree_leaves_with_path(state)},
-                 extra, async_, keep_last)
+    host before this returns, so the caller may update them in place.
+
+    With a collective ``mesh`` every rank calls this with its own state (the
+    same but for ``residual``); rank 0 writes the ranks' mean residual and
+    each rank's own (the module docstring)."""
+    if mesh is None or not mesh.collective:
+        _save_arrays(ckpt_dir, step, {k: to_host(v) for k, v in tree_leaves_with_path(state)},
+                     extra, async_, keep_last)
+        return
+    ranks = _gather_residuals(state.get("residual"))
+    if process_index() != 0:
+        return
+    arrays = {k: to_host(v) for k, v in tree_leaves_with_path(state)
+              if ranks is None or not k.startswith(_RES)}
+    if ranks is not None:
+        # the mean and the ranks' residuals are host tensors of this call's own
+        ours = {"residual": tree_map(_mean, *ranks), _RANKS: ranks}
+        arrays.update((k, to_host(v, copy=False)) for k, v in tree_leaves_with_path(ours))
+    _save_arrays(ckpt_dir, step, arrays, extra, async_, keep_last)
 
 
-def restore(ckpt_dir: str, like, device=None) -> tuple[dict, dict]:
+def _mean(*leaves: torch.Tensor) -> torch.Tensor:
+    """The leaves' mean, summed in float32 in order, in their dtype."""
+    acc = leaves[0].float().clone()
+    for t in leaves[1:]:
+        acc += t.float()
+    return acc.div_(len(leaves)).to(leaves[0].dtype)
+
+
+def _gather_residuals(residual):
+    """Every rank's residual tree on rank 0's host, in rank order (None on
+    the other ranks, and without a residual), one gather to rank 0 a leaf.
+    Over gloo each leaf is gathered from host memory, where rank 0 needs it,
+    so rank 0's card holds no other rank's leaf; NCCL gathers on the card."""
+    if residual is None:
+        return None
+    rank, world = process_index(), process_count()
+    staged = torch.distributed.get_backend() == "gloo"
+    out = [[] for _ in range(world)]
+    for leaf in tree_leaves(residual):
+        t = leaf.detach().to("cpu", copy=True) if staged else leaf.detach()
+        parts = [torch.empty_like(t) for _ in range(world)] if rank == 0 else None
+        torch.distributed.gather(t, parts, dst=0)
+        if rank == 0:
+            for r, part in enumerate(parts):
+                out[r].append(part.to("cpu"))
+    return [tree_unflatten(residual, leaves) for leaves in out] if rank == 0 else None
+
+
+def restore(ckpt_dir: str, like, device=None, shardings=None) -> tuple[dict, dict]:
     """Load the latest checkpoint into the structure, dtypes and devices of the
     tree ``like`` (or onto ``device``). Returns (state, extra); raises
-    FileNotFoundError if there is no checkpoint."""
+    FileNotFoundError if there is no checkpoint.
+
+    ``shardings`` (the restoring run's ``trainer.state_shardings``) makes it
+    the elastic path of a data-parallel run: each rank takes its own
+    residual where the checkpoint holds one for each rank of this run's
+    world, else the ranks' mean. Every leaf is restored whole on each rank:
+    this port replicates parameters (their placement over a mesh is not
+    ported)."""
     d = latest_step_dir(ckpt_dir)
     if d is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     with open(os.path.join(d, "manifest.json")) as f:
         meta = json.load(f)
     specs = tree_leaves_with_path(like)
-    arrays = _read_npz(os.path.join(d, "arrays.npz"), [name for name, _ in specs])
+    names = [name for name, _ in specs]
+    stored = {k[len(_RANKS) + 5:].split("]")[0] for k in meta.get("keys", ())
+              if k.startswith(f"['{_RANKS}'][")}
+    if shardings is not None and len(stored) == process_count() > 1:
+        own = f"['{_RANKS}'][{process_index()}]"
+        names = [own + n[len(_RES):] if n.startswith(_RES) else n for n in names]
+    arrays = _read_npz(os.path.join(d, "arrays.npz"), names)
     leaves = [from_host(a, spec.dtype, spec.device if device is None else device)
               for (_, spec), a in zip(specs, arrays)]
     return tree_unflatten(like, leaves), meta.get("extra", {})

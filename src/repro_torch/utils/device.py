@@ -3,6 +3,9 @@ from __future__ import annotations
 
 import torch
 
+# the ROADMAP.md item (Queue 1) that what is still missing on the LM side names
+MOE_AND_TP = "MoE with expert parallelism and TP/FSDP placement over the model axis"
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device(device)``, refusing a CUDA device when no card is present.

@@ -14,11 +14,12 @@ import numpy as np
 import torch
 
 
-def to_host(v) -> np.ndarray:
-    """A tensor (on any device, copied) or array-like as a numpy array; a
-    bfloat16 tensor as its 2-byte words (``|V2``)."""
+def to_host(v, copy: bool = True) -> np.ndarray:
+    """A tensor (on any device; copied unless ``copy=False`` and already on
+    the host) or array-like as a numpy array; a bfloat16 tensor as its
+    2-byte words (``|V2``)."""
     if torch.is_tensor(v):
-        v = v.detach().to("cpu", copy=True)
+        v = v.detach().to("cpu", copy=copy)
         if v.dtype == torch.bfloat16:
             return v.view(torch.int16).numpy().view("V2")
         return v.numpy()
@@ -31,7 +32,10 @@ def is_bf16_words(a: np.ndarray) -> bool:
 
 def from_host(a: np.ndarray, dtype: torch.dtype | None = None, device="cpu") -> torch.Tensor:
     """A numpy array as a tensor on ``device``: ``|V2`` words (or an
-    ``ml_dtypes`` bfloat16 array) as bfloat16; ``dtype`` casts the rest."""
+    ``ml_dtypes`` bfloat16 array) as bfloat16; ``dtype`` casts the rest, and
+    widens bfloat16 exactly (a bf16 model's residual, saved in its
+    gradients' dtype, restores into the float32 one ``init_state`` makes, as
+    the reference's ``astype`` does); nothing narrows to bfloat16."""
     device = torch.device(device)
     # np.load gives read-only arrays: a tensor left on the host gets its own copy
     if not a.flags.c_contiguous or (device.type == "cpu" and not a.flags.writeable):
@@ -42,7 +46,8 @@ def from_host(a: np.ndarray, dtype: torch.dtype | None = None, device="cpu") -> 
     if is_bf16_words(a):
         t = t.view(torch.bfloat16)
     if dtype is not None and t.dtype != dtype:
-        if t.dtype == torch.bfloat16 or dtype == torch.bfloat16:
+        widen = t.dtype == torch.bfloat16 and dtype in (torch.float32, torch.float64)
+        if not widen and (t.dtype == torch.bfloat16 or dtype == torch.bfloat16):
             raise TypeError(f"a checkpoint leaf of {t.dtype} does not restore as {dtype}")
         t = t.to(dtype)
     return t.to(device)

@@ -53,6 +53,22 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path_names(fn: Callable[[str, Any], Any], tree: Any) -> Any:
+    """``fn(name, leaf)`` over the leaves of ``tree``, where name is the
+    '/'-joined key path (``layers/attn/wq``; the sharding rules' names)."""
+
+    def go(node, parts):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: go(v, parts + [str(k)]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v, parts + [str(i)]) for i, v in enumerate(node))
+        return fn("/".join(parts), node)
+
+    return go(tree, [])
+
+
 def tree_unflatten(like: Any, leaves: list) -> Any:
     """A tree of ``like``'s structure holding ``leaves`` (in JAX's order)."""
     by_name = dict(zip((name for name, _ in tree_leaves_with_path(like)), leaves))

@@ -33,6 +33,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import estimators, kmeans, pca, sketch
 from repro_torch.data.pipeline import VectorStreamSource
 from repro_torch.models.api import get_api
+from repro_torch.utils.device import MOE_AND_TP
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 CPU = dict(device="cpu")
@@ -593,7 +594,7 @@ def test_not_ported_paths_name_their_item(tmp_path):
     _close(SparsifiedMean(two, **CPU).fit(x).mean_,
            SparsifiedMean(two.replace(backend="stream"), **CPU).fit(x).mean_.numpy())
     cases = [
-        ("LM side, last", lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))),
+        (MOE_AND_TP, lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))),
     ]
     for item, call in cases:
         with pytest.raises(NotImplementedError, match=item):

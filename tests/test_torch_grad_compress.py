@@ -111,6 +111,30 @@ def test_compress_decompress_matches_reference(unbiased, n, chunk_p, gamma, step
     _close(g_hat, jg_hat)
 
 
+@pytest.mark.parametrize("error_feedback", [True, False])
+def test_perworker_mode_round_trip_matches_reference(error_feedback):
+    """``CompressConfig(mode="per-worker")`` through compress_decompress and
+    compress_grads: the reference reads no ``mode`` there, so it runs the
+    shared-mask round trip, and so does the port (1e-5)."""
+    cfg = gc.CompressConfig(gamma=0.25, chunk_p=256, error_feedback=error_feedback,
+                            mode="per-worker")
+    jcfg = jgc.CompressConfig(gamma=0.25, chunk_p=256, error_feedback=error_feedback,
+                              mode="per-worker")
+    key = jax.random.PRNGKey(4)
+    vec = np.random.default_rng(9).normal(size=1000).astype(np.float32)
+    g_hat, vals = gc.compress_decompress(torch.from_numpy(vec), _kd(key), 3, cfg)
+    jg_hat, jvals = jgc.compress_decompress(jnp.asarray(vec), key, jnp.int32(3), jcfg)
+    _close(vals, jvals)
+    _close(g_hat, jg_hat)
+    t = _tree(1)
+    g_tree, res, wire = gc.compress_grads(_torch_tree(t), _kd(key), 2, cfg)
+    jg_tree, jres, jwire = jgc.compress_grads(_jax_tree(t), key, jnp.int32(2), jcfg)
+    assert wire == jwire and (res is None) == (jres is None) == (not error_feedback)
+    _close(tree_flatten_to_vector(g_tree)[0], jflatten(jg_tree)[0])
+    if error_feedback:
+        _close(tree_flatten_to_vector(res)[0], jflatten(jres)[0])
+
+
 def test_error_feedback_identity_and_residual():
     """ĝ + r' = g + r (the reference test's form, 1e-5), ĝ and r' as the
     reference's, over three steps of a carried residual."""

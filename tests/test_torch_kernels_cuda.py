@@ -755,6 +755,63 @@ def test_psum_two_ranks_nccl_on_two_cards(dev):
     _run_ranks(2, "nccl")
 
 
+_DP = r"""
+import sys
+import torch
+from repro_torch import cluster
+from repro_torch.cluster.bootstrap import make_mesh
+from repro_torch.core import grad_compress as gc
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.utils.prng import PRNGKey
+
+pid, port, backend, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+cluster.initialize(f"127.0.0.1:{port}", 2, pid, backend=backend, device="cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
+vec = torch.randn((5 * 16384 + 100,), generator=torch.Generator().manual_seed(pid)).to(dev)
+cfg = gc.CompressConfig(gamma=0.1)
+flat = torch.nn.functional.pad(vec, (0, gc.padded_len(vec.numel(), cfg.chunk_p) - vec.numel()))
+g_hat, res, wire = gc.compress_flat(flat, PRNGKey(3), 2, cfg, mesh=make_host_mesh(1, 2))
+pw = gc.CompressConfig(gamma=0.1, error_feedback=False, mode="per-worker")
+est = gc.perworker_mean_estimate(vec, PRNGKey(3), 2, pw, make_mesh((2,), ("data",)), ("data",))
+torch.save({"g_hat": g_hat.cpu(), "res": res.cpu(), "wire": wire, "est": est.cpu()}, out)
+cluster.shutdown()
+"""
+
+
+def test_dp_exchange_nccl_matches_gloo_on_two_cards(dev, tmp_path):
+    """The shared-mask exchange (compress_flat over a 2-rank mesh) and
+    perworker_mean_estimate on 2 NCCL ranks, a card each, bit-equal to the
+    same calls on 2 gloo ranks sharing card 0."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.cluster.bootstrap import free_port
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes a card a rank")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    got = {}
+    for backend in ("gloo", "nccl"):
+        port = str(free_port())
+        outs = [str(tmp_path / f"{backend}{r}.pt") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, "-c", _DP, str(r), port, backend, outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env=env, cwd=root) for r in range(2)]
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, out + err
+        got[backend] = [torch.load(o) for o in outs]
+    for r in range(2):
+        a, b = got["gloo"][r], got["nccl"][r]
+        assert a["wire"] == b["wire"] == 6 * 1638
+        for k in ("g_hat", "res", "est"):
+            assert torch.equal(a[k], b[k]), (r, k)
+    assert torch.equal(got["nccl"][0]["g_hat"], got["nccl"][1]["g_hat"])
+    assert torch.equal(got["nccl"][0]["est"], got["nccl"][1]["est"])
+
+
 def test_nccl_refuses_two_ranks_on_one_card(dev):
     from repro_torch import cluster
 

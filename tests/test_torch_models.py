@@ -25,7 +25,10 @@ from repro.models import transformer as jtr
 from repro_torch.configs import base
 from repro_torch.configs.registry import ARCHS, get_arch, get_shape
 from repro_torch.models import attention, transformer as tr
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import get_api, params_from_reference, params_to_reference
+from repro_torch.train.trainer import make_dist
+from repro_torch.utils.device import MOE_AND_TP
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
 DENSE = ["gemma3-1b", "glm4-9b", "phi3-medium-14b", "deepseek-coder-33b"]
@@ -197,26 +200,38 @@ def test_flash_attention_matches_reference(q_chunk, kv_chunk, window, causal):
 
 
 def test_what_is_not_ported_raises():
-    """MoE, leading dense layers and a mesh name their ROADMAP item; the
+    """MoE and leading dense layers name their ROADMAP item. A Dist with a
+    mesh changes no value: the loss of a reduced gemma3-1b and a decode step
+    of the ssm and hybrid families are bit-equal with and without one; the
     ssm, hybrid and audio families are served (their parity tests:
     tests/test_torch_{ssm,hybrid,encdec}.py)."""
     api = get_api(get_arch("gemma3-1b", reduced=True))
     for call in (lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True)),
                  lambda: get_api(dataclasses.replace(api.cfg, first_k_dense=1)).init_params(
-                     0, "cpu"),
-                 lambda: tr.forward({}, torch.zeros((1, 4), dtype=torch.int32), api.cfg,
-                                    tr.Dist(mesh="a mesh"))):
-        with pytest.raises(NotImplementedError, match="LM side, last"):
+                     0, "cpu")):
+        with pytest.raises(NotImplementedError, match=MOE_AND_TP):
             call()
+    dist = make_dist(make_host_mesh(4, 2), api.cfg)
+    assert dist.mesh is not None and dist.tp_axis == "model"
+    params = api.init_params(0, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(api.cfg).items()}
+    with torch.no_grad():
+        assert torch.equal(api.loss_fn(params, batch, tr.NO_DIST)[0],
+                           api.loss_fn(params, batch, dist)[0])
     for arch, family in (("mamba2-1.3b", "ssm"), ("zamba2-1.2b", "hybrid"),
                          ("seamless-m4t-large-v2", "audio")):
         ported = get_api(get_arch(arch, reduced=True))
         assert ported.cfg.family == family
         params = ported.init_params(0, "cpu")
         assert params["embed"].shape == (ported.cfg.vocab_size, ported.cfg.d_model)
-        with pytest.raises(NotImplementedError, match="LM side, last"):
-            ported.decode_fn(params, np.zeros((1, 1), np.int32), None, 1,
-                             tr.Dist(mesh="a mesh"), device="cpu")
+        if ported.init_decode_state is None:
+            continue
+        with torch.no_grad():
+            logits = [ported.decode_fn(params, np.ones((1, 1), np.int32),
+                                       ported.init_decode_state(1, 4, device="cpu"), 1, d,
+                                       device="cpu")[0]
+                      for d in (tr.NO_DIST, make_dist(make_host_mesh(2, 1), ported.cfg))]
+        assert torch.equal(*logits), arch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             api.init_params(0)

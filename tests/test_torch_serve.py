@@ -18,6 +18,7 @@ relative to the largest value compared:
 - ``ServeEngine`` and the launcher: the reference's tokens, exactly.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from repro_torch.models import api as api_mod
 from repro_torch.models import attention, transformer as tr
 from repro_torch.models.api import ModelAPI, get_api, params_from_reference
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.utils.device import MOE_AND_TP
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ARCHS = ["glm4-9b", "gemma3-1b", "qwen2-vl-2b"]
@@ -325,9 +327,36 @@ def test_launcher_matches_reference(arch, monkeypatch, capsys):
     assert got[1].startswith("sample tokens: [") and got[1] == want[1], (got, want)
 
 
+def test_launcher_devices_matches_reference(monkeypatch, capsys):
+    """``--devices 2 --device cpu``: the reference's flag, which forces host
+    devices and serves on one; the port serves on one and prints the
+    reference launcher's sample tokens for the same flags."""
+    # the reference launcher writes XLA_FLAGS (read by no JAX already started)
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    jlaunch.main(["--arch", "glm4-9b", "--reduced", "--devices", "2"])
+    want = capsys.readouterr().out.splitlines()
+    cfg = jget_arch("glm4-9b", reduced=True)
+    jparams = jtr.init_lm_params(jax.random.PRNGKey(0), cfg)
+    real = api_mod.get_api
+
+    def carried(c):
+        a = real(c)
+        return dataclasses.replace(a, init_params=lambda seed, device="cuda": params_from_reference(
+            jax.tree.map(np.asarray, jparams), c, device))
+
+    monkeypatch.setattr(api_mod, "get_api", carried)
+    from repro_torch.launch import serve as launch
+
+    launch.main(["--arch", "glm4-9b", "--reduced", "--devices", "2", "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert got[0].startswith("arch=glm4-9b generated (4, 8) in ")
+    assert got[1].startswith("sample tokens: [") and got[1] == want[1], (got, want)
+
+
 def test_what_is_not_served_raises():
     """Without a card the serving calls default to "cuda" and raise, for
-    every served family; the moe family and --devices name their ROADMAP
+    every served family, and so does the launcher's --devices; on the card it
+    refuses more devices than cards. The moe family names its ROADMAP
     item."""
     api = get_api(get_arch("gemma3-1b", reduced=True))
     from repro_torch.launch import serve as launch
@@ -339,7 +368,7 @@ def test_what_is_not_served_raises():
                      lambda: launch.main(["--arch", "glm4-9b", "--reduced"])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
-    with pytest.raises(NotImplementedError, match="LM side, last"):
+    with pytest.raises(NotImplementedError, match=MOE_AND_TP):
         get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))
     # the ssm, hybrid and audio families serve, on the card by default
     for arch in ("mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
@@ -352,8 +381,9 @@ def test_what_is_not_served_raises():
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 lm.decode_fn({}, np.zeros((1, 1), np.int32), {}, 1)
-    with pytest.raises(NotImplementedError, match="LM side, last"):
-        launch.main(["--arch", "glm4-9b", "--reduced", "--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="LM side, last"):
-        tr.decode_step({}, torch.zeros((1, 1), dtype=torch.int32), {}, 1, api.cfg,
-                       tr.Dist(mesh="a mesh"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch.main(["--arch", "glm4-9b", "--reduced", "--devices", "2"])
+    elif torch.cuda.device_count() < 64:
+        with pytest.raises(ValueError, match="cards"):
+            launch.main(["--arch", "glm4-9b", "--reduced", "--devices", "64"])

@@ -58,9 +58,11 @@ from repro.train import trainer as jtrainer
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.grad_compress import CompressConfig
 from repro_torch.data.pipeline import SyntheticLMSource
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as tr
 from repro_torch.models.api import get_api, params_from_reference
 from repro_torch.train import checkpoint, optimizer, trainer
+from repro_torch.utils.device import MOE_AND_TP
 from repro_torch.utils.host import to_host
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
@@ -455,15 +457,17 @@ def test_launcher_matches_reference_and_resumes(tmp_path, capsys):
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="LM side, last"):
-        _run_main(["--arch", "gemma3-1b", "--reduced", "--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="LM side, last"):
+    """What waits for ROADMAP's next LM item (leading dense layers, parameter
+    placement over a mesh's model axis) names it; the pod meshes need their
+    ranks; without a card the defaults raise."""
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         _run_main(["--arch", "gemma3-1b", "--mesh", "single", "--device", "cpu"])
     cfg = get_arch("gemma3-1b", reduced=True)
-    with pytest.raises(NotImplementedError, match="LM side, last"):
-        trainer.make_train_fn(get_api(cfg), trainer.TrainerConfig(), tr.Dist(mesh="m"),
+    with pytest.raises(NotImplementedError, match=MOE_AND_TP):
+        trainer.make_train_fn(get_api(cfg), trainer.TrainerConfig(),
+                              trainer.make_dist(make_host_mesh(4, 2), cfg),
                               np.zeros(2, np.uint32), device="cpu")
-    with pytest.raises(NotImplementedError, match="LM side, last"):
+    with pytest.raises(NotImplementedError, match=MOE_AND_TP):
         trainer.make_train_fn(get_api(dataclasses.replace(cfg, first_k_dense=1)),
                               trainer.TrainerConfig(), tr.NO_DIST, np.zeros(2, np.uint32),
                               device="cpu")

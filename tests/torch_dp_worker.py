@@ -1,0 +1,101 @@
+"""Rank processes for the data-parallel CPU tests (``tests/test_torch_dp.py``,
+``tests/test_torch_sharding.py``).
+
+    python tests/torch_dp_worker.py TASK --job job.pt --out out --world N \\
+        --coordinator HOST:PORT --process-id R
+
+The tests start N of these through ``cluster.bootstrap.run_ranks`` (which
+adds ``--process-id``). Each brings up a gloo group on the CPU, reads the
+job (``torch.save``'d by the test), runs its task and writes ``out.R.pt``;
+the test compares what the ranks wrote with the reference. This module
+imports only repro_torch: the reference runs in the test's process.
+"""
+import argparse
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import cluster
+from repro_torch.cluster.bootstrap import free_port, make_mesh, run_ranks
+from repro_torch.core import grad_compress as gc
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.api import get_api
+from repro_torch.train import trainer
+from repro_torch.utils.tree import tree_map
+
+
+def perworker(job: dict) -> dict:
+    """``perworker_mean_estimate`` of rank r's row of ``grads``, over the
+    job's mesh (``mesh``: (shape, axes)) or, without one, the default group."""
+    cfg = gc.CompressConfig(**job["cfg"])
+    if job["mesh"] is None:
+        where, shard = dist.group.WORLD, dist.get_rank()
+    else:
+        where = make_mesh(*job["mesh"])
+        shard = where.owners.index(dist.get_rank())
+    est = gc.perworker_mean_estimate(job["grads"][shard], job["key"], job["step"], cfg, where,
+                                     job["axes"])
+    return {"est": est}
+
+
+def train(job: dict) -> dict:
+    """The data-parallel trainer over ``make_host_mesh(1, N)``: the job's
+    state, then one step a batch; every step's metrics and state after it."""
+    api = get_api(job["cfg"])
+    tcfg = trainer.TrainerConfig(**job["tcfg"])
+    mesh = make_host_mesh(1, dist.get_world_size())
+    fn = trainer.make_train_fn(api, tcfg, trainer.make_dist(mesh, api.cfg, dp_only=True),
+                               job["key"], device="cpu")
+    state, steps = job["state"], []
+    for batch in job["batches"]:
+        state, metrics = fn(state, batch)
+        steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                      "state": tree_map(lambda t: t.detach().clone(), state)})
+    return {"steps": steps}
+
+
+TASKS = {"perworker": perworker, "train": train}
+
+
+def run(task: str, job: dict, world: int, tmp_dir, partitionable: bool) -> list[dict]:
+    """``task`` on ``world`` gloo ranks (in the port's threefry layout
+    ``partitionable``); what each rank wrote, by rank."""
+    path, out = os.path.join(tmp_dir, f"{task}.job.pt"), os.path.join(tmp_dir, task)
+    torch.save(job, path)
+    cmd = [sys.executable, os.path.abspath(__file__), task, "--job", path, "--out", out,
+           "--world", str(world), "--coordinator", f"127.0.0.1:{free_port()}"]
+    name = "REPRO_TORCH_THREEFRY_PARTITIONABLE"
+    before = os.environ.get(name)
+    os.environ[name] = str(int(partitionable))
+    try:
+        assert run_ranks(cmd, world) == 0, f"a rank of {task} failed"
+    finally:
+        if before is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = before
+    return [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(world)]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("task", choices=sorted(TASKS))
+    ap.add_argument("--job", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    args = ap.parse_args()
+    torch.set_num_threads(2)
+    cluster.initialize(args.coordinator, args.world, args.process_id, backend="gloo",
+                       device="cpu")
+    out = TASKS[args.task](torch.load(args.job, weights_only=False))
+    torch.save(out, f"{args.out}.{args.process_id}.pt")
+    dist.barrier()
+    cluster.shutdown()
+
+
+if __name__ == "__main__":
+    main()
