@@ -147,7 +147,7 @@ Phases, in order; any failure exits non-zero:
 
 12. sharded — the paper's distributed setting at phase 5's width:
               Plan(backend="sharded", n_shards=2, batch_size=2048), p = 16384,
-              γ = 0.05, 4 steps with streaming K-means (K = 10, r = 3,
+              γ = 0.05, 2 steps with streaming K-means (K = 10, r = 3,
               reassignments tracked). (a) one process in a one-rank NCCL
               group: the engine against backend="stream" (mean and centers
               within 1e-5, the covariance trace 1e-5 relative, count and
@@ -157,15 +157,15 @@ Phases, in order; any failure exits non-zero:
               a step's delta timed with its bytes, rows/s and peak memory;
               (c) continue_elastic from 2 workers to 1 bit-equal to the
               uninterrupted run, the sharded low-rank path at p = 65536,
-              l = 128, 4 steps, within 1e-5 of max |value| of the stream
+              l = 128, 2 steps, within 1e-5 of max |value| of the stream
               engine's RangeState (the cluster sketch, K5, K6 held against
               their plain versions), and fit_many([SparsifiedCov,
               SparsifiedKMeans(10, minibatch)]) on phase 8's rows against
               the stream backend; (b) python -m repro_torch.launch.cluster
               with 2 processes on the one card over gloo: equal to (a), each
               rank launching K1, K4 and K6, cluster.hosts == 2 from
-              --log-every, the all-reduce timed, a checkpoint after step 2
-              and --resume to step 4 bit-equal to the uninterrupted run.
+              --log-every, the all-reduce timed, a checkpoint after step 1
+              and --resume to step 2 bit-equal to the uninterrupted run.
 
 13. train  — gemma3-1b at full width, its depth cut to DEPTH13 = 6 of
               26 layers, one of its 5:1 local/global groups (765,016,704
@@ -216,7 +216,7 @@ Phases, in order; any failure exits non-zero:
               bf16, random weights from a seeded torch.Generator: (a) training:
               mamba2-1.3b, zamba2-1.2b and seamless-m4t-large-v2 each through
               make_train_fn, AdamW and CompressConfig(gamma=0.1) with error
-              feedback on SyntheticLMSource(seed=0), 3 steps of 4 × 4096 (the
+              feedback on SyntheticLMSource(seed=0), 2 steps of 4 × 4096 (the
               audio batch's frames as launch.train draws them), each as 2
               micro-batches of 2: every loss finite, K2 twice a step on its kernel
               path at (88,301 | 71,441 | 124,194, 16384), wire_floats = chunks
@@ -245,27 +245,65 @@ Phases, in order; any failure exits non-zero:
               5:1 local/global group; two ranks share the 80 GB), bf16,
               AdamW, CompressConfig(gamma=0.1) with error feedback, seq
               4096, a global batch of 4 (2 rows a rank as 2 micro-batches),
-              4 steps with a checkpoint after step 2. Gates: every loss
+              3 steps with a checkpoint after step 2. Gates: every loss
               finite; K2 on its kernel path twice a step on each rank; each
               step's exchange exactly chunks × m × 4 bytes (counted by the
               trainer, printed beside the dense 4·p); the launcher again,
               resuming at 2 ranks from step 2, bit-equal in losses and final
               parameters (their SHA-256); one process restored from the step-2
               checkpoint (the elastic path, 2 → 1: the ranks' mean
-              residual) continuing to step 4 with finite losses within 0.05
+              residual) continuing to step 3 with finite losses within 0.05
               of the 2 ranks'; peak memory under 35 GiB a rank. It prints s
               a step, tokens/s, the exchange's ms and bytes a step and the
               mask's share of a step (K2 at a rank's shape is phase 13's).
 
+17. moe — the moe family at full width in bf16, random weights from a seeded
+              torch.Generator: (a) qwen3-moe-235b-a22b cut to DEPTH17A = 4 of
+              94 layers (≈ 22.4 GB): prefill of 2 × 4096, 16 greedy decode
+              steps beside their byte bound (every expert's weights and the
+              cache read once over 3.35 TB/s); (b) kimi-k2-1t-a32b cut to its
+              dense layer and one MoE layer with its shared expert (≈ 39.8
+              GB): prefill of 1 × 4096, 8 decode steps. Gates for both:
+              phase 14's prefill-then-decode gate at TOL14 over 512 tokens at
+              capacity factor E/k, where no slot drops (at the config's 1.25
+              the forward over one more token drops that token's slots where
+              a bucket overflows, and a decode step never does); ServeEngine (bf16)
+              equal to one-by-one decoding; the first MoE layer on 64 float32
+              tokens, the card (TF32 off) against moe_apply_local on the CPU
+              on the same float32 weights (its first 16 experts), ids equal,
+              y and aux within 1e-5; peak under 70 GiB. Decode's byte bound
+              twice: every expert's weights read (what the reference's
+              einsum reads too), and only the experts a step routes to
+              (each layer's distinct ids in this run).
+              (c) qwen3-moe-235b-a22b trained at full width cut to 1 layer and
+              32 of its 128 experts (the trainer keeps ≈ 18 B a parameter),
+              CompressConfig(gamma=0.1) with error feedback, 3 steps of 2 ×
+              4096 as 2 micro-batches: finite losses, K2 twice a step on its
+              kernel path, wire_floats = chunks × m, the loss function's aux
+              in its loss, peak under 70 GiB. (d) moe_apply_ep on 2 gloo
+              ranks of the card (this script with --moe-worker, started
+              with the phase so that their start-up overlaps (a)–(c); they
+              wait for (c) to end), mesh (1, 2): qwen3-moe-235b-a22b at full width cut to 1 layer, each rank
+              with the whole tree and its 64 experts, lm_loss and its
+              backward over 1 × 4096 tokens at capacity factor 4, where
+              nothing drops (every expert's load fits the second grouping's
+              4096 slots), against the rank's own one-process run
+              (moe_apply_local at capacity factor E/k):
+              the loss within 1e-3 relative, aux 1e-5, the logits and the
+              rank's block of the expert gradients within 0.03 of their
+              largest entry (bf16 sums in other orders), zero outside the
+              block; the all-to-all's bytes a layer and its ms over gloo.
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
 or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's, 14's,
-15's and 16's paths' own),
+15's, 16's and 17's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -317,9 +355,10 @@ GROUP_ROWS, HTTP_ROWS, TEL_STEPS, QUERY_ROUNDS, TIMEOUT_S = 4 * BATCH, 256, 4, 2
 PATH11 = ("sketch_fused", "hd_precondition", "sparse_assign", "spmm", "spmm_t",
           "transpose_columns")
 # phase 12: rows a shard a step and steps of the dense sharded stream (cut
-# from 8 to 4 since phase 16 came, to keep the whole script inside its time);
-# the low-rank sharded path's rows a shard and steps
-B12, STEPS12, B12_LR, STEPS12_LR = 2048, 4, 1024, 4
+# from 8 to 4 since phase 16 came and to 2 since phase 17 came, to keep the
+# whole script inside its time); the low-rank sharded path's rows a shard
+# and steps (cut from 4 to 2 since phase 17 came)
+B12, STEPS12, B12_LR, STEPS12_LR = 2048, 2, 1024, 2
 # phase 13: gemma3-1b trained at full width: the config's train_4k sequence
 # length, a global batch of 8 sequences as ACCUM13 micro-batches, its steps and
 # the step after which it checkpoints, its peak-memory ceiling, AdamW's peak
@@ -359,8 +398,9 @@ TOL14 = 0.08
 # (train_4k's sequence) and GEN15 decode steps; zamba2's prompt of PROMPT15
 # tokens decoded token by token; ServeEngine over REQS15 requests of NEW15
 # new tokens in SLOTS15 slots of MAXLEN15, in float32 with TF32 off. The
-# training steps were cut from 4 to 3 since phase 16 came
-SEQ15, B15, STEPS15, PEAK15_GIB = 4096, 4, 3, 70.0
+# training steps were cut from 4 to 3 since phase 16 came and to 2 since
+# phase 17 came
+SEQ15, B15, STEPS15, PEAK15_GIB = 4096, 4, 2, 70.0
 ACCUM15 = {"mamba2-1.3b": 2, "zamba2-1.2b": 2, "seamless-m4t-large-v2": 2}
 CHUNKS15 = {"mamba2-1.3b": 88_301, "zamba2-1.2b": 71_441, "seamless-m4t-large-v2": 124_194}
 B15S, S15, GEN15, PROMPT15 = 4, 4096, 16, 64
@@ -372,8 +412,38 @@ SLOTS15, MAXLEN15, REQS15, NEW15 = 4, 64, 4, 8
 # steps with a checkpoint after CKPT16; a rank's peak-memory ceiling; how
 # far the one-process continuation from the checkpoint (2 → 1 ranks) may
 # stray from the 2 ranks' losses
-SEQ16, B16, ACCUM16, STEPS16, CKPT16, DEPTH16 = 4096, 4, 2, 4, 2, 6
+SEQ16, B16, ACCUM16, STEPS16, CKPT16, DEPTH16 = 4096, 4, 2, 3, 2, 6
 PEAK16_GIB, ELASTIC16 = 35.0, 0.05
+# phase 17: the moe family in bf16. (a) qwen3-moe-235b-a22b at full width cut
+# to DEPTH17A of its 94 layers, prefill of B17A × S17 then GEN17A decode
+# steps; (b) kimi-k2-1t-a32b cut to DEPTH17B of 61 (its dense layer and one
+# MoE layer), prefill of B17B × S17 then GEN17B steps; for both the
+# prefill-then-decode gate at TOL14 over GATE17 tokens at a capacity where no
+# slot drops, ServeEngine over REQS17 requests of
+# NEW17 new tokens in SLOTS17 slots of MAXLEN17 against one-by-one decoding,
+# and the first MoE layer on CPU17 float32 tokens on the card against
+# moe_apply_local on the CPU, within TOL17 of max |y|, with its first
+# CPU17_EXPERTS experts (and kimi's shared expert): a float32 copy of a whole
+# kimi layer is 68 GB of the host's 96 GiB, and the copy is the gate's cost. (c) qwen3-moe-235b-a22b
+# trained at full width but DEPTH17C layer and EXPERTS17C of its 128
+# experts, a global batch of B17C × S17 as ACCUM17C micro-batches, STEPS17C
+# steps, CompressConfig(gamma=0.1) with error feedback. (d) moe_apply_ep on
+# 2 gloo ranks of the card (this script with --moe-worker), mesh (1, 2):
+# qwen3-moe-235b-a22b at full width cut to DEPTH17D layer, lm_loss and its
+# backward over 1 × S17 tokens with nothing dropped — at capacity factor
+# CF17D_EP (a rank bucket holds all its tokens' slots from 2 on, the second
+# grouping 256·cf² slots an expert; the random router sends ≈ 3880 of the
+# 4096 tokens to one expert) — against the same rank's one-process
+# moe_apply_local run at capacity factor E/k (room for every token): the loss within
+# TOL17D_LOSS relative, the logits and each rank's block of the expert
+# gradients within TOL17D of their largest entry (bf16 sums in other orders)
+S17, GATE17, PEAK17_GIB = 4096, 512, 70.0
+DEPTH17A, B17A, GEN17A = 4, 2, 16
+DEPTH17B, B17B, GEN17B = 2, 1, 8
+SLOTS17, MAXLEN17, REQS17, NEW17 = 4, 48, 4, 4
+CPU17, CPU17_EXPERTS, TOL17 = 64, 16, 1e-5
+DEPTH17C, EXPERTS17C, B17C, ACCUM17C, STEPS17C = 1, 32, 2, 2, 3
+DEPTH17D, CF17D_EP, TOL17D, TOL17D_LOSS, A2A17_REPS = 1, 4.0, 0.03, 1e-3, 3
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -1047,7 +1117,7 @@ def phase12_sharded(card: str, x8) -> dict[str, int]:
     src.cache.clear()
     torch.cuda.empty_cache()
 
-    # (c) the sharded low-rank path at p = 65536, l = 128, 4 steps, at one rank
+    # (c) the sharded low-rank path at p = 65536, l = 128, STEPS12_LR steps, at one rank
     lr_plan = api.Plan(backend="stream", gamma=GAMMA, batch_size=B12_LR, n_shards=2,
                        cov_path="lowrank", rank=ELL)
     src_lr = _Memo(VectorStreamSource(p=P_LR, batch=B12_LR, seed=0))
@@ -1861,6 +1931,89 @@ def report_decode(label: str, b: int, times, state, params, card: str) -> tuple[
     return ms, bound_ms
 
 
+def serve_gate(label: str, lm, params, tokens, nxt, kw: dict, cache_dtype, card: str) -> None:
+    """prefill(S) then one decode_step against forward over S + 1 tokens:
+    within TOL14 of max |logit|, argmax equal where the top-2 margin exceeds
+    TOL14·max |logit|. ``kw``: the vlm inputs over S + 1."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    S = tokens.shape[1]
+    short = {k: (v[:, :, :S] if k == "positions" else v) for k, v in kw.items()}
+    logits, cache = lm.prefill_fn(params, {"tokens": tokens, **short}, cache_dtype=cache_dtype)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1)) for k, v in cache.items()}
+    dec, cache = lm.decode_fn(params, nxt, cache, S + 1)
+    del cache
+    q_chunk = max(d for d in range(1, 513) if (S + 1) % d == 0)
+    with torch.inference_mode():
+        full, _ = tr.forward(params, torch.cat([tokens, nxt], 1), lm.cfg, q_chunk=q_chunk,
+                             kv_chunk=S + 1, **kw)
+    errs = []
+    for got, want in ((logits, full[:, S - 1]), (dec, full[:, S])):
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max())
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > TOL14 * scale
+        same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
+        errs.append((float((got - want).abs().max()) / scale, int(clear.sum()), same))
+    del full
+    print(f"  {label} gate at {S} tokens: prefill's logits against forward's row {S - 1}: "
+          f"{errs[0][0]:.4f} of max |logit|; prefill then decode_step against forward over "
+          f"{S + 1} tokens (q_chunk {q_chunk}): {errs[1][0]:.4f} (≤ {TOL14}); argmax equal in "
+          f"the {errs[0][1]} and {errs[1][1]} of {tokens.shape[0]} rows whose top-2 margin "
+          f"exceeds it: {errs[0][2] and errs[1][2]}; {card}", flush=True)
+    check(all(e <= TOL14 and same for e, _, same in errs),
+          f"{label}: prefill then decode_step differs from forward beyond {TOL14}")
+
+
+def engine_gate(label: str, lm, params, prompts, slots: int, max_len: int, new: int,
+                card: str) -> None:
+    """ServeEngine(n_slots=slots, max_len=max_len) over ``prompts`` with
+    max_new=new, each request's tokens against its one-by-one greedy
+    decoding: alone in its slot of its wave, with the wave's right-aligned
+    padding and the other slots' prompts all zeros (the engine's shapes, so
+    a row's arithmetic is the engine's)."""
+    import torch
+
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = params["embed"].device
+    eng = ServeEngine(lm, params, n_slots=slots, max_len=max_len)
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=pr, max_new=new))
+    done, dt = timed(eng.run)
+    n_out = sum(len(r.out) for r in done)
+    seq_ok, t_seq = [], time.perf_counter()
+    for w0 in range(0, len(prompts), slots):
+        wave = prompts[w0:w0 + slots]
+        plen = max(len(pr) for pr in wave)
+        for s, pr in enumerate(wave):
+            toks = np.zeros((slots, plen), np.int32)
+            toks[s, plen - len(pr):] = pr
+            toks = torch.from_numpy(toks).to(dev)
+            cache = lm.init_decode_state(slots, max_len)
+            for t in range(plen):
+                logits, cache = lm.decode_fn(params, toks[:, t:t + 1], cache, t + 1)
+            outs = [int(torch.argmax(logits[s]))]
+            for k in range(new - 1):
+                cur = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+                cur[s, 0] = outs[-1]
+                logits, cache = lm.decode_fn(params, cur, cache, plen + k + 2)
+                outs.append(int(torch.argmax(logits[s])))
+            seq_ok.append(outs == done[w0 + s].out)
+            del cache
+    t_seq = time.perf_counter() - t_seq
+    print(f"  {label} ServeEngine(n_slots={slots}, max_len={max_len}): {len(prompts)} requests of "
+          f"{[len(p) for p in prompts]} prompt tokens, max_new={new}, in "
+          f"{-(-len(prompts) // slots)} waves: {n_out} tokens in {dt:.2f} s ({n_out / dt:,.1f} "
+          f"tokens/s); each request equal to its one-by-one greedy decoding (first token at "
+          f"cur_len = plen + 2, caveat R5): {seq_ok} ({t_seq:.1f} s); {card}", flush=True)
+    check(len(done) == len(prompts) and all(r.done and len(r.out) == new for r in done),
+          f"{label}: the engine did not finish every request")
+    check(all(seq_ok), f"{label}: the engine's tokens differ from one-by-one decoding")
+
+
 def phase14_serve(card: str) -> dict[str, int]:
     """Phase 14 (module docstring): LM serving at full width. Returns the
     kernels' launches over the phase (the repo's kernels serve no model)."""
@@ -1869,11 +2022,9 @@ def phase14_serve(card: str) -> dict[str, int]:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as tr
     from repro_torch.models.api import get_api
-    from repro_torch.serve import Request, ServeEngine
     from repro_torch.utils import prng
-    from repro_torch.utils.tree import tree_leaves, tree_size_bytes
+    from repro_torch.utils.tree import tree_size_bytes
 
     gib = lambda b: b / 2**30  # noqa: E731
     dev = torch.device("cuda")
@@ -1885,37 +2036,6 @@ def phase14_serve(card: str) -> dict[str, int]:
 
     def finite(t, what):
         check(bool(torch.isfinite(t).all()), f"{what}: a logit is not finite")
-
-    def gate(label, lm, params, tokens, nxt, kw, cache_dtype):
-        """prefill(S) then one decode_step against forward over S + 1 tokens:
-        within TOL14 of max |logit|, argmax equal where the top-2 margin
-        exceeds TOL14·max |logit|. ``kw``: the vlm inputs over S + 1."""
-        S = tokens.shape[1]
-        short = {k: (v[:, :, :S] if k == "positions" else v) for k, v in kw.items()}
-        logits, cache = lm.prefill_fn(params, {"tokens": tokens, **short}, cache_dtype=cache_dtype)
-        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1)) for k, v in cache.items()}
-        dec, cache = lm.decode_fn(params, nxt, cache, S + 1)
-        del cache
-        q_chunk = max(d for d in range(1, 513) if (S + 1) % d == 0)
-        with torch.inference_mode():
-            full, _ = tr.forward(params, torch.cat([tokens, nxt], 1), lm.cfg, q_chunk=q_chunk,
-                                 kv_chunk=S + 1, **kw)
-        errs = []
-        for got, want in ((logits, full[:, S - 1]), (dec, full[:, S])):
-            got, want = got.float(), want.float()
-            scale = float(want.abs().max())
-            top2 = torch.topk(want, 2, dim=-1).values
-            clear = (top2[:, 0] - top2[:, 1]) > TOL14 * scale
-            same = bool((torch.argmax(got, -1) == torch.argmax(want, -1))[clear].all())
-            errs.append((float((got - want).abs().max()) / scale, int(clear.sum()), same))
-        del full
-        print(f"  {label} gate at {S} tokens: prefill's logits against forward's row {S - 1}: "
-              f"{errs[0][0]:.4f} of max |logit|; prefill then decode_step against forward over "
-              f"{S + 1} tokens (q_chunk {q_chunk}): {errs[1][0]:.4f} (≤ {TOL14}); argmax equal in "
-              f"the {errs[0][1]} and {errs[1][1]} of {tokens.shape[0]} rows whose top-2 margin "
-              f"exceeds it: {errs[0][2] and errs[1][2]}; {card}", flush=True)
-        check(all(e <= TOL14 and same for e, _, same in errs),
-              f"{label}: prefill then decode_step differs from forward beyond {TOL14}")
 
     def peak_gate(label):
         peak = torch.cuda.max_memory_allocated()
@@ -1941,8 +2061,8 @@ def phase14_serve(card: str) -> dict[str, int]:
     report_decode(f"(a) {cfg.name} at a {S14A + GEN14A:,}-long float32 cache, batch {B14A}",
                   B14A, times, cache, params, card)
     del cache, logits
-    gate(f"(a) {cfg.name}", lm, params, prompt[:, :GATE14], prompt[:, GATE14:GATE14 + 1], {},
-         torch.float32)
+    serve_gate(f"(a) {cfg.name}", lm, params, prompt[:, :GATE14], prompt[:, GATE14:GATE14 + 1], {},
+               torch.float32, card)
     peak_gate("(a)")
 
     # (b) decode_32k's cache length: a bf16 cache of 32 × 32768 filled from a
@@ -1977,45 +2097,11 @@ def phase14_serve(card: str) -> dict[str, int]:
     rng = np.random.default_rng(14)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(8, 65, REQS14)]
-    eng = ServeEngine(lm32, params, n_slots=SLOTS14, max_len=MAXLEN14)
-    for i, pr in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=pr, max_new=NEW14))
-    done, dt = timed(eng.run)
-    n_out = sum(len(r.out) for r in done)
-    # each request decoded alone, in its slot of its wave with the wave's
-    # right-aligned padding and the other slots' prompts all zeros: the same
-    # shapes as the engine's, so a row's float32 arithmetic is the same
-    seq_ok, t_seq = [], time.perf_counter()
-    for w0 in range(0, REQS14, SLOTS14):
-        wave = prompts[w0:w0 + SLOTS14]
-        plen = max(len(pr) for pr in wave)
-        for s, pr in enumerate(wave):
-            toks = np.zeros((SLOTS14, plen), np.int32)
-            toks[s, plen - len(pr):] = pr
-            toks = torch.from_numpy(toks).to(dev)
-            cache = lm32.init_decode_state(SLOTS14, MAXLEN14)
-            for t in range(plen):
-                logits, cache = lm32.decode_fn(params, toks[:, t:t + 1], cache, t + 1)
-            outs = [int(torch.argmax(logits[s]))]
-            for k in range(NEW14 - 1):
-                cur = torch.zeros((SLOTS14, 1), dtype=torch.int32, device=dev)
-                cur[s, 0] = outs[-1]
-                logits, cache = lm32.decode_fn(params, cur, cache, plen + k + 2)
-                outs.append(int(torch.argmax(logits[s])))
-            seq_ok.append(outs == done[w0 + s].out)
-    t_seq = time.perf_counter() - t_seq
+    engine_gate(f"(e) {cfg.name} in float32, TF32 off,", lm32, params, prompts, SLOTS14, MAXLEN14,
+                NEW14, card)
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-    print(f"  (e) ServeEngine({cfg.name} in float32, TF32 off, n_slots={SLOTS14}, "
-          f"max_len={MAXLEN14}): {REQS14} requests of {[len(p) for p in prompts]} prompt tokens, "
-          f"max_new={NEW14}, in {-(-REQS14 // SLOTS14)} waves: {n_out} tokens in {dt:.2f} s "
-          f"({n_out / dt:,.1f} tokens/s); each request equal to its one-by-one greedy decoding "
-          f"(first token at cur_len = plen + 2, caveat R5): {seq_ok} ({t_seq:.1f} s); {card}",
-          flush=True)
-    check(len(done) == REQS14 and all(r.done and len(r.out) == NEW14 for r in done),
-          "the engine did not finish every request")
-    check(all(seq_ok), "the engine's tokens differ from one-by-one decoding")
     peak_gate("(e)")
-    del params, eng, cache, logits
+    del params
 
     # (c) glm4-9b: prefill at train_4k's sequence, batch 8, then 32 steps
     torch.cuda.empty_cache()
@@ -2036,7 +2122,7 @@ def phase14_serve(card: str) -> dict[str, int]:
     report_decode(f"(c) {cfg.name} at a {S14C + GEN14C:,}-long bf16 cache, batch {B14C}", B14C,
                   times, cache, params, card)
     del cache, logits
-    gate(f"(c) {cfg.name}", lm, params, prompt, nxt, {}, torch.bfloat16)
+    serve_gate(f"(c) {cfg.name}", lm, params, prompt, nxt, {}, torch.bfloat16, card)
     peak_gate("(c)")
     del params, prompt
 
@@ -2072,8 +2158,8 @@ def phase14_serve(card: str) -> dict[str, int]:
     report_decode(f"(d) {cfg.name} at a {S14D + GEN14D:,}-long bf16 cache, batch {B14D}", B14D,
                   times, cache, params, card)
     del cache, logits
-    gate(f"(d) {cfg.name}", lm, params, prompt, nxt, {"positions": pos, "vision_embeds": vis},
-         torch.bfloat16)
+    serve_gate(f"(d) {cfg.name}", lm, params, prompt, nxt, {"positions": pos, "vision_embeds": vis},
+               torch.bfloat16, card)
     peak_gate("(d)")
     del params, prompt, vis, pos, batch
     torch.cuda.empty_cache()
@@ -2119,7 +2205,6 @@ def phase15_families(card: str) -> dict[str, int]:
     from repro_torch.models import encdec, hybrid, mamba_lm
     from repro_torch.models.api import get_api
     from repro_torch.models.transformer import NO_DIST
-    from repro_torch.serve import Request, ServeEngine
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
     from repro_torch.utils import prng
@@ -2365,35 +2450,9 @@ def phase15_families(card: str) -> dict[str, int]:
         prompts = [rng.integers(0, lm32.cfg.vocab_size, int(n)).astype(np.int32)
                    for n in rng.integers(8, 25, REQS15)]
         params = lm32.init_params(0)
-        eng = ServeEngine(lm32, params, n_slots=SLOTS15, max_len=MAXLEN15)
-        for i, pr in enumerate(prompts):
-            eng.submit(Request(rid=i, prompt=pr, max_new=NEW15))
-        done, dt = timed(eng.run)
-        n_out = sum(len(r.out) for r in done)
-        plen = max(len(pr) for pr in prompts)
-        seq_ok = []
-        for s_, pr in enumerate(prompts):
-            toks = np.zeros((SLOTS15, plen), np.int32)
-            toks[s_, plen - len(pr):] = pr
-            toks = torch.from_numpy(toks).to(dev)
-            state = lm32.init_decode_state(SLOTS15, MAXLEN15)
-            for t in range(plen):
-                logits, state = lm32.decode_fn(params, toks[:, t:t + 1], state, t + 1)
-            outs = [int(torch.argmax(logits[s_]))]
-            for k in range(NEW15 - 1):
-                cur = torch.zeros((SLOTS15, 1), dtype=torch.int32, device=dev)
-                cur[s_, 0] = outs[-1]
-                logits, state = lm32.decode_fn(params, cur, state, plen + k + 2)
-                outs.append(int(torch.argmax(logits[s_])))
-            seq_ok.append(outs == done[s_].out)
-        print(f"  (d) ServeEngine({arch} in float32, TF32 off, n_slots={SLOTS15}, "
-              f"max_len={MAXLEN15}): {REQS15} requests of {[len(p) for p in prompts]} prompt "
-              f"tokens, max_new={NEW15}: {n_out} tokens in {dt:.2f} s ({n_out / dt:,.1f} tokens/s); "
-              f"each equal to its one-by-one greedy decoding: {seq_ok}; {card}", flush=True)
-        check(len(done) == REQS15 and all(r.done and len(r.out) == NEW15 for r in done),
-              f"{arch}: the engine did not finish every request")
-        check(all(seq_ok), f"{arch}: the engine's tokens differ from one-by-one decoding")
-        del params, eng, state, logits
+        engine_gate(f"(d) {arch} in float32, TF32 off,", lm32, params, prompts, SLOTS15, MAXLEN15,
+                    NEW15, card)
+        del params
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     torch.cuda.empty_cache()
     print(f"  K2 at the gradients' shapes (rows, ms, bound ms): {k2_15}; {card}")
@@ -2554,6 +2613,478 @@ def phase16_dp_train(card: str) -> dict[str, int]:
     print(f"  launches in phase 16 (both ranks' uninterrupted run): {launches16}")
     print(f"  phase 16: {time.perf_counter() - t16:.1f} s; {card}", flush=True)
     return launches16
+
+
+def _moe_layer_gate(label: str, moe_p: dict, n_experts: int, cfg, card: str) -> None:
+    """An MoE layer's FFN (``moe_p``, on the card; its first ``n_experts``
+    experts) on CPU17 seeded float32 tokens: moe_apply_local on the card in
+    float32 (TF32 off) against the CPU's on the same float32 weights —
+    routed ids equal, y and aux within TOL17 of their largest value."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    sub = {"router": moe_p["router"][:, :n_experts],
+           **{w: moe_p[w][:n_experts] for w in ("w_gate", "w_up", "w_down")}}
+    if "shared" in moe_p:
+        sub["shared"] = moe_p["shared"]
+    host = tree_map(lambda t: t.to("cpu").float(), sub)
+    card32 = tree_map(lambda t: t.float(), sub)
+    x = torch.randn((CPU17, cfg.d_model), generator=torch.Generator().manual_seed(17))
+    k, cf = cfg.experts_per_token, cfg.capacity_factor
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        ids_c = moe_mod.route(card32["router"], x.cuda(), k)[0].cpu()
+        y_c, aux_c = moe_mod.moe_apply_local(card32, x.cuda(), k, cf)
+        ids_h = moe_mod.route(host["router"], x, k)[0]
+        y_h, aux_h = moe_mod.moe_apply_local(host, x, k, cf)
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    err = float((y_c.cpu() - y_h).abs().max() / y_h.abs().max())
+    err_aux = abs(float(aux_c) - float(aux_h)) / abs(float(aux_h))
+    cap = moe_mod.capacity(CPU17, k, n_experts, cf)
+    drops = int(torch.clamp(torch.bincount(ids_h.reshape(-1), minlength=n_experts) - cap,
+                            min=0).sum())
+    same = torch.equal(ids_c, ids_h)
+    print(f"  {label} first MoE layer ({n_experts} experts{' + shared' if 'shared' in sub else ''}, "
+          f"top-{k}, capacity {cap}: {drops} of {CPU17 * k} slots dropped) on {CPU17} float32 tokens, "
+          f"the card (TF32 off) against moe_apply_local on the CPU: ids equal {same}, y "
+          f"{err:.3g} of max |y|, aux {err_aux:.3g} relative (≤ {TOL17}); "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    check(same and err <= TOL17 and err_aux <= TOL17,
+          f"{label}: the MoE layer on the card differs from moe_apply_local on the CPU")
+    del host, card32
+
+
+def _serve_moe(label: str, arch: str, depth: int, batch: int, gen: int, seed: int,
+               card: str) -> tuple[float, float, float]:
+    """Phase 17 (a)/(b): ``arch`` at full width cut to ``depth`` layers, in
+    bf16 — prefill of ``batch`` × S17, ``gen`` greedy decode steps timed
+    beside their byte bound, the prefill-then-decode gate, ServeEngine
+    against one-by-one decoding and the first MoE layer against the CPU.
+    Returns (prefill tokens/s, decode ms a step, its bound ms)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.api import get_api
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_count_params, tree_map, tree_size_bytes
+
+    gib = lambda b: b / 2**30  # noqa: E731
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    lm = get_api(cfg)
+    params, dt_init = timed(lambda: lm.init_params(0))
+    prompt = prng.randint(prng.PRNGKey(seed), (batch, S17), 0, cfg.vocab_size, device="cuda")
+    (logits, cache), dt = timed(lambda: lm.prefill_fn(params, {"tokens": prompt}))
+    check(bool(torch.isfinite(logits).all()), f"{label} prefill: a logit is not finite")
+    tps = batch * S17 / dt
+    print(f"  {label} {cfg.name} at full width, {depth} of its {full.n_layers} layers "
+          f"({cfg.first_k_dense} dense; {cfg.n_experts} experts of d_ff {cfg.moe_d_ff}, top-"
+          f"{cfg.experts_per_token}, {cfg.n_shared_experts} shared; "
+          f"{tree_count_params(params):,} parameters, {tree_size_bytes(params) / 1e9:.2f} GB of "
+          f"{cfg.dtype} weights drawn in {dt_init:.1f} s): prefill of {batch} × {S17:,} tokens "
+          f"into a bf16 cache in {dt:.2f} s, {tps:,.0f} tokens/s; {card}", flush=True)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, gen)) for k, v in cache.items()}
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    # each MoE layer's routed ids, a step's layers in order (kept, not read,
+    # while the steps run: no sync is added)
+    routed, route = [], moe_mod.route
+
+    def logged(*args):
+        routed.append(route(*args))
+        return routed[-1]
+
+    moe_mod.route = logged
+    try:
+        _, times = decode_greedy(lm, params, cache, nxt, S17 + 1, gen, label)
+    finally:
+        moe_mod.route = route
+    ms, bound_ms = report_decode(f"{label} {cfg.name} at a {S17 + gen:,}-long bf16 cache, batch "
+                                 f"{batch} (every expert's weights read)", batch, times, cache,
+                                 params, card)
+    routed_ms = _routed_bound(label, cfg, params, cache, [r[0] for r in routed], batch, gen, ms,
+                              bound_ms, card)
+    del cache, logits, routed
+    # prefill then decode against forward over one more token: the forward's
+    # capacity is its own token count's, so where a bucket overflows it drops
+    # the last token's slots first, which a decode step (cap 8 ≥ B) never
+    # does; at capacity factor E/k no slot can drop
+    nodrop = get_api(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token))
+    serve_gate(f"{label} {cfg.name} at capacity factor {nodrop.cfg.capacity_factor:g}", nodrop,
+               params, prompt[:, :GATE17], prompt[:, GATE17:GATE17 + 1], {}, torch.bfloat16, card)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(8, 33, REQS17)]
+    engine_gate(f"{label} {cfg.name} in bf16,", lm, params, prompts, SLOTS17, MAXLEN17, NEW17, card)
+    _moe_layer_gate(label, tree_map(lambda t: t[0], params["layers"]["moe"]),
+                    min(cfg.n_experts, CPU17_EXPERTS), cfg, card)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label}: peak memory {gib(peak):.2f} GiB (< {PEAK17_GIB}); {card}", flush=True)
+    check(peak < PEAK17_GIB * 2**30, f"{label}: peak memory {gib(peak):.2f} GiB")
+    del params, prompt
+    torch.cuda.empty_cache()
+    return tps, ms, bound_ms, routed_ms
+
+
+def _routed_bound(label: str, cfg, params, cache, routed, batch: int, gen: int, ms: float,
+                  bound_ms: float, card: str) -> float:
+    """Decode's byte bound from the experts its steps route to: the cache and
+    the weights a step reads once, less each MoE layer's experts that none
+    of the step's tokens chose (``routed``: every layer's ids, step by
+    step); the median over the steps, in ms."""
+    import torch
+
+    from repro_torch.utils.tree import tree_size_bytes
+
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    check(len(routed) == gen * n_moe, f"{label}: {len(routed)} routings in {gen} decode steps")
+    moe_w = params["layers"]["moe"]
+    b_expert = sum(moe_w[w][0, 0].numel() * moe_w[w].element_size()
+                   for w in ("w_gate", "w_up", "w_down"))
+    distinct = [int(torch.unique(ids).numel()) for ids in routed]
+    full = tree_size_bytes(cache) + weights_read(params)
+    bounds = [(full - (cfg.n_experts * n_moe - sum(distinct[t * n_moe:(t + 1) * n_moe]))
+               * b_expert) / PEAK_BYTES_PER_S * 1e3 for t in range(gen)]
+    routed_ms = float(np.median(bounds))
+    print(f"  {label} the experts a decode step routes to: {np.mean(distinct):.2f} distinct of "
+          f"{cfg.n_experts} a layer (mean over {gen} steps × {n_moe} MoE layers; at most B·k = "
+          f"{batch * cfg.experts_per_token}), {b_expert / 1e6:.2f} MB an expert; byte bound "
+          f"reading only those {routed_ms:.3f} ms (median over the steps), {routed_ms / ms:.3f} "
+          f"of the step's {ms:.2f} ms (reading every expert: {bound_ms:.3f} ms, "
+          f"{bound_ms / ms:.3f}); {card}", flush=True)
+    return routed_ms
+
+
+def _moe_worker(argv) -> None:
+    """``python3 chip_smoke.py --moe-worker --coordinator HOST:PORT --out DIR
+    [--dist-backend gloo|nccl] --process-id R``: rank R of phase 17 (d)'s
+    two ranks (gloo: both on the one card; nccl: card R). Once its group is
+    up it warms up on the reduced config and waits for the file DIR/go
+    (DIR/stop: it leaves). It runs lm_loss
+    and its backward with expert parallelism over make_host_mesh(1, 2),
+    then the same on its own (moe_apply_local), and writes the errors, times
+    and all-to-all figures to DIR/rank{R}.json."""
+    import argparse
+
+    t_start = time.perf_counter()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--moe-worker", action="store_true")
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--dist-backend", default="gloo", choices=("gloo", "nccl"))
+    ap.add_argument("--process-id", type=int, required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch import cluster
+    from repro_torch.cluster.bootstrap import axis_group
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.api import get_api
+    from repro_torch.train.trainer import make_dist
+    from repro_torch.utils.host import on_device
+    from repro_torch.utils.tree import tree_leaves
+
+    cluster.initialize(args.coordinator, 2, args.process_id, backend=args.dist_backend,
+                       device="cuda")
+    mesh = make_host_mesh(1, 2)
+    # a process's first forward+backward carries its one-time costs (≈ 10 s
+    # on the card): the reduced config's in bf16, with EP and alone, takes
+    # them before the wait, so the timed runs below are warm
+    t_ready = time.perf_counter()
+    warm_cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b", reduced=True),
+                                   dtype="bfloat16")
+    warm = get_api(warm_cfg)
+    warm_p = warm.init_params(0)
+    warm_b = {k: on_device(v, "cuda") for k, v in
+              SyntheticLMSource(warm_cfg.vocab_size, 64, 2, seed=0).batch_for(0).items()}
+    warm_leaves = [leaf.requires_grad_(True) for leaf in tree_leaves(warm_p)]
+    for d in (make_dist(mesh, warm_cfg), tr.NO_DIST):
+        torch.autograd.grad(warm.loss_fn(warm_p, warm_b, d, q_chunk=32, kv_chunk=32)[0],
+                            warm_leaves)
+    torch.cuda.synchronize()
+    del warm_p, warm_b, warm_leaves
+    torch.cuda.empty_cache()
+    t_warm = time.perf_counter()
+    while not os.path.exists(os.path.join(args.out, "go")):
+        if os.path.exists(os.path.join(args.out, "stop")):
+            cluster.shutdown()
+            return
+        time.sleep(0.05)
+    t_go = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"), n_layers=DEPTH17D,
+                              capacity_factor=CF17D_EP)
+    lm = get_api(cfg)
+    lm_1 = get_api(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token))
+    params = lm.init_params(0)                 # the same seeded draw on each rank
+    batch = {k: on_device(v, "cuda")
+             for k, v in SyntheticLMSource(cfg.vocab_size, S17, 1, seed=0).batch_for(0).items()}
+    ep = axis_group(mesh, ("model",))
+    moe_p = params["layers"]["moe"]
+    leaves = [moe_p["w_gate"], moe_p["w_up"], moe_p["w_down"]]
+
+    e_loc = cfg.n_experts // ep.size
+    lo, hi = ep.index * e_loc, (ep.index + 1) * e_loc
+
+    def run(d):
+        """(loss, aux, the rank's block of each expert leaf's gradient,
+        whether the gradient is zero outside it, the logits, s)."""
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = lm if d.mesh is not None else lm_1
+        loss, met = model.loss_fn(params, batch, d, q_chunk=Q13, kv_chunk=KV13)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        blocks = [g[:, lo:hi].clone() for g in grads]
+        outside = not any(bool(g[:, :lo].any() or g[:, hi:].any()) for g in grads)
+        del grads
+        with torch.no_grad():
+            logits, _ = tr.forward(params, batch["tokens"], model.cfg, d, q_chunk=Q13,
+                                   kv_chunk=KV13)
+        return float(loss.detach()), float(met["aux"]), blocks, outside, logits, dt
+
+    torch.cuda.reset_peak_memory_stats()
+    loss_ep, aux_ep, g_ep, outside, logits_ep, t_ep = run(make_dist(mesh, cfg))
+    # then the one-process run (moe_apply_local at capacity factor E/k), each
+    # layer's largest expert load counted, one rank at a time: their peaks
+    # would add up
+    loads, local = [], moe_mod.moe_apply_local
+
+    def counted(p, x, k, cf, stats=None):
+        ids = moe_mod.route(p["router"], x, k)[0]
+        e = p["router"].shape[1]
+        loads.append((int(torch.bincount(ids.reshape(-1), minlength=e).max()),
+                      moe_mod.capacity(x.shape[0], k, e, cf)))
+        return local(p, x, k, cf, stats)
+
+    moe_mod.moe_apply_local = counted
+    for r in range(ep.size):
+        if r == ep.index:
+            loss_1, aux_1, g_1, _, logits_1, t_1 = run(tr.NO_DIST)
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    moe_mod.moe_apply_local = local
+    # the second grouping's capacity, which every expert's load must fit
+    tl = S17 // ep.size
+    cap_s = moe_mod.capacity(tl, cfg.experts_per_token, ep.size, cfg.capacity_factor)
+    cap_e = moe_mod.capacity(ep.size * cap_s, 1, e_loc, cfg.capacity_factor)
+    errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            for a, b in zip(g_ep, g_1)]
+    scale = float(logits_1.abs().max())
+    err_logits = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(logits_ep.split(512, 1), logits_1.split(512, 1))) / scale
+    # the all-to-all of a layer's dispatch: its buffer, timed over gloo
+    send = torch.randn((ep.size, cap_s, cfg.d_model), device="cuda").to(torch.bfloat16)
+    meta = torch.zeros((ep.size, cap_s, 2), device="cuda")
+    times = {}
+    for name, buf in (("x", send), ("meta", meta)):
+        ts = []
+        for _ in range(A2A17_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moe_mod._a2a(buf, ep.group)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[name] = min(ts) * 1e3
+    out = dict(rank=args.process_id, index=ep.index, loss_ep=loss_ep, loss_1=loss_1, aux_ep=aux_ep,
+               aux_1=aux_1, err_logits=err_logits, err_grads=errs, zero_outside=outside,
+               finite=bool(torch.isfinite(logits_ep).all()), t_ep=t_ep, t_1=t_1, loads=loads,
+               cap_s=cap_s, cap_e=cap_e, bytes_x=send.numel() * send.element_size(),
+               bytes_meta=meta.numel() * meta.element_size(), ms_x=times["x"],
+               ms_meta=times["meta"], peak=torch.cuda.max_memory_allocated(),
+               ready_s=t_ready - t_start, warm_s=t_warm - t_ready, waited_s=t_go - t_warm,
+               run_s=time.perf_counter() - t_go, backend=args.dist_backend)
+    with open(os.path.join(args.out, f"rank{args.process_id}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    cluster.shutdown()
+
+
+def phase17_moe(card: str) -> dict[str, int]:
+    """Phase 17 (module docstring): the moe family on the card. Returns the
+    kernels' launches on (c)'s training run, read just after its reset."""
+    t17 = time.perf_counter()
+    print(f"== 17 moe: qwen3-moe-235b-a22b and kimi-k2-1t-a32b served at full width in bf16 "
+          f"(random weights from torch.Generator(seed 0); logit tolerance {TOL14} of max |logit|), "
+          f"qwen3-moe-235b-a22b trained with CompressConfig(gamma=0.1), moe_apply_ep on 2 gloo "
+          f"ranks", flush=True)
+    ranks = start_ep_ranks()
+    try:
+        _serve_moe("(a)", "qwen3-moe-235b-a22b", DEPTH17A, B17A, GEN17A, 4, card)
+        _serve_moe("(b)", "kimi-k2-1t-a32b", DEPTH17B, B17B, GEN17B, 5, card)
+        launches17 = _train_moe(card)
+        _ep_moe(card, ranks)
+    finally:
+        stop_ep_ranks(ranks)
+    print(f"  phase 17: {time.perf_counter() - t17:.1f} s; {card}", flush=True)
+    return launches17
+
+
+def _train_moe(card: str) -> dict[str, int]:
+    """Phase 17 (c): qwen3-moe-235b-a22b trained with compression on one
+    card; the kernels' launches on its training run."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.grad_compress import CompressConfig
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_api
+    from repro_torch.models.transformer import NO_DIST
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
+    from repro_torch.utils import prng
+    from repro_torch.utils.host import on_device
+    from repro_torch.utils.tree import tree_count_params
+
+    gib = lambda b: b / 2**30  # noqa: E731
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=DEPTH17C, n_experts=EXPERTS17C)
+    model = get_api(cfg)
+    comp = CompressConfig(gamma=0.1)
+    tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=LR13, warmup_steps=1, total_steps=STEPS17C),
+                         accum_steps=ACCUM17C, compress=comp, q_chunk=Q13, kv_chunk=KV13)
+    state, dt_init = timed(lambda: init_state(model, tcfg, prng.PRNGKey(0), device="cuda"))
+    n = tree_count_params(state["params"])
+    nc = -(-n // comp.chunk_p)
+    fn = make_train_fn(model, tcfg, NO_DIST, prng.PRNGKey(0), device="cuda")
+    src = SyntheticLMSource(cfg.vocab_size, S17, B17C, seed=0)
+    print(f"  (c) {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of {cfg.hd}, experts of d_ff {cfg.moe_d_ff}, top-"
+          f"{cfg.experts_per_token}, vocab {cfg.vocab_size}) cut to {DEPTH17C} of {full.n_layers} "
+          f"layers and {EXPERTS17C} of {full.n_experts} experts: {n:,} {cfg.dtype} parameters, "
+          f"{nc:,} chunks of {comp.chunk_p} (m {comp.m}), state drawn in {dt_init:.1f} s; AdamW, "
+          f"error feedback; a global batch of {B17C} × {S17} as {ACCUM17C} micro-batches; "
+          f"{STEPS17C} steps; {card}", flush=True)
+    ops.reset_counts()
+    recs = []
+    for step in range(STEPS17C):
+        k2 = ops.DISPATCH[("hd_precondition", "kernel")]
+        (state, met), dt = timed(lambda: fn(state, src.batch_for(step)))
+        rec = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                   wire=float(met["wire_floats"]), s=dt,
+                   k2=ops.DISPATCH[("hd_precondition", "kernel")] - k2)
+        recs.append(rec)
+        print(f"  (c) step {step}: loss {rec['loss']!r}, grad_norm {rec['grad_norm']:.4f}, "
+              f"wire_floats {rec['wire']:,.0f}, {dt:.3f} s ({B17C * S17 / dt:,.0f} tokens/s), K2 "
+              f"launches {rec['k2']}; {card}", flush=True)
+    launches17 = ops.launch_counts()
+    # aux is not among a step's metrics under accumulation (the reference
+    # returns none there either): read it from the loss function's metrics
+    mb = {k: on_device(v[:B17C // ACCUM17C], "cuda") for k, v in src.batch_for(0).items()}
+    with torch.no_grad():
+        loss, m = model.loss_fn(state["params"], mb, NO_DIST, q_chunk=Q13, kv_chunk=KV13)
+    peak = torch.cuda.max_memory_allocated()
+    parts = float(m["nll"]) + cfg.router_aux_coef * float(m["aux"])
+    print(f"  (c) the loss function's metrics at the last state on a micro-batch of step 0: nll "
+          f"{float(m['nll'])!r}, aux {float(m['aux'])!r} (loss {float(loss)!r} = nll + "
+          f"{cfg.router_aux_coef}·aux: {parts!r}); s a step {[round(r['s'], 3) for r in recs]}; "
+          f"peak memory {gib(peak):.2f} GiB (< {PEAK17_GIB}); launches {launches17}; {card}",
+          flush=True)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs),
+          "(c): a loss is not finite")
+    check(all(r["k2"] == 2 for r in recs) and ("hd_precondition", "ref") not in ops.DISPATCH,
+          "(c): K2 did not launch twice a step on its kernel path")
+    check(all(r["wire"] == float(np.float32(nc * comp.m)) for r in recs),
+          f"(c): wire_floats is not {nc} × {comp.m}")
+    check(math.isfinite(float(m["aux"])) and float(m["aux"]) > 0
+          and abs(parts - float(loss)) <= 1e-5 * abs(float(loss)),
+          "(c): the loss function's aux metric is missing from its loss")
+    check(peak < PEAK17_GIB * 2**30, f"(c): peak memory {gib(peak):.2f} GiB")
+    del state, fn, mb
+    gc.collect()                       # a reference cycle can keep the state past del
+    torch.cuda.empty_cache()
+    return launches17
+
+
+def start_ep_ranks(backend: str = "gloo") -> dict:
+    """Phase 17 (d)'s two ranks (``_moe_worker``), started in a thread of
+    this process: they come up, join their group over ``backend`` and wait
+    for :func:`_ep_moe` (or :func:`stop_ep_ranks`)."""
+    import threading
+
+    from repro_torch.cluster.bootstrap import free_port, run_ranks
+
+    ranks = {"dir": tempfile.mkdtemp(prefix="moe17-"), "rc": None, "backend": backend}
+    cmd = [sys.executable, os.path.abspath(__file__), "--moe-worker", "--coordinator",
+           f"127.0.0.1:{free_port()}", "--out", ranks["dir"], "--dist-backend", backend]
+    ranks["thread"] = threading.Thread(target=lambda: ranks.update(rc=run_ranks(cmd, 2)))
+    ranks["thread"].start()
+    return ranks
+
+
+def stop_ep_ranks(ranks: dict) -> None:
+    """Let ranks that still wait leave, wait for them and remove their
+    directory."""
+    if not os.path.exists(os.path.join(ranks["dir"], "go")):
+        open(os.path.join(ranks["dir"], "stop"), "w").close()
+    ranks["thread"].join()
+    shutil.rmtree(ranks["dir"], ignore_errors=True)
+
+
+def _ep_moe(card: str, ranks: dict) -> None:
+    """Phase 17 (d): moe_apply_ep on the 2 ranks of :func:`start_ep_ranks`
+    (``_moe_worker``), released once this process has freed the card."""
+    import torch
+
+    gib = lambda b: b / 2**30  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (d) this process holds {gib(torch.cuda.memory_reserved()):.2f} GiB of the card "
+          f"({gib(torch.cuda.memory_allocated()):.2f} GiB allocated) while its 2 ranks run",
+          flush=True)
+    t0 = time.perf_counter()
+    open(os.path.join(ranks["dir"], "go"), "w").close()
+    ranks["thread"].join()
+    t_ranks = time.perf_counter() - t0
+    check(ranks["rc"] == 0, f"(d): a rank exited {ranks['rc']}")
+    outs = [json.load(open(os.path.join(ranks["dir"], f"rank{r}.json"))) for r in (0, 1)]
+    for r in outs:
+        err_loss = abs(r["loss_ep"] - r["loss_1"]) / abs(r["loss_1"])
+        err_aux = abs(r["aux_ep"] - r["aux_1"]) / abs(r["aux_1"])
+        print(f"  (d) rank {r['rank']} (experts {r['index'] * 64}–{r['index'] * 64 + 63}): "
+              f"lm_loss with expert parallelism {r['loss_ep']!r} against one process's "
+              f"{r['loss_1']!r} ({err_loss:.3g} relative, ≤ {TOL17D_LOSS}), aux {err_aux:.3g}; "
+              f"logits {r['err_logits']:.4f} of max |logit|, the rank's block of w_gate/w_up/"
+              f"w_down's gradients {[round(e, 5) for e in r['err_grads']]} of their largest "
+              f"(≤ {TOL17D}), zero outside it {r['zero_outside']}; the largest expert load of "
+              f"the {S17} tokens' slots and the one process's capacity (capacity factor "
+              f"E/k) {r['loads']}, EP's second grouping's capacity {r['cap_e']} (capacity factor "
+              f"{CF17D_EP}, its first {r['cap_s']}); forward+backward {r['t_ep']:.2f} s with EP, "
+              f"{r['t_1']:.2f} s alone; "
+              f"the dispatch's all-to-all of ({2}, {r['cap_s']}, 4096) bf16 over "
+              f"{r['backend']}, {r['bytes_x']:,} bytes a rank ({r['bytes_x'] // 2:,} cross), "
+              f"{r['ms_x']:.1f} ms; its metadata {r['bytes_meta']:,} bytes, {r['ms_meta']:.1f} ms "
+              f"(min of {A2A17_REPS}); peak {gib(r['peak']):.2f} GiB; up {r['ready_s']:.1f} s after "
+              f"its start, warmed up in {r['warm_s']:.1f} s, waited {r['waited_s']:.1f} s, "
+              f"ran {r['run_s']:.1f} s; {card}", flush=True)
+        check(r["finite"] and err_loss <= TOL17D_LOSS and err_aux <= 1e-5
+              and r["err_logits"] <= TOL17D and max(r["err_grads"]) <= TOL17D
+              and r["zero_outside"] and all(mx <= min(cap, r["cap_e"]) for mx, cap in r["loads"]),
+              f"(d): rank {r['rank']}'s expert-parallel run differs from one process's")
+    # the half of each buffer that leaves the rank: dispatch, metadata, return
+    a_layer = outs[0]["bytes_x"] + outs[0]["bytes_meta"] // 2
+    print(f"  (d) a layer's forward all-to-alls send {a_layer:,} bytes a rank to the other "
+          f"(dispatch, metadata, return; the backward and the recomputation as many again); the 2 "
+          f"ranks took {t_ranks:.1f} s after their release (their start overlapped (a)–(c)); "
+          f"{card}", flush=True)
 
 
 def main() -> None:
@@ -4024,6 +4555,9 @@ def main() -> None:
     # ------------------------------------------------------------ 16 dp-train
     launches16 = phase16_dp_train(card)
 
+    # ----------------------------------------------------------------- 17 moe
+    launches17 = phase17_moe(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -4044,7 +4578,8 @@ def main() -> None:
     later = {"9 resume": launches9, "10 refine": launches10_refine,
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
              "11 serve": launches11, "12 sharded": launches12, "13 train": launches13,
-             "14 lm-serve": launches14, "15 lm-families": launches15, "16 dp-train": launches16}
+             "14 lm-serve": launches14, "15 lm-families": launches15, "16 dp-train": launches16,
+             "17 moe": launches17}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],
@@ -4061,5 +4596,7 @@ def main() -> None:
 if __name__ == "__main__":
     if "--dp-worker" in sys.argv[1:]:
         _dp_worker(sys.argv[1:])
+    elif "--moe-worker" in sys.argv[1:]:
+        _moe_worker(sys.argv[1:])
     else:
         main()

@@ -15,12 +15,15 @@ the pieces for that on ``torch.distributed``:
    the shards a process owns and its block of a step's rows. The port's
    collectives (``stream.sharded.psum``) reduce each process's local block,
    so a process's block is what enters the reduction.
+4. :func:`axis_group` — the process group over some axes of a mesh (the
+   "model" axis of expert parallelism, ``models/moe.py``).
 
 Single-process calls are no-ops or identities, so code written against this
 module runs unchanged in one process.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import os
@@ -194,6 +197,69 @@ def make_mesh(shape, axis_names) -> Mesh:
                          "without a shard — raise n_shards or lower the process count")
     owners = [r for r, block in enumerate(contiguous_blocks(n, world)) for _ in block]
     return Mesh(shape, axis_names, owners, collective=dist.is_initialized())
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks that share this rank's coordinates on every axis of a mesh
+    but ``axes``: ``group`` (a ``torch.distributed`` group; None when the
+    ranks are this one alone), ``ranks`` in order of their flat index over
+    ``axes``, and this rank's ``index`` among them."""
+
+    group: object
+    ranks: tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+_AXIS_GROUPS: dict = {}
+
+
+def axis_group(mesh: Mesh, axes) -> AxisGroup:
+    """This rank's :class:`AxisGroup` over ``axes`` of ``mesh``, each rank
+    owning one position. Without a process group (or a mesh that does not
+    reduce over it) it is this process alone. The groups are made once a
+    (mesh, axes, default group): every rank creates all of them, one for
+    each set of coordinates on the other axes in row-major order, as
+    ``torch.distributed.new_group`` requires."""
+    axes = tuple(axes)
+    if not (mesh.collective and dist.is_initialized()):
+        return AxisGroup(None, (0,), 0)
+    world = dist.get_world_size()
+    if sorted(mesh.owners) != list(range(world)):
+        raise ValueError(f"{mesh} has positions that share a rank: a group over its axes "
+                         "needs one rank a position")
+    key = (mesh, axes, id(dist.group.WORLD))
+    if key not in _AXIS_GROUPS:
+        sizes = [mesh.shape[a] for a in mesh.axis_names]
+        coords = np.indices(sizes).reshape(len(sizes), -1).T      # row-major, one a position
+        keep = [i for i, a in enumerate(mesh.axis_names) if a not in axes]
+        along = [i for i, a in enumerate(mesh.axis_names) if a in axes]
+        blocks: dict = {}
+        for pos, c in enumerate(coords):
+            blocks.setdefault(tuple(c[keep]), []).append(
+                (int(np.ravel_multi_index(c[along], [sizes[i] for i in along])) if along else 0,
+                 mesh.owners[pos]))
+        me, mine = dist.get_rank(), None
+        for other in sorted(blocks):
+            ranks = tuple(r for _, r in sorted(blocks[other]))
+            if list(ranks) != sorted(ranks):
+                # a group's collectives order its members by rank
+                raise ValueError(f"{mesh}: the ranks along {axes} do not ascend with their "
+                                 "coordinates")
+            if len(ranks) == 1:
+                group = None
+            elif len(ranks) == world:
+                group = dist.group.WORLD
+            else:
+                group = dist.new_group(list(ranks))
+            if me in ranks:
+                mine = AxisGroup(group, ranks, ranks.index(me))
+        _AXIS_GROUPS[key] = mine
+    return _AXIS_GROUPS[key]
 
 
 def process_mesh(n_shards: int | None = None, axis: str = "data") -> Mesh:

@@ -12,7 +12,7 @@ prompt_len), 0, vocab)`` bit for bit (``prng.randint``); the weights come
 from a ``torch.Generator`` seeded with ``--seed`` (not the reference's
 draws). Per family, as the reference's branches:
 
-- dense, vlm: the prompt is prefilled into a float32 cache padded by
+- dense, moe, vlm: the prompt is prefilled into a float32 cache padded by
   ``--gen``, then decoded greedily, the generated token ``t`` at ``cur_len =
   prompt_len + t + 1``;
 - ssm, hybrid: the prompt is decoded token by token into
@@ -26,9 +26,11 @@ draws). Per family, as the reference's branches:
 
 ``--devices N`` is the reference's: it serves on one device all the same
 (the reference only forces N host devices); on the card it refuses more than
-the host's cards. The moe family raises ``NotImplementedError``.
+the host's cards.
 
     # on the CPU, the other families
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch qwen3-moe-235b-a22b \\
+        --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-1.3b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch seamless-m4t-large-v2 \\
         --reduced
@@ -83,7 +85,7 @@ def main(argv=None):
             cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
             toks.append(cur)
     else:
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "moe", "vlm"):
             logits, cache = api.prefill_fn(params, {"tokens": prompt}, cache_dtype=torch.float32,
                                            device=device)
             cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, args.gen))

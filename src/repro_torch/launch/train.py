@@ -35,11 +35,19 @@ its final parameters; with ``--time-exchange K`` also the exchange's and the
 mask's times. ``--no-final-ckpt`` writes only the ``--ckpt-every``
 checkpoints.
 
-The dense, vlm, ssm, hybrid and audio families run. A vlm batch carries the
-positions broadcast to the three M-RoPE streams and zero vision embeddings,
-an audio batch the frames ``0.1 · normal(fold_in(key, step), (B, S,
-d_model))`` in the config's dtype, both as the reference's do (the frames
-bit for bit, ``prng.normal``). The moe family raises ``NotImplementedError``.
+Every family runs (the moe family with its aux loss in the loss and
+``nll``/``aux`` among the metrics; its experts are replicated like every
+parameter, so ``--devices`` splits the batch, not the experts: the routers'
+load-balance statistics are averaged over the ranks, each bucket's
+capacity is a rank's block's). A vlm batch
+carries the positions broadcast to the three M-RoPE streams and zero vision
+embeddings, an audio batch the frames ``0.1 · normal(fold_in(key, step), (B,
+S, d_model))`` in the config's dtype, both as the reference's do (the frames
+bit for bit, ``prng.normal``).
+
+    # on the CPU, a smoke-scale kimi-k2-1t-a32b (a leading dense layer, MoE with a shared expert)
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch kimi-k2-1t-a32b \\
+        --reduced --steps 4 --grad-compress-gamma 0.1
 """
 from __future__ import annotations
 

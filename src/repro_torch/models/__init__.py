@@ -1,1 +1,2 @@
-"""The language models (the port of ``repro.models``): the dense family."""
+"""The language models (the port of ``repro.models``): the dense, moe, vlm,
+ssm, hybrid and audio families."""

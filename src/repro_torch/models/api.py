@@ -7,7 +7,8 @@ The serving calls take the reference's arguments plus ``device=`` (default
 their inputs there, ``init_decode_state`` allocates the cache or state
 there. Per family, as the reference's:
 
-- dense, vlm: ``prefill_fn`` gives (last-token logits, the KV cache);
+- dense, moe, vlm: ``prefill_fn`` gives (last-token logits, the KV cache;
+  with leading dense layers also theirs, ``pre_k``/``pre_v``);
 - ssm: ``prefill_fn`` gives (last-token logits, the stacked per-layer
   ``{"ssm", "conv"}`` states), from which ``decode_fn`` continues;
 - hybrid: ``prefill_fn`` gives (last-token logits, None): no prefill cache,
@@ -17,8 +18,9 @@ there. Per family, as the reference's:
   default) and ``init_decode_state`` is None.
 
 ``params_from_reference`` carries the reference's parameter tree of any
-ported family into the port (``params_to_reference`` back). The moe family
-is not ported yet: ``get_api`` raises ``not_ported``.
+family into the port (``params_to_reference`` back): the moe family's
+``pre_layers`` list and ``moe`` subtrees (a float32 router beside the
+experts in the config's dtype) too.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.models import encdec, hybrid, mamba_lm
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import params_to_reference, tree_from_reference  # noqa: F401
 from repro_torch.models.transformer import NO_DIST
-from repro_torch.utils.device import MOE_AND_TP, not_ported, resolve_device
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.host import on_device
 
 
@@ -46,8 +48,9 @@ class ModelAPI:
     init_decode_state: Callable[..., Any]   # (batch, max_len) -> cache
 
 
-# each ported family's module, which names its parameter tree's keys
-_FAMILY = {"dense": tr, "vlm": tr, "ssm": mamba_lm, "hybrid": hybrid, "audio": encdec}
+# the modules of the families that are not the transformer's, which name
+# their parameter tree's keys
+_FAMILY = {"ssm": mamba_lm, "hybrid": hybrid, "audio": encdec}
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
@@ -55,8 +58,8 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     numpy arrays, layers stacked; bfloat16 as ``ml_dtypes`` arrays or their
     2-byte words) as the port's tensors on ``device``: the port then
     computes what the reference computes."""
-    tr.check_supported(cfg)
-    return tree_from_reference(tree, _FAMILY[cfg.family].TREE_KEYS, cfg, device)
+    keys = _FAMILY[cfg.family].TREE_KEYS if cfg.family in _FAMILY else tr.tree_keys(cfg)
+    return tree_from_reference(tree, keys, cfg, device)
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
@@ -66,8 +69,6 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         return _hybrid_api(cfg)
     if cfg.family == "audio":
         return _audio_api(cfg)
-    if cfg.family not in ("dense", "vlm"):
-        raise not_ported(f"the {cfg.family} family", MOE_AND_TP)
 
     def loss_fn(params, batch, dist=NO_DIST, **kw):
         return tr.lm_loss(params, batch, cfg, dist, **kw)

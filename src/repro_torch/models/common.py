@@ -60,13 +60,20 @@ def unstack(layers: dict) -> list[dict]:
     return [tree_unflatten(layers, [u[i] for u in unbound]) for i in range(len(unbound[0]))]
 
 
-def run_blocks(block, x: torch.Tensor, lps, remat: bool, *args) -> torch.Tensor:
+def run_blocks(block, x: torch.Tensor, lps, remat: bool, *args,
+               aux: list | None = None) -> torch.Tensor:
     """x through ``block(x, lp, *args)`` for each layer's ``lp`` in turn, each
     recomputed in the backward pass when ``remat`` and autograd is on (the
-    reference's ``jax.checkpoint``)."""
+    reference's ``jax.checkpoint``). With ``aux`` a list, ``block`` returns
+    ``(x, a)`` and each layer's ``a`` is appended to it."""
     remat = remat and torch.is_grad_enabled()
     for lp in lps:
-        x = checkpoint(block, x, lp, *args, use_reentrant=False) if remat else block(x, lp, *args)
+        out = checkpoint(block, x, lp, *args, use_reentrant=False) if remat else block(x, lp, *args)
+        if aux is None:
+            x = out
+        else:
+            x, a = out
+            aux.append(a)
     return x
 
 

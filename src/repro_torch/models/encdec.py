@@ -35,7 +35,7 @@ from repro_torch.models.common import (
     truncated_normal_init,
     unstack,
 )
-from repro_torch.models.transformer import NO_DIST, Dist, check_supported, generator
+from repro_torch.models.transformer import NO_DIST, Dist, generator
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -126,7 +126,6 @@ def _dec_block(x, lp, enc, cfg, pos_d, pos_e, q_chunk, kv_chunk):
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, dist: Dist = NO_DIST,
            q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """frames (B, S_enc, d) → encoder states (B, S_enc, d). Bidirectional."""
-    check_supported(cfg, dist)
     B, S, _ = frames.shape
     x = run_blocks(_enc_block, frames, unstack(params["enc_layers"]), cfg.remat, cfg,
                    _positions(B, S, frames.device), q_chunk, kv_chunk)
@@ -179,7 +178,6 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, cur_len, cfg: Mo
                 dist: Dist = NO_DIST):
     """One decoder token (B, 1) at position ``cur_len − 1``: (logits (B, V),
     the cache, its self-attention part written in place)."""
-    check_supported(cfg, dist)
     cur_len = int(cur_len)
     B = token.shape[0]
     x = embed(params["embed"], token)

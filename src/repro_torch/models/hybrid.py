@@ -35,7 +35,7 @@ from repro_torch.models.common import (
     truncated_normal_init,
     unstack,
 )
-from repro_torch.models.transformer import NO_DIST, Dist, check_supported, generator
+from repro_torch.models.transformer import NO_DIST, Dist, generator
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -110,7 +110,6 @@ def hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, q_chunk: int = 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dist: Dist = NO_DIST,
             q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V)."""
-    check_supported(cfg, dist)
     x = hidden(params, tokens, cfg, q_chunk, kv_chunk)
     return rms_norm(x, params["final_norm"], cfg.rms_eps) @ params["lm_head"]
 
@@ -126,7 +125,6 @@ def hybrid_loss(params: dict, batch: dict, cfg: ModelConfig, dist: Dist = NO_DIS
 def prefill_logits(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dist: Dist = NO_DIST,
                    q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """forward's logits at the last token (B, V): the head sees that token only."""
-    check_supported(cfg, dist)
     x = hidden(params, tokens, cfg, q_chunk, kv_chunk)
     return rms_norm(x[:, -1], params["final_norm"], cfg.rms_eps) @ params["lm_head"]
 
@@ -168,7 +166,6 @@ def decode_step(params: dict, token: torch.Tensor, state: dict, cur_len, cfg: Mo
     """One token (B, 1): each Mamba-2 layer's recurrence and, after every
     ``attn_every``-th, the shared block over its site's cache at ``cur_len −
     1``. Returns (logits (B, V), the state, updated in place)."""
-    check_supported(cfg, dist)
     cur_len = int(cur_len)
     x = embed(params["embed"], token)
     site = 0

@@ -30,7 +30,7 @@ from repro_torch.models.common import (
     truncated_normal_init,
     unstack,
 )
-from repro_torch.models.transformer import NO_DIST, Dist, check_supported, generator
+from repro_torch.models.transformer import NO_DIST, Dist, generator
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -66,7 +66,6 @@ def run_layers(lps: list[dict], x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dist: Dist = NO_DIST, **_):
     """tokens (B, S) → logits (B, S, V)."""
-    check_supported(cfg, dist)
     x = run_layers(unstack(params["layers"]), embed(params["embed"], tokens), cfg)
     return rms_norm(x, params["final_norm"], cfg.rms_eps) @ params["lm_head"]
 
@@ -82,7 +81,6 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, dist: Dist = N
     """The prompt pass: (last-token logits (B, V), the per-layer states
     ``{"ssm": (L,B,H,N,P) float32, "conv": (L,B,W−1,C)}``), each layer's
     written into the stacked tensors as it runs."""
-    check_supported(cfg, dist)
     x = embed(params["embed"], tokens)
     states = None
     for i in range(cfg.n_layers):
@@ -119,7 +117,6 @@ def decode_step(params: dict, token: torch.Tensor, state: dict, cur_len, cfg: Mo
     """One token (B, 1) through every layer's recurrence: (logits (B, V),
     the state, updated in place). ``cur_len`` is unused (the state holds the
     position), as in the reference."""
-    check_supported(cfg, dist)
     x = embed(params["embed"], token)
     for i in range(cfg.n_layers):
         lp = tree_map(lambda leaf: leaf[i], params["layers"])

@@ -7,12 +7,16 @@ A step takes the gradients by autograd (micro-batch by micro-batch when
 repo's key discipline (``core.grad_compress``, keyed by
 ``fold_in_str(key, "grad-compress")`` and the optimizer's step), and applies
 AdamW. Its metrics carry the reference's names (``loss``, ``wire_floats``,
-``grad_norm``, ``lr``, and ``nll``/``aux`` without accumulation).
+``grad_norm``, ``lr``, and ``nll``/``aux`` without accumulation); the moe
+family's loss carries its routers' load-balance term.
 
 Data parallel (a ``Dist`` whose mesh, from ``launch.mesh``, spans the
 ranks): parameters are replicated, and each rank runs the accumulation loop
-on its contiguous block of the global batch (``sharding.local_batch``, the
-reference's ``batch_shardings(..., dp_only=True)``). The compressed gradient
+on its contiguous block of each micro-batch of the global batch
+(``sharding.local_batch``, the reference's ``batch_shardings(...,
+dp_only=True)``). The moe family's load-balance statistics are averaged
+over the ranks (``moe.moe_apply_local``), so its aux loss is the global
+micro-batch's; its capacity is the rank's block's. The compressed gradient
 crosses ranks as the shared-mask exchange (one all-reduce of the kept
 values, ``grad_compress.compress_flat``), so every rank applies the same
 AdamW update to the same ĝ and keeps its own residual; without compression
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 
 import numpy as np
 import torch
@@ -43,12 +48,11 @@ import torch.distributed as torch_dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.grad_compress import CompressConfig, compress_flat, exchange_mean, padded_len
 from repro_torch.launch.mesh import dp_axes_of, tp_axis_of
-from repro_torch.models import transformer as tr
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import NO_DIST, Dist
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import sharding as shard_mod
-from repro_torch.utils.device import MOE_AND_TP, not_ported, resolve_device
+from repro_torch.utils.device import PLACEMENT, not_ported, resolve_device
 from repro_torch.utils.host import on_device
 from repro_torch.utils.prng import fold_in_str
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten
@@ -123,14 +127,16 @@ def state_shardings(state_specs: dict, mesh, dp_only: bool = False) -> dict:
 
     def spec_at(name):
         node = p_shard
-        for k in name[2:-2].split("']['"):
-            node = node[k]
+        for key, index in re.findall(r"\['([^']*)'\]|\[(\d+)\]", name):
+            node = node[key] if key else node[int(index)]
         return node
 
     def like_params(tree):
         def go(node, prefix):
             if isinstance(node, dict):
                 return {k: go(v, f"{prefix}[{k!r}]") for k, v in node.items()}
+            if isinstance(node, list):
+                return [go(v, f"{prefix}[{i}]") for i, v in enumerate(node)]
             if prefix in shapes and shapes[prefix] == tuple(node.shape):
                 return spec_at(prefix)
             return ()
@@ -174,7 +180,7 @@ def _dp_mesh(dist: Dist):
     idle = [a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in dist.dp_axes]
     if idle:
         raise not_ported(f"TP/FSDP placement of parameters over the mesh axes {idle} (train "
-                         "with dp_only=True: every axis carries data)", MOE_AND_TP)
+                         "with dp_only=True: every axis carries data)", PLACEMENT)
     return mesh
 
 
@@ -188,7 +194,6 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
     (or the batch, on one device) must divide into ``accum_steps``
     micro-batches.
     """
-    tr.check_supported(api.cfg, dist)
     mesh = _dp_mesh(dist)
     device = resolve_device(device)
     gc_key = fold_in_str(key, "grad-compress")
@@ -203,11 +208,8 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
         flat = torch.zeros((padded_len(n, chunk_p),), dtype=torch.float32, device=device)
         a = tcfg.accum_steps
         total, metrics = torch.zeros((), dtype=torch.float32, device=device), {}
-        size = batch["tokens"].shape[0] // a
         for i in range(a):
-            rows = slice(i * size, (i + 1) * size)
-            # the vlm family's positions are (3, B, S): their batch axis is 1
-            mb = {k: v[:, rows] if k == "positions" else v[rows] for k, v in batch.items()}
+            mb = _micro_batch(batch, i, a)
             for leaf in leaves:
                 leaf.requires_grad_(True)
             loss, metrics = api.loss_fn(params, mb, dist, q_chunk=tcfg.q_chunk,
@@ -230,7 +232,7 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
             state = tree_map(lambda t: t.clone(), state)
         params = state["params"]
         if mesh is not None:
-            batch = shard_mod.local_batch(batch, mesh)
+            batch = _rank_rows(batch, mesh, tcfg.accum_steps)
         batch = {k: on_device(v, device) for k, v in batch.items()}
         if batch["tokens"].shape[0] % tcfg.accum_steps:
             raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into "
@@ -268,6 +270,30 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
         return state, {"loss": loss, **stats, **opt_stats, **metrics}
 
     return train_step
+
+
+def _micro_batch(batch: dict, i: int, a: int) -> dict:
+    """Micro-batch ``i`` of ``a``: the ``i``-th block of rows of each leaf
+    (of the vlm family's ``(3, B, S)`` positions, along axis 1)."""
+    size = batch["tokens"].shape[0] // a
+    rows = slice(i * size, (i + 1) * size)
+    return {k: v[:, rows] if k == "positions" else v[rows] for k, v in batch.items()}
+
+
+def _rank_rows(batch: dict, mesh, a: int) -> dict:
+    """This rank's rows of the global batch, micro-batch by micro-batch: its
+    block of each of the reference's ``a`` micro-batches, concatenated. So
+    the rank's micro-batch ``i`` is its block of the reference's, and a
+    statistic averaged over the ranks (the MoE routers') is that
+    micro-batch's."""
+    if a == 1:
+        return shard_mod.local_batch(batch, mesh)
+    if batch["tokens"].shape[0] % a:
+        raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into {a} "
+                         "micro-batches")
+    parts = [shard_mod.local_batch(_micro_batch(batch, i, a), mesh) for i in range(a)]
+    return {k: torch.cat([torch.as_tensor(p[k]) for p in parts], 1 if k == "positions" else 0)
+            for k in batch}
 
 
 def _mean_over_ranks(loss: torch.Tensor, metrics: dict, mesh):

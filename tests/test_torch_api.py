@@ -33,7 +33,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import estimators, kmeans, pca, sketch
 from repro_torch.data.pipeline import VectorStreamSource
 from repro_torch.models.api import get_api
-from repro_torch.utils.device import MOE_AND_TP
+from repro_torch.utils.device import PLACEMENT
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 CPU = dict(device="cpu")
@@ -585,16 +585,24 @@ def test_lowrank_pca_estimator_matches_the_engine():
 
 
 def test_not_ported_paths_name_their_item(tmp_path):
-    """What is not ported (the moe family's model) raises naming its item;
-    what the port has (the sharded backend, the FD path, refinement,
-    estimator and fused-run checkpoints) runs."""
+    """What is not ported (training with parameters placed over a mesh's
+    model axis) raises naming its item; what the port has (the moe family's
+    model, the sharded backend, the FD path, refinement, estimator and
+    fused-run checkpoints) runs."""
     x = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
     plan = _plan()
     two = plan.replace(backend="sharded", batch_size=4, n_shards=2)
     _close(SparsifiedMean(two, **CPU).fit(x).mean_,
            SparsifiedMean(two.replace(backend="stream"), **CPU).fit(x).mean_.numpy())
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import trainer
+
+    lm = get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))
+    assert lm.init_params(0, "cpu")["layers"]["moe"]["router"].dtype == torch.float32
     cases = [
-        (MOE_AND_TP, lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))),
+        (PLACEMENT, lambda: trainer.make_train_fn(lm, trainer.TrainerConfig(),
+                                                  trainer.make_dist(make_host_mesh(4, 2), lm.cfg),
+                                                  np.zeros(2, np.uint32), device="cpu")),
     ]
     for item, call in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -74,9 +74,27 @@ def test_dp_trainer_matches_reference(accum, gamma, dtype, tmp_path):
     mean residual within 1e-5 of the reference residual's largest entry
     (bf16: 3e-2 of its norm), the parameters within test_torch_train's
     bounds."""
-    jcfg = dataclasses.replace(jget_arch("gemma3-1b", reduced=True), dtype=dtype)
-    cfg = dataclasses.replace(get_arch("gemma3-1b", reduced=True), dtype=dtype)
-    bf16 = dtype == "bfloat16"
+    _dp_against_reference("gemma3-1b", {"dtype": dtype}, accum, gamma, tmp_path)
+
+
+@pytest.mark.parametrize("arch,accum", [("qwen3-moe-235b-a22b", 1), ("kimi-k2-1t-a32b", 2)])
+def test_dp_trainer_moe_matches_reference(arch, accum, tmp_path):
+    """The moe family on 2 ranks against the reference's one call over the
+    global batch, at capacity factor 100 (nothing drops, so the ranks'
+    capacities change nothing): the routers' statistics averaged over the
+    ranks give the global (micro-)batch's aux — within 1e-5 relative like
+    the loss and nll — and its gradient, through the trainer's mean of the
+    ranks' gradients; the rest as test_dp_trainer_matches_reference's."""
+    _dp_against_reference(arch, {"capacity_factor": 100.0}, accum, 0.1, tmp_path)
+
+
+def _dp_against_reference(arch, changes, accum, gamma, tmp_path):
+    """3 steps of ``arch``'s reduced config (with ``changes``) on 2 ranks
+    against the reference's single device, as test_dp_trainer_matches_reference
+    states."""
+    jcfg = dataclasses.replace(jget_arch(arch, reduced=True), **changes)
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), **changes)
+    bf16 = cfg.dtype == "bfloat16"
     key = jax.random.PRNGKey(0)
     opt = dict(peak_lr=LR, warmup_steps=1, total_steps=3)
     jt = jtrainer.TrainerConfig(opt=jopt.OptConfig(**opt), accum_steps=accum, q_chunk=16,
@@ -109,7 +127,8 @@ def test_dp_trainer_matches_reference(accum, gamma, dtype, tmp_path):
         jstate, jm = jfn(start, {k: v.numpy() for k, v in batch.items()})
         m = got["metrics"]
         assert sorted(m) == sorted(jm)
-        for name in ("loss", "grad_norm") + (("nll",) if accum == 1 else ()):
+        extra = () if accum > 1 else ("nll", "aux") if cfg.family == "moe" else ("nll",)
+        for name in ("loss", "grad_norm") + extra:
             tol = (2e-3 if name == "grad_norm" else 1e-3) if bf16 else 1e-5
             assert _rel(m[name], jm[name]) < tol, (step, name, m[name], float(jm[name]))
         assert m["lr"] == float(jm["lr"])

@@ -28,7 +28,7 @@ from repro_torch.models import attention, transformer as tr
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import get_api, params_from_reference, params_to_reference
 from repro_torch.train.trainer import make_dist
-from repro_torch.utils.device import MOE_AND_TP
+from repro_torch.utils.device import PLACEMENT
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
 DENSE = ["gemma3-1b", "glm4-9b", "phi3-medium-14b", "deepseek-coder-33b"]
@@ -200,24 +200,30 @@ def test_flash_attention_matches_reference(q_chunk, kv_chunk, window, causal):
 
 
 def test_what_is_not_ported_raises():
-    """MoE and leading dense layers name their ROADMAP item. A Dist with a
-    mesh changes no value: the loss of a reduced gemma3-1b and a decode step
-    of the ssm and hybrid families are bit-equal with and without one; the
-    ssm, hybrid and audio families are served (their parity tests:
-    tests/test_torch_{ssm,hybrid,encdec}.py)."""
+    """Training with parameters placed over a mesh's model axis names its
+    ROADMAP item; MoE layers and leading dense layers build and run (their
+    parity tests: tests/test_torch_moe_lm.py). A Dist whose mesh spans no
+    process group changes no value: the loss of a reduced gemma3-1b (with a
+    leading dense layer) and of a reduced qwen3-moe-235b-a22b, and a decode
+    step of the ssm and hybrid families, are bit-equal with and without
+    one; the ssm, hybrid and audio families are served (their parity
+    tests: tests/test_torch_{ssm,hybrid,encdec}.py)."""
+    from repro_torch.train import trainer
+
     api = get_api(get_arch("gemma3-1b", reduced=True))
-    for call in (lambda: get_api(get_arch("qwen3-moe-235b-a22b", reduced=True)),
-                 lambda: get_api(dataclasses.replace(api.cfg, first_k_dense=1)).init_params(
-                     0, "cpu")):
-        with pytest.raises(NotImplementedError, match=MOE_AND_TP):
-            call()
-    dist = make_dist(make_host_mesh(4, 2), api.cfg)
-    assert dist.mesh is not None and dist.tp_axis == "model"
-    params = api.init_params(0, "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(api.cfg).items()}
-    with torch.no_grad():
-        assert torch.equal(api.loss_fn(params, batch, tr.NO_DIST)[0],
-                           api.loss_fn(params, batch, dist)[0])
+    with pytest.raises(NotImplementedError, match=PLACEMENT):
+        trainer.make_train_fn(api, trainer.TrainerConfig(), make_dist(make_host_mesh(4, 2), api.cfg),
+                              np.zeros(2, np.uint32), device="cpu")
+    for lm in (get_api(dataclasses.replace(api.cfg, first_k_dense=1)),
+               get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))):
+        dist = make_dist(make_host_mesh(4, 2), lm.cfg)
+        assert dist.mesh is not None and dist.tp_axis == "model" and dist.use_ep
+        params = lm.init_params(0, "cpu")
+        assert len(params.get("pre_layers", [])) == lm.cfg.first_k_dense
+        batch = {k: torch.from_numpy(v) for k, v in _batch(lm.cfg).items()}
+        with torch.no_grad():
+            assert torch.equal(lm.loss_fn(params, batch, tr.NO_DIST)[0],
+                               lm.loss_fn(params, batch, dist)[0])
     for arch, family in (("mamba2-1.3b", "ssm"), ("zamba2-1.2b", "hybrid"),
                          ("seamless-m4t-large-v2", "audio")):
         ported = get_api(get_arch(arch, reduced=True))

@@ -38,7 +38,6 @@ from repro_torch.models import api as api_mod
 from repro_torch.models import attention, transformer as tr
 from repro_torch.models.api import ModelAPI, get_api, params_from_reference
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.utils.device import MOE_AND_TP
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
 ARCHS = ["glm4-9b", "gemma3-1b", "qwen2-vl-2b"]
@@ -368,10 +367,9 @@ def test_what_is_not_served_raises():
                      lambda: launch.main(["--arch", "glm4-9b", "--reduced"])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
-    with pytest.raises(NotImplementedError, match=MOE_AND_TP):
-        get_api(get_arch("qwen3-moe-235b-a22b", reduced=True))
-    # the ssm, hybrid and audio families serve, on the card by default
-    for arch in ("mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
+    # the moe, ssm, hybrid and audio families serve, on the card by default
+    for arch in ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "mamba2-1.3b", "zamba2-1.2b",
+                 "seamless-m4t-large-v2"):
         lm = get_api(get_arch(arch, reduced=True))
         if lm.init_decode_state is None:
             assert lm.cfg.family == "audio"

@@ -42,7 +42,7 @@ from repro_torch.train import sharding, trainer
 from repro_torch.utils.tree import tree_leaves_with_path
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
 
-PORTED = sorted(a for a, c in ARCHS.items() if c.family != "moe")
+PORTED = sorted(ARCHS)
 MESHES = [((4, 2), ("data", "model")), ((2, 4), ("data", "model")),
           ((8, 1), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
 
@@ -59,11 +59,16 @@ def bare_specs(monkeypatch):
 
 
 def _pairs(got, want, path=""):
-    """(name, port spec, reference spec) over two spec trees of dicts."""
+    """(name, port spec, reference spec) over two spec trees of dicts and
+    lists (kimi's ``pre_layers``)."""
     if isinstance(want, dict):
         assert sorted(got) == sorted(want), path
         for k in want:
             yield from _pairs(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            yield from _pairs(g, w, f"{path}/{i}")
     else:
         yield path, got, want
 
@@ -197,7 +202,7 @@ def test_make_dist_fields():
                 assert got.seq_axis == want.seq_axis
     assert trainer.make_dist(None, get_arch("gemma3-1b")) is trainer.NO_DIST
     cfg = get_arch("gemma3-1b", reduced=True)
-    with pytest.raises(NotImplementedError, match="MoE with expert parallelism"):
+    with pytest.raises(NotImplementedError, match="Expert and TP/FSDP placement"):
         trainer.make_train_fn(get_api(cfg), trainer.TrainerConfig(),
                               trainer.make_dist(mesh_mod.make_host_mesh(4, 2), cfg),
                               np.zeros(2, np.uint32), device="cpu")

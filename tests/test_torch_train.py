@@ -62,7 +62,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as tr
 from repro_torch.models.api import get_api, params_from_reference
 from repro_torch.train import checkpoint, optimizer, trainer
-from repro_torch.utils.device import MOE_AND_TP
+from repro_torch.utils.device import PLACEMENT
 from repro_torch.utils.host import to_host
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
@@ -457,20 +457,25 @@ def test_launcher_matches_reference_and_resumes(tmp_path, capsys):
 
 
 def test_what_is_not_ported_raises():
-    """What waits for ROADMAP's next LM item (leading dense layers, parameter
-    placement over a mesh's model axis) names it; the pod meshes need their
-    ranks; without a card the defaults raise."""
+    """What waits for ROADMAP's next LM item (parameter placement over a
+    mesh's model axis) names it, for the moe family too; leading dense
+    layers train; the pod meshes need their ranks; without a card the
+    defaults raise."""
     with pytest.raises(ValueError, match="needs 256 ranks"):
         _run_main(["--arch", "gemma3-1b", "--mesh", "single", "--device", "cpu"])
     cfg = get_arch("gemma3-1b", reduced=True)
-    with pytest.raises(NotImplementedError, match=MOE_AND_TP):
-        trainer.make_train_fn(get_api(cfg), trainer.TrainerConfig(),
-                              trainer.make_dist(make_host_mesh(4, 2), cfg),
-                              np.zeros(2, np.uint32), device="cpu")
-    with pytest.raises(NotImplementedError, match=MOE_AND_TP):
-        trainer.make_train_fn(get_api(dataclasses.replace(cfg, first_k_dense=1)),
-                              trainer.TrainerConfig(), tr.NO_DIST, np.zeros(2, np.uint32),
-                              device="cpu")
+    for c in (cfg, get_arch("kimi-k2-1t-a32b", reduced=True)):
+        with pytest.raises(NotImplementedError, match=PLACEMENT):
+            trainer.make_train_fn(get_api(c), trainer.TrainerConfig(),
+                                  trainer.make_dist(make_host_mesh(4, 2), c),
+                                  np.zeros(2, np.uint32), device="cpu")
+    pre = get_api(dataclasses.replace(cfg, first_k_dense=1))
+    fn = trainer.make_train_fn(pre, trainer.TrainerConfig(), tr.NO_DIST, np.zeros(2, np.uint32),
+                               device="cpu")
+    state = trainer.init_state(pre, trainer.TrainerConfig(), np.zeros(2, np.uint32), device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    _, metrics = fn(state, {"tokens": tokens, "labels": tokens})
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["aux"]) == 0.0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trainer.make_train_fn(get_api(cfg), trainer.TrainerConfig(), tr.NO_DIST,

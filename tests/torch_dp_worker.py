@@ -1,5 +1,6 @@
-"""Rank processes for the data-parallel CPU tests (``tests/test_torch_dp.py``,
-``tests/test_torch_sharding.py``).
+"""Rank processes for the multi-process CPU tests (``tests/test_torch_dp.py``,
+``tests/test_torch_sharding.py``, and expert parallelism in
+``tests/test_torch_moe.py`` and ``tests/test_torch_moe_lm.py``).
 
     python tests/torch_dp_worker.py TASK --job job.pt --out out --world N \\
         --coordinator HOST:PORT --process-id R
@@ -14,6 +15,7 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -21,9 +23,12 @@ from repro_torch import cluster
 from repro_torch.cluster.bootstrap import free_port, make_mesh, run_ranks
 from repro_torch.core import grad_compress as gc
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.cluster.bootstrap import axis_group
+from repro_torch.models import moe
+from repro_torch.models import transformer as tr
 from repro_torch.models.api import get_api
 from repro_torch.train import trainer
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def perworker(job: dict) -> dict:
@@ -56,7 +61,57 @@ def train(job: dict) -> dict:
     return {"steps": steps}
 
 
-TASKS = {"perworker": perworker, "train": train}
+def _coords(mesh) -> tuple[int, ...]:
+    """This rank's coordinates on ``mesh`` (one rank a position)."""
+    pos = mesh.owners.index(dist.get_rank())
+    return tuple(int(c) for c in np.unravel_index(pos, [mesh.shape[a] for a in mesh.axis_names]))
+
+
+def moe_ep(job: dict) -> dict:
+    """``moe_apply_ep`` over the job's ("data", "model") mesh at each of its
+    capacity factors: the rank's block of ``x`` (B, S, d) — rows over
+    "data", the sequence over "model" — and its view of the experts; its
+    output, aux, and the gradients of ``Σ y² + aux``: the router's and the
+    shared expert's (summed over the "model" ranks), the expert leaves'
+    (non-zero in the rank's block) and its block of x's."""
+    mesh = make_mesh(*job["mesh"])
+    ep = axis_group(mesh, ("model",))
+    di, mi = _coords(mesh)
+    x = job["x"]
+    bl, sl = x.shape[0] // mesh.shape["data"], x.shape[1] // mesh.shape["model"]
+    out = []
+    for cf in job["capacity_factors"]:
+        params = tree_map(lambda t: t.clone().requires_grad_(True), job["params"])
+        xl = torch.from_numpy(np.ascontiguousarray(
+            x[di * bl:(di + 1) * bl, mi * sl:(mi + 1) * sl])).requires_grad_(True)
+        y, aux = moe.moe_apply_ep(moe.ep_block(params, ep), xl, job["k"], cf, mesh, ("data",),
+                                  "model")
+        # the parameters' leaves in the reference's order, then x
+        grads = torch.autograd.grad((y ** 2).sum() + aux, tree_leaves(params) + [xl])
+        out.append({"y": y.detach(), "aux": aux.detach(), "grads": [g.detach() for g in grads],
+                    "coords": (di, mi)})
+    return {"cases": out}
+
+
+def lm_ep(job: dict) -> dict:
+    """A reduced MoE LM's logits, ``lm_loss`` and its gradients on every rank
+    of ``make_host_mesh(1, N)``, with expert parallelism over "model"."""
+    cfg = job["cfg"]
+    mesh = make_host_mesh(1, dist.get_world_size())
+    d = trainer.make_dist(mesh, cfg)
+    params = job["params"]
+    batch = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
+    with torch.no_grad():
+        logits, aux = tr.forward(params, batch["tokens"], cfg, d, **job["chunks"])
+    leaves = [leaf.requires_grad_(True) for leaf in tree_leaves(params)]
+    loss, m = tr.lm_loss(params, batch, cfg, d, **job["chunks"])
+    grads = torch.autograd.grad(loss, leaves)
+    return {"logits": logits, "loss": loss.detach(), "nll": m["nll"].detach(),
+            "aux": m["aux"].detach(), "grads": [g.detach() for g in grads],
+            "index": axis_group(mesh, ("model",)).index}
+
+
+TASKS = {"perworker": perworker, "train": train, "moe_ep": moe_ep, "lm_ep": lm_ep}
 
 
 def run(task: str, job: dict, world: int, tmp_dir, partitionable: bool) -> list[dict]:

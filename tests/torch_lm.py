@@ -275,7 +275,7 @@ def _log(text: str) -> list[tuple]:
             for w in (line.split() for line in text.splitlines()) if w and w[0] == "step"]
 
 
-def train_launcher_matches(arch: str, tmp_path):
+def train_launcher_matches(arch: str, tmp_path, gnorm_rel: float | None = None):
     """``python -m repro_torch.launch.train --device cpu --arch <arch>
     --reduced --steps 3 --grad-compress-gamma 0.1`` from the reference
     launcher's initial checkpoint prints the reference's log lines: the
@@ -283,7 +283,8 @@ def train_launcher_matches(arch: str, tmp_path):
     unit of the last printed digit (a float32 value that differs in its
     last bits can round either way, and Adam's ε-sensitive coordinates
     carry such differences into later steps); its final checkpoint restores
-    in the reference."""
+    in the reference. ``gnorm_rel``: the gnorm within that share of the
+    reference's instead (the caller says why)."""
     from repro_torch.launch import train as launch
 
     flags = ["--arch", arch, "--reduced", "--grad-compress-gamma", "0.1", "--batch", "4",
@@ -303,8 +304,9 @@ def train_launcher_matches(arch: str, tmp_path):
     got, want = _log(port), _log(ref)
     assert [(s, lr) for s, _, _, lr in got] == [(s, lr) for s, _, _, lr in want] and \
         [s for s, *_ in got] == [0, 1, 2], (got, want)
-    assert all(abs(a[1] - b[1]) <= 1.5e-4 and abs(a[2] - b[2]) <= 1.5e-3
-               for a, b in zip(got, want)), (got, want)
+    assert all(abs(a[1] - b[1]) <= 1.5e-4 and (
+        abs(a[2] - b[2]) <= 1.5e-3 or gnorm_rel is not None
+        and abs(a[2] - b[2]) <= gnorm_rel * b[2]) for a, b in zip(got, want)), (got, want)
     jcfg = jget_arch(arch, reduced=True)
     like = jtrainer.abstract_state(jget_api(jcfg),
                                    jtrainer.TrainerConfig(compress=JCompressConfig(gamma=0.1)))
