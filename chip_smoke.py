@@ -294,9 +294,28 @@ Phases, in order; any failure exits non-zero:
               largest entry (bf16 sums in other orders), zero outside the
               block; the all-to-all's bytes a layer and its ms over gloo.
 
+18. roofline — the dry-run's yardstick (``repro_torch.roofline``) on the
+              card: (a) the card is an H100 with roofline.hw's 132 SMs and
+              its device memory within 5 % of hw's; (b) three gemma3-1b
+              cells at full width, each at the two depth probes
+              (analysis.probe_depths): phase 13's training step (8 × 4096
+              as 2 micro-batches, CompressConfig(gamma=0.1)), prefill of
+              2 × 32768 and decode against a 32 × 32768 bf16 cache. Each
+              runs trainer.lower_cell's step once on the meta device and
+              once on the card under one counter.OpCounter: flops by dtype,
+              bytes and kernel counts equal (K2 twice a training step, by
+              its model), the meta high-water mark within 10 % of
+              torch.cuda.max_memory_allocated (reset before each); then
+              the step again, timed by CUDA events outside the counting mode
+              (once for training, the median of 3 for prefill and decode),
+              beside its roofline bound and its mfu (model_flops over 989
+              TFLOP/s × the step); and each cell's extrapolation to the
+              full 26 layers (t_compute, t_memory, dominant, model_flops).
+              Phase 3's bounds come from roofline.kernels too.
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
 or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's, 14's,
-15's, 16's and 17's paths' own),
+15's, 16's, 17's and 18's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -318,10 +337,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# H100 SXM peaks (NVIDIA data sheet, 700 W): device memory and fp32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
 
 P, BATCH, STEPS, GAMMA, K, N_INIT, PCA_K = 16384, 4096, 16, 0.05, 10, 3, 8
 # the low-rank path: p, sketch width l, steps (cut from 8 to 4 since phase 16
@@ -474,12 +489,6 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(least milliseconds, what bounds it) on the published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def same_bits(a, b) -> list[str]:
@@ -1336,6 +1345,7 @@ def phase13_train(card: str) -> dict[str, int]:
     from repro_torch.kernels import ops, ref
     from repro_torch.models.api import get_api
     from repro_torch.models.transformer import NO_DIST
+    from repro_torch.roofline import kernels as rk
     from repro_torch.train import checkpoint as ckpt_mod
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
@@ -1487,7 +1497,7 @@ def phase13_train(card: str) -> dict[str, int]:
         # (row blocks on the card), its time beside its bound and x @ (H·D)
         # each value read and written once; per value log2(p) butterfly
         # additions, the sign and the scale
-        bound13 = bound(2 * 4.0 * nc * cp, float(nc * cp) * (cp.bit_length() - 1 + 2))
+        bound13 = rk.fwht_roofline(nc, cp)
         k2 = {}
         for after in (False, True):
             got = ops.hd_precondition(x, signs, signs_after=after)
@@ -1501,8 +1511,8 @@ def phase13_train(card: str) -> dict[str, int]:
                                      for r0 in range(0, nc, 4096)], 1, warmup=0)
             k2[after] = ms
             print(f"  K2 hd_precondition ({nc:,}, {cp}) signs_after={after}: bit-equal to its plain "
-                  f"version; {ms:.4f} ms, bound {bound13[0]:.4f} ms ({bound13[1]}; "
-                  f"{bound13[0] / ms:.2f} of it), plain version {plain:.2f} ms", flush=True)
+                  f"version; {ms:.4f} ms, bound {bound13.ms:.4f} ms ({bound13.bound}; "
+                  f"{bound13.ms / ms:.2f} of it), plain version {plain:.2f} ms", flush=True)
         prev_tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         hmat = ros.hadamard_matrix(cp, device="cuda") * signs[None, :]          # H·D
@@ -1893,14 +1903,6 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def weights_read(params) -> int:
-    """Bytes a decode step reads of the weights: all but the embedding table,
-    of which it gathers B rows."""
-    from repro_torch.utils.tree import tree_size_bytes
-
-    return tree_size_bytes(params) - params["embed"].numel() * params["embed"].element_size()
-
-
 def decode_greedy(lm, params, state, first, start: int, steps: int, label: str):
     """Greedy decode from token ``first`` (B, 1) at cur_len ``start``, every
     step timed and its logits checked finite; returns (the state or cache,
@@ -1917,13 +1919,15 @@ def decode_greedy(lm, params, state, first, start: int, steps: int, label: str):
 
 
 def report_decode(label: str, b: int, times, state, params, card: str) -> tuple[float, float]:
-    """Print decode ms a step (the median) beside its byte bound: the state or
-    cache and the weights a step reads, once, over 3.35 TB/s."""
+    """Print decode ms a step (the median) beside its byte bound
+    (``roofline.analysis.decode_bytes``: the state or cache and the weights a
+    step reads, once, over 3.35 TB/s)."""
+    from repro_torch.roofline import analysis, hw
     from repro_torch.utils.tree import tree_size_bytes
 
     ms = float(np.median(times)) * 1e3
-    b_state, b_w = tree_size_bytes(state), weights_read(params)
-    bound_ms = (b_state + b_w) / PEAK_BYTES_PER_S * 1e3
+    b_state, b_w = tree_size_bytes(state), analysis.weights_read(params)
+    bound_ms = analysis.decode_bytes(params, state) / hw.HBM_BW * 1e3
     print(f"  {label}: decode {ms:.2f} ms a step (median of {len(times)}; first "
           f"{times[0] * 1e3:.2f}), {b / (ms / 1e3):,.0f} tokens/s; byte bound {bound_ms:.3f} ms "
           f"(state or cache {b_state / 1e9:.3f} GB + weights {b_w / 1e9:.2f} GB over 3.35 TB/s; "
@@ -2205,6 +2209,7 @@ def phase15_families(card: str) -> dict[str, int]:
     from repro_torch.models import encdec, hybrid, mamba_lm
     from repro_torch.models.api import get_api
     from repro_torch.models.transformer import NO_DIST
+    from repro_torch.roofline import kernels as rk
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.trainer import TrainerConfig, init_state, make_train_fn
     from repro_torch.utils import prng
@@ -2324,11 +2329,11 @@ def phase15_families(card: str) -> dict[str, int]:
                        for r0 in (0, nc - 4096))
             del got
             ms = time_ms(lambda: ops.hd_precondition(x, signs), 3, warmup=1)
-        b_k2 = bound(2 * 4.0 * nc * cp, float(nc * cp) * (cp.bit_length() - 1 + 2))
-        k2_15[arch] = (nc, ms, b_k2[0])
+        b_k2 = rk.fwht_roofline(nc, cp)
+        k2_15[arch] = (nc, ms, b_k2.ms)
         print(f"  {arch}: K2 hd_precondition ({nc:,}, {cp}): first and last 4096 rows bit-equal to "
-              f"its plain version: {same}; {ms:.4f} ms, bound {b_k2[0]:.4f} ms ({b_k2[1]}; "
-              f"{b_k2[0] / ms:.2f} of it); {card}", flush=True)
+              f"its plain version: {same}; {ms:.4f} ms, bound {b_k2.ms:.4f} ms ({b_k2.bound}; "
+              f"{b_k2.ms / ms:.2f} of it); {card}", flush=True)
         check(same, f"{arch}: K2 at ({nc}, {cp}) is not bit-equal to its plain version")
         del state, params, leaves, v0, x, fn, batch, mb
         torch.cuda.empty_cache()
@@ -2740,7 +2745,7 @@ def _routed_bound(label: str, cfg, params, cache, routed, batch: int, gen: int, 
     step); the median over the steps, in ms."""
     import torch
 
-    from repro_torch.utils.tree import tree_size_bytes
+    from repro_torch.roofline import analysis, hw
 
     n_moe = cfg.n_layers - cfg.first_k_dense
     check(len(routed) == gen * n_moe, f"{label}: {len(routed)} routings in {gen} decode steps")
@@ -2748,9 +2753,8 @@ def _routed_bound(label: str, cfg, params, cache, routed, batch: int, gen: int, 
     b_expert = sum(moe_w[w][0, 0].numel() * moe_w[w].element_size()
                    for w in ("w_gate", "w_up", "w_down"))
     distinct = [int(torch.unique(ids).numel()) for ids in routed]
-    full = tree_size_bytes(cache) + weights_read(params)
-    bounds = [(full - (cfg.n_experts * n_moe - sum(distinct[t * n_moe:(t + 1) * n_moe]))
-               * b_expert) / PEAK_BYTES_PER_S * 1e3 for t in range(gen)]
+    bounds = [analysis.decode_bytes(params, cache, cfg, distinct[t * n_moe:(t + 1) * n_moe])
+              / hw.HBM_BW * 1e3 for t in range(gen)]
     routed_ms = float(np.median(bounds))
     print(f"  {label} the experts a decode step routes to: {np.mean(distinct):.2f} distinct of "
           f"{cfg.n_experts} a layer (mean over {gen} steps × {n_moe} MoE layers; at most B·k = "
@@ -3087,6 +3091,140 @@ def _ep_moe(card: str, ranks: dict) -> None:
           f"{card}", flush=True)
 
 
+def _cells18():
+    """Phase 18's gemma3-1b cells: (label, ShapeConfig, TrainerConfig)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.grad_compress import CompressConfig
+    from repro_torch.train.trainer import TrainerConfig
+
+    return [("train", ShapeConfig("train", SEQ13, BATCH13, "train"),
+             TrainerConfig(accum_steps=ACCUM13, compress=CompressConfig(gamma=0.1), q_chunk=Q13,
+                           kv_chunk=KV13)),
+            ("prefill", ShapeConfig("prefill", S14A, B14A, "prefill"), TrainerConfig()),
+            ("decode", ShapeConfig("decode", S14A, B14B, "decode"), TrainerConfig())]
+
+
+def count18(cfg, shape, tcfg, device: str):
+    """The cell's step run once on ``device`` under an OpCounter: (its
+    summary, the step, its inputs) — ``trainer.lower_cell``'s step and
+    inputs, the inputs' storages counted live from the start."""
+    from repro_torch.roofline.counter import OpCounter
+    from repro_torch.train.trainer import lower_cell
+
+    step, args, _ = lower_cell(cfg, shape, None, tcfg, device=device)
+    with OpCounter(device) as c:
+        c.track(args)
+        step(*args)
+    return c.summary(), step, args
+
+
+def phase18_roofline(card: str) -> dict[str, int]:
+    """Phase 18 (module docstring): the dry-run's yardstick on the card.
+    Returns the kernels' launches over the phase's runs on the card."""
+    t18 = time.perf_counter()
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import analysis, hw
+
+    print("== 18 roofline: the meta device's count against the card's", flush=True)
+    props = torch.cuda.get_device_properties(0)
+    print(f"  (a) {props.name}: {props.multi_processor_count} SMs, {props.total_memory:,} bytes "
+          f"({props.total_memory / hw.HBM_BYTES:.4f} of roofline.hw's {hw.HBM_BYTES:,}); hw: "
+          f"{hw.SM_COUNT} SMs, bf16 {hw.PEAK_FLOPS_BF16:.3g}, float32 {hw.PEAK_FLOPS_FP32:.3g} "
+          f"FLOP/s, {hw.HBM_BW:.3g} B/s; {card}", flush=True)
+    check("H100" in props.name, f"the card is {props.name}, not an H100: roofline.hw is the H100's")
+    check(props.multi_processor_count == hw.SM_COUNT,
+          f"{props.multi_processor_count} SMs, roofline.hw says {hw.SM_COUNT}")
+    check(abs(props.total_memory - hw.HBM_BYTES) <= 0.05 * hw.HBM_BYTES,
+          f"{props.total_memory:,} bytes of device memory, roofline.hw says {hw.HBM_BYTES:,}")
+
+    cfg = get_arch("gemma3-1b")
+    depths = analysis.probe_depths(cfg)
+    launches = {name: 0 for name in ops.WRAPPERS}
+    for label, shape, tcfg in _cells18():
+        probes = []
+        for d in depths:
+            cd = analysis._probe_cfg(cfg, d)
+            t0 = time.perf_counter()
+            on_meta = count18(cd, shape, tcfg, "meta")[0]
+            t_meta = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            on_card, step, args = count18(cd, shape, tcfg, "cuda")
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            # the step again outside the counting mode (the counted run warmed it
+            # up), timed by CUDA events: once for training, the median of 3
+            # for prefill and decode, whose single steps vary by 20-40 %
+            times = []
+            for _ in range(1 if label == "train" else 3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(*args)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = float(np.median(times))
+            for name, c in ops.launch_counts().items():
+                launches[name] += c
+            del step, args
+            terms = analysis.roofline_terms({**on_card, "wire_bytes": 0.0}, 1, cd, shape)
+            t_bound = max(terms["t_compute_s"], terms["t_memory_s"])
+            mfu = terms["model_flops"] / (hw.PEAK_FLOPS_BF16 * ms / 1e3)
+            print(f"  (b) {label} {shape.global_batch} × {shape.seq_len} at depth {d}: flops by dtype "
+                  f"{on_meta['flops_by_dtype']} on meta, the card's equal: "
+                  f"{on_card['flops_by_dtype'] == on_meta['flops_by_dtype']}; bytes "
+                  f"{on_meta['bytes']:,} (equal: {on_card['bytes'] == on_meta['bytes']}); kernels "
+                  f"{on_meta['kernels']} (equal: {on_card['kernels'] == on_meta['kernels']}); peak on "
+                  f"meta {on_meta['peak_bytes'] / 2**30:.3f} GiB, the card's counter "
+                  f"{on_card['peak_bytes'] / 2**30:.3f} GiB, torch.cuda.max_memory_allocated "
+                  f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before "
+                  f"({on_meta['peak_bytes'] / peak:.4f} of it); counted in {t_meta:.1f} s on meta, "
+                  f"{t_card:.1f} s on the card", flush=True)
+            print(f"      the step {ms:.2f} ms (CUDA events, outside the counting mode; "
+                  f"{len(times)} run(s): {np.round(times, 2).tolist()}): bound "
+                  f"{t_bound * 1e3:.2f} ms (compute {terms['t_compute_s'] * 1e3:.2f}, memory "
+                  f"{terms['t_memory_s'] * 1e3:.2f}; {terms['dominant']}), {t_bound * 1e3 / ms:.4f} "
+                  f"of it; model_flops {terms['model_flops']:.4g}, mfu {mfu:.4f} (over "
+                  f"{hw.PEAK_FLOPS_BF16:.3g} FLOP/s × the step); {card}", flush=True)
+            check(on_card["flops_by_dtype"] == on_meta["flops_by_dtype"],
+                  f"18 {label} depth {d}: flops by dtype differ between meta and the card")
+            check(on_card["bytes"] == on_meta["bytes"],
+                  f"18 {label} depth {d}: bytes differ between meta and the card")
+            check(on_card["kernels"] == on_meta["kernels"],
+                  f"18 {label} depth {d}: kernel counts differ between meta and the card")
+            check(abs(on_meta["peak_bytes"] - peak) <= 0.1 * peak,
+                  f"18 {label} depth {d}: the meta high-water mark {on_meta['peak_bytes']:,} is "
+                  f"more than 10 % off the card's {peak:,}")
+            if label == "train":
+                check(on_meta["kernels"] == {"hd_precondition": 2},
+                      f"18 train depth {d}: K2 is not counted twice a step: {on_meta['kernels']}")
+            probes.append(on_meta)
+            gc.collect()
+            torch.cuda.empty_cache()
+        full = cfg.n_layers - cfg.first_k_dense
+        per_dev = {k: analysis.extrapolate(probes, *depths, full, k)[0] for k in ("flops", "bytes")}
+        per_dev["flops_by_dtype"] = {
+            dt: analysis.extrapolate([p["flops_by_dtype"] for p in probes], *depths, full, dt)[0]
+            for dt in probes[0]["flops_by_dtype"]}
+        per_dev["wire_bytes"] = 0.0
+        terms = analysis.roofline_terms(per_dev, 1, cfg, shape)
+        print(f"  (b) {label} extrapolated to {cfg.n_layers} layers: t_compute "
+              f"{terms['t_compute_s'] * 1e3:.2f} ms, t_memory {terms['t_memory_s'] * 1e3:.2f} ms, "
+              f"dominant {terms['dominant']}, model_flops {terms['model_flops']:.4g}", flush=True)
+    print(f"  launches in phase 18: {launches}")
+    print(f"  phase 18: {time.perf_counter() - t18:.1f} s; {card}", flush=True)
+    return launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -3116,6 +3254,7 @@ def main() -> None:
     from repro_torch.kernels import _build, fwht, ops, ref
     from repro_torch.kernels import sparse_assign as sa_mod
     from repro_torch.kernels import spmm as spmm_mod
+    from repro_torch.roofline import kernels as rk
     from repro_torch.stream import StreamKMeansConfig
     from repro_torch.stream import accumulators as kmeans_acc
     from repro_torch.train import checkpoint as ckpt_mod
@@ -3156,10 +3295,13 @@ def main() -> None:
         return x, s, idx
 
     def report(name, err, tol, ms, plain_ms, b, lib_ms=None):
+        """``b``: the function's ``roofline.kernels`` model, its bound and
+        (a diagnostic) the bytes the current schedule moves."""
         check(err <= tol, f"{name}: error {err:.3g} above tolerance {tol:g}")
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"  {name}: err {err:.3g} (tol {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"one library call {lib}, bound {b[0]:.4f} ms ({b[1]})")
+              f"one library call {lib}, bound {b.ms:.4f} ms ({b.bound}; {b.name} model; the "
+              f"schedule moves {b.schedule_bytes / b.hbm_bytes:.2f}× its {b.hbm_bytes / 1e6:.1f} MB)")
 
     def by_pass(fn, reps):
         """Device ms a call of each kernel ``fn`` launches, by torch.profiler."""
@@ -3199,13 +3341,13 @@ def main() -> None:
         err = (got - ref.ref_sketch_fused(x, s, idx)).abs().max().item()
         ms = time_ms(lambda: ops.sketch_fused(x, s, idx), 20)
         plain_ms = time_ms(lambda: ref.ref_sketch_fused(x, s, idx), 5)
-        b = bound(4 * (n * p + p + 2 * n * mm), n * p * (math.log2(p) + 1) + n * mm)
+        b = rk.sketch_fused_roofline(n, p, mm)
         report(f"K1 sketch_fused ({n}, {p}, m={mm})", err, 1e-5, ms, plain_ms, b)
         if (n, p) == (BATCH, P):
             print(f"    device time alone (torch.profiler) "
                   f"{by_pass_total(lambda: ops.sketch_fused(x, s, idx), 20):.4f} ms")
             entries["sketch_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=b[0], bound_by=b[1], library_ms=None)
+                                           bound_ms=b.ms, bound_by=b.bound, library_ms=None)
     del x, s, idx, got
 
     # K2 hd_precondition, both sign modes, at the finalize's unmix (10, 16384),
@@ -3225,7 +3367,7 @@ def main() -> None:
         chosen = fwht.split_plan(n, P, sms, c_max)
         others = [c for c in ([(8, 11), (4, 12), (2, 13)] if n < sms else [(2, 13), (4, 12)])
                   if c[0] <= c_max]
-        b = bound(4 * (2 * n * P + P), n * P * (math.log2(P) + 2))
+        b = rk.fwht_roofline(n, P)
         for after in (False, True):
             ops.reset_counts()
             got = ops.hd_precondition(x, s, signs_after=after)
@@ -3273,7 +3415,7 @@ def main() -> None:
                       else "the host" if ms > 1.5 * dev_ms else "the device")
             print(f"    device time alone (torch.profiler) {dev_ms:.4f} ms, back to back {ms:.4f} ms "
                   f"(median of 5 rounds of {reps}; rounds {np.round(rounds['ops'], 4).tolist()}): "
-                  f"what sets the time: {setter}; {b[0] / dev_ms:.2f} of its bound on the device")
+                  f"what sets the time: {setter}; {b.ms / dev_ms:.2f} of its bound on the device")
             probes = [f"{pl}: {med[pl]:.4f} / {by_pass_total(calls[pl], 20):.4f}" for pl in plans]
             print(f"    every schedule, bit-equal; back to back (median) / device ms: {'; '.join(probes)}")
             if "raw" in med:
@@ -3283,7 +3425,7 @@ def main() -> None:
                 del out
             if n == K and after:
                 entries["hd_precondition"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                  bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+                                                  bound_ms=b.ms, bound_by=b.bound, library_ms=lib_ms)
             del got
         del x, s
     del hmat
@@ -3323,13 +3465,12 @@ def main() -> None:
                   f"K4 at p={p}, r={r}, K={kk}: repeated launches differ")
             ms = time_ms(lambda: ops.sparse_assign(vals, idx, centers), 20)
             plain_ms = time_ms(lambda: ref.ref_sparse_assign(vals, idx, centers), 3)
-            b = bound(4 * (2 * BATCH * mm + r * kk * p + r * BATCH * (kk + 1)),
-                      3 * BATCH * mm * kk * r)
+            b = rk.sparse_assign_roofline(BATCH, mm, r, kk, p)
             report(f"K4 sparse_assign (n={BATCH}, m={mm}, r={r}, K={kk}, p={p}), ties planted, "
                    f"relative distance", rel, 1e-5, ms, plain_ms, b)
             if (p, r, kk) == (P, N_INIT, K):
                 entries["sparse_assign"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                bound_ms=b[0], bound_by=b[1], library_ms=None)
+                                                bound_ms=b.ms, bound_by=b.bound, library_ms=None)
             del vals, centers, d, a, d_ref, a_ref, again
         del idx, vals0
         torch.cuda.empty_cache()
@@ -3368,7 +3509,7 @@ def main() -> None:
             del want
             ms = time_ms(lambda: ops.hd_precondition(x, s, signs_after=after), 20)
             plain_ms = time_ms(lambda: ref.ref_hd_precondition(x, s, after), 3)
-            b = bound(4 * (2 * n * p + p), n * p * (math.log2(p) + 2))
+            b = rk.fwht_roofline(n, p)
             lib_ms = None
             if p == P_LR:     # H·D or D·H in place, exactly (signs ±1), and back after
                 signs = s[None, :] if after else s[:, None]
@@ -3383,12 +3524,12 @@ def main() -> None:
                    plain_ms, b, lib_ms)
             if not after and n * p == BATCH * P_LR:
                 by_cluster.append(f"C={plan[0]}{f' + {plan[2]} register passes' if plan[2] else ''} "
-                                  f"(p={p}) {ms:.4f} ms, {b[0] / ms:.2f} of its bound")
+                                  f"(p={p}) {ms:.4f} ms, {b.ms / ms:.2f} of its bound")
             if (n, p, after) == (PCA_K, P_LR, True):     # the unmix that phase 7 launches
                 print(f"    device time alone (torch.profiler) "
                       f"{by_pass_total(lambda: ops.hd_precondition(x, s, signs_after=after), 20):.4f} ms")
                 entries["hd_precondition_chunked"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b.ms, bound_by=b.bound,
                     library_ms=lib_ms)
         del x, s, got
     del hmat
@@ -3417,7 +3558,7 @@ def main() -> None:
         ms = time_ms(lambda: ops.sketch_fused(x, s, idx), 20)
         plain_ms = time_ms(lambda: ref.ref_sketch_fused(x, s, idx), 3)
         old_ms = time_ms(lambda: torch.gather(fwht.hd_precondition_chunked(x, s), 1, idx.long()), 20)
-        b = bound(4 * (n * p + p + 2 * n * mm), n * p * (math.log2(p) + 1) + n * mm)
+        b = rk.sketch_fused_roofline(n, p, mm)
         report(f"K1 sketch above 2^15, K3's cluster gather ({n}, {p}, m={mm}), bit-equal", err, 0.0,
                ms, plain_ms, b)
         if (n, p) == (BATCH, P_LR):     # device memory a call adds to what its inputs hold
@@ -3437,7 +3578,7 @@ def main() -> None:
         print(f"    the composition it replaces, K3 + torch.gather: {old_ms:.4f} ms")
         if (n, p) == (BATCH, P_LR):
             entries["sketch_fused_cluster"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                   bound_ms=b[0], bound_by=b[1], library_ms=None)
+                                                   bound_ms=b.ms, bound_by=b.bound, library_ms=None)
         del x, s, idx, got, again
     torch.cuda.empty_cache()
 
@@ -3473,7 +3614,6 @@ def main() -> None:
             err_s, tol_s = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
             print(f"  K6 column sums {what} (n={n}): err {err_s:.3g} (tol {tol_s:.3g}, 1e-5 of max |plain|)")
             check(err_s <= tol_s, f"K6: column sums {what} off the plain version")
-        flops = 2 * n * m_lr * ell
         main = (n, ell) == (BATCH, ELL)
         reps = 10 if main else 3
         ms_t = time_ms(lambda: ops.spmm(vals, idx, om), reps)
@@ -3500,8 +3640,7 @@ def main() -> None:
                   "K6: Y and the column sums differ from the walk fed by column_buckets")
             old_ms = time_ms(lambda: spmm_mod.spmm_t_from_buckets(vals, idx, t, P_LR, col_sums=True),
                              reps)
-            b_ys = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell + 2 * P_LR),
-                         flops + 3 * n * m_lr)
+            b_ys = rk.spmm_t_roofline(n, m_lr, P_LR, ell, col_sums=True)
             again = [ops.spmm_t(vals, idx, t, P_LR, col_sums=True) for _ in range(2)]
             check(all(torch.equal(a, b_) for a2 in again for a, b_ in zip(a2, ys)),
                   "K6: repeated launches are not bit-identical")
@@ -3512,7 +3651,7 @@ def main() -> None:
             print(f"  K6 transposition alone {trans:.4f} ms of the {ms_y:.4f} ms (the stable sort + "
                   f"searchsorted of column_buckets: {prep:.4f} ms), bit-equal to column_buckets; "
                   f"with the column sums, as the range-finder calls it, {ms_ys:.4f} ms (bound "
-                  f"{b_ys[0]:.4f} ms, {b_ys[1]}); the walk fed by column_buckets {old_ms:.4f} ms, "
+                  f"{b_ys.ms:.4f} ms, {b_ys.bound}); the walk fed by column_buckets {old_ms:.4f} ms, "
                   f"bit-equal in Y and the sums; repeated launches, and the whole range_delta, "
                   f"bit-identical")
             print(f"  K6's library yardstick torch.sparse.mm(Wᵀ, T) {lib_y:.4f} ms leaves out building "
@@ -3574,18 +3713,18 @@ def main() -> None:
                   f"kernel, err {err_rep:.3g}; {rep_ms:.4f} ms")
             del idx_low, vals_low
             del by_rows, one, idx_rep, t_rep, rows_rep
-        b_t = bound(4 * (2 * n * m_lr + P_LR * ell + n * ell), flops)
-        b_y = bound(4 * (2 * n * m_lr + n * ell + P_LR * ell), flops)
+        b_t = rk.spmm_roofline(n, m_lr, P_LR, ell)
+        b_y = rk.spmm_t_roofline(n, m_lr, P_LR, ell)
         tol_t, tol_y = 1e-5 * t_ref.abs().max().item(), 1e-5 * y_ref.abs().max().item()
         report(f"K5 spmm (n={n}, m={m_lr}, p={P_LR}, l={ell}), tol 1e-5 of max |plain|",
                err_t, tol_t, ms_t, plain_t, b_t, lib_t)
         report(f"K6 spmm_t (n={n}, m={m_lr}, p={P_LR}, l={ell}), tol 1e-5 of max |plain|",
                err_y, tol_y, ms_y, plain_y, b_y, lib_y)
         if main:
-            entries["spmm"] = dict(max_abs_err=err_t, ms=ms_t, plain_ms=plain_t, bound_ms=b_t[0],
-                                   bound_by=b_t[1], library_ms=lib_t)
+            entries["spmm"] = dict(max_abs_err=err_t, ms=ms_t, plain_ms=plain_t, bound_ms=b_t.ms,
+                                   bound_by=b_t.bound, library_ms=lib_t)
             entries["spmm_t"] = dict(max_abs_err=err_y, ms=ms_y, plain_ms=plain_y,
-                                     bound_ms=b_y[0], bound_by=b_y[1], library_ms=lib_y)
+                                     bound_ms=b_y.ms, bound_by=b_y.bound, library_ms=lib_y)
         del idx, vals, om, t, y, ys, t_ref, y_ref
         torch.cuda.empty_cache()
 
@@ -4558,6 +4697,9 @@ def main() -> None:
     # ----------------------------------------------------------------- 17 moe
     launches17 = phase17_moe(card)
 
+    # ------------------------------------------------------------ 18 roofline
+    launches18 = phase18_roofline(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -4579,7 +4721,7 @@ def main() -> None:
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
              "11 serve": launches11, "12 sharded": launches12, "13 train": launches13,
              "14 lm-serve": launches14, "15 lm-families": launches15, "16 dp-train": launches16,
-             "17 moe": launches17}
+             "17 moe": launches17, "18 roofline": launches18}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],

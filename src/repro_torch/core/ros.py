@@ -106,12 +106,25 @@ def signs_for(key, p_padded: int, dtype=torch.float32, device="cpu") -> torch.Te
 
 
 def resolve_impl(impl: str, device) -> str:
-    """"auto" → the kernel for a CUDA tensor, the plain version for a CPU one."""
+    """"auto" → the kernel for a CUDA tensor (and for a meta one, whose
+    count stands for the card's), the plain version for a CPU one."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "ref"
+        return "kernel" if torch.device(device).type in ("cuda", "meta") else "ref"
     return impl
+
+
+def _plain_h(x: torch.Tensor, d: torch.Tensor, signs_after: bool) -> torch.Tensor:
+    """The plain Hadamard pass H·(d ⊙ x) (or d ⊙ (H·x)): K2/K3's function,
+    which ``roofline.counter.OpCounter`` counts once by its model, as it
+    counts the kernel."""
+    from repro_torch.roofline import kernels as rl  # deferred: it imports the kernels
+    from repro_torch.roofline.counter import kernel_call
+
+    pp = x.shape[-1]
+    with kernel_call("hd_precondition", lambda: rl.fwht_roofline(x.numel() // pp, pp)):
+        return fwht(x) * d if signs_after else fwht(x * d)
 
 
 def _pad_to(x: torch.Tensor, pp: int) -> torch.Tensor:
@@ -136,6 +149,8 @@ def precondition(x: torch.Tensor, key, transform: Transform = "hadamard",
 
         lead = x.shape[:-1]
         return ops.hd_precondition(x.reshape(-1, pp), d).reshape(*lead, pp)
+    if transform == "hadamard":
+        return _plain_h(x, d, signs_after=False)
     return apply_h(x * d, transform)
 
 
@@ -153,6 +168,8 @@ def unmix(y: torch.Tensor, key, transform: Transform = "hadamard",
 
         lead = y.shape[:-1]
         x = ops.hd_precondition(y.reshape(-1, pp), d, signs_after=True).reshape(*lead, pp)
+    elif transform == "hadamard":
+        x = _plain_h(y, d, signs_after=True)
     else:
         x = apply_h(y, transform, adjoint=True) * d
     if p_orig is not None and p_orig < pp:

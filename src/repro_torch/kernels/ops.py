@@ -18,6 +18,11 @@ counts every call: a series is the number of dispatches, and the two agree
 with :data:`DISPATCH` call for call. :func:`reset_counts` zeroes
 :data:`DISPATCH` and the launch counts; the registry's series start over
 with a fresh registry (``obs.set_default_registry``).
+
+Under ``roofline.counter.OpCounter`` each call that goes to a kernel
+wrapper counts once, by its ``roofline.kernels`` model, and the ops inside
+it (a plain version's passes on the CPU) do not count. On the meta device
+such a call returns an empty output of the kernel's shape and runs nothing.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_fused as _sf
 from repro_torch.kernels import sparse_assign as _sa
 from repro_torch.kernels import spmm as _spmm
+from repro_torch.roofline import kernels as _rl
+from repro_torch.roofline.counter import kernel_call
 
 DISPATCH: collections.Counter = collections.Counter()
 _DISPATCH_LOCK = threading.Lock()
@@ -54,6 +61,11 @@ WRAPPERS = {
 def _on_card(mode: str, t: torch.Tensor) -> bool:
     """Whether ``mode`` sends a CUDA tensor ``t`` to a kernel."""
     return mode in ("auto", "kernel") and t.device.type == "cuda"
+
+
+def _meta(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a meta tensor: shapes only, for the dry-run's count."""
+    return t.device.type == "meta"
 
 
 def _count_dispatch(op: str, path: str) -> None:
@@ -94,9 +106,13 @@ def hd_precondition(x: torch.Tensor, signs: torch.Tensor, signs_after: bool = Fa
     """y = H·(d⊙x), or d⊙(H·x) with ``signs_after`` (unmix); K2 up to
     p = 2^15, K3 above."""
     x = x.contiguous()
-    chunked = x.shape[-1] > _fwht.MAX_P_SINGLE
+    p = x.shape[-1]
+    chunked = p > _fwht.MAX_P_SINGLE
     if _use_kernel("hd_precondition", mode, x, "kernel_chunked" if chunked else "kernel"):
-        return _fwht.hd_precondition(x, signs, signs_after)
+        with kernel_call("hd_precondition", lambda: _rl.fwht_roofline(x.numel() // p, p)):
+            if _meta(x):
+                return torch.empty_like(x)
+            return _fwht.hd_precondition(x, signs, signs_after)
     return _ref.ref_hd_precondition(x, signs, signs_after)
 
 
@@ -117,11 +133,15 @@ def sketch_fused(x: torch.Tensor, signs: torch.Tensor, indices: torch.Tensor,
         path = "kernel_cluster" if fits else "kernel_chunked"
     if not _use_kernel("sketch_fused", mode, x, path):
         return _ref.ref_sketch_fused(x, signs, indices)
-    if path == "kernel_cluster":
-        return _sf.sketch_fused_cluster(x, signs, indices.contiguous())
-    if path == "kernel_chunked":
-        return torch.gather(_fwht.hd_precondition_chunked(x, signs), 1, indices.long())
-    return _sf.sketch_fused(x, signs, indices.contiguous())   # or the plain version on the CPU
+    n, m = indices.shape
+    with kernel_call("sketch_fused", lambda: _rl.sketch_fused_roofline(n, p, m)):
+        if _meta(x):
+            return x.new_empty((n, m))
+        if path == "kernel_cluster":
+            return _sf.sketch_fused_cluster(x, signs, indices.contiguous())
+        if path == "kernel_chunked":
+            return torch.gather(_fwht.hd_precondition_chunked(x, signs), 1, indices.long())
+        return _sf.sketch_fused(x, signs, indices.contiguous())   # or the plain version on the CPU
 
 
 def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Tensor,
@@ -129,8 +149,15 @@ def sparse_assign(values: torch.Tensor, indices: torch.Tensor, centers: torch.Te
     """(dists, argmin) for sparsified K-means assignment; centers (K, p) or
     (r, K, p)."""
     if _use_kernel("sparse_assign", mode, values):
-        return _sa.sparse_assign(values.contiguous(), indices.contiguous(),
-                                 centers.contiguous())
+        (n, m), (k, p) = values.shape, centers.shape[-2:]
+        r = centers.shape[0] if centers.ndim == 3 else 1
+        with kernel_call("sparse_assign", lambda: _rl.sparse_assign_roofline(n, m, r, k, p)):
+            if _meta(values):
+                lead = centers.shape[:-2]
+                return (values.new_empty(lead + (n, k), dtype=torch.float32),
+                        values.new_empty(lead + (n,), dtype=torch.int32))
+            return _sa.sparse_assign(values.contiguous(), indices.contiguous(),
+                                     centers.contiguous())
     return _ref.ref_sparse_assign(values, indices, centers)
 
 
@@ -148,7 +175,9 @@ def cluster_columns(values: torch.Tensor, indices: torch.Tensor, p: int, mode: s
     transposition of the rows, once (None where the plain version runs)."""
     if not _on_card(mode, values):
         return None
-    return _spmm.transpose_columns(values.contiguous(), indices.contiguous(), p)
+    n, m = values.shape
+    with kernel_call("transpose_columns", lambda: _rl.spmm_t_roofline(n, m, p, 0)):
+        return _spmm.transpose_columns(values.contiguous(), indices.contiguous(), p)
 
 
 def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tensor, k: int,
@@ -160,8 +189,14 @@ def cluster_sums(values: torch.Tensor, indices: torch.Tensor, labels: torch.Tens
     (r, K, p) each, r labellings of the rows in one walk (the streaming
     K-means hypotheses)."""
     if _use_kernel("cluster_sums", mode, values):
-        return _spmm.cluster_sums(values.contiguous(), indices.contiguous(), labels, k, p,
-                                  columns)
+        (n, m), r = values.shape, labels.numel() // max(values.shape[0], 1)
+        with kernel_call("cluster_sums", lambda: _rl.spmm_t_roofline(n, m, p, r * k)):
+            if _meta(values):
+                shape = tuple(labels.shape[:-1]) + (k, p)
+                return (values.new_empty(shape, dtype=torch.float32),
+                        values.new_empty(shape, dtype=torch.float32))
+            return _spmm.cluster_sums(values.contiguous(), indices.contiguous(), labels, k, p,
+                                      columns)
     return _ref.ref_cluster_sums(values, indices, labels, k, p)
 
 
@@ -171,12 +206,17 @@ def column_sums(values: torch.Tensor, indices: torch.Tensor, p: int, mode: str =
     columns (its transposition, then a walk that only sums), bit-identical
     from run to run where a float scatter-add would add by atomics; the plain
     scatter-add elsewhere."""
-    if _use_kernel("spmm_t", mode, values) and values.device.type == "cuda":
-        values = values.to(torch.float32)
-        t = values.new_empty((values.shape[0], 0))
-        _, sum_v, sum_v2 = _spmm.spmm_t(values.contiguous(), indices.contiguous(), t, p,
-                                        col_sums=True)
-        return sum_v, sum_v2
+    if _use_kernel("spmm_t", mode, values) and values.device.type in ("cuda", "meta"):
+        n, m = values.shape
+        with kernel_call("column_sums", lambda: _rl.spmm_t_roofline(n, m, p, 0, col_sums=True)):
+            if _meta(values):
+                return (values.new_empty((p,), dtype=torch.float32),
+                        values.new_empty((p,), dtype=torch.float32))
+            values = values.to(torch.float32)
+            t = values.new_empty((values.shape[0], 0))
+            _, sum_v, sum_v2 = _spmm.spmm_t(values.contiguous(), indices.contiguous(), t, p,
+                                            col_sums=True)
+            return sum_v, sum_v2
     return _ref.ref_column_sums(values, indices, p)
 
 
@@ -187,7 +227,14 @@ def segment_sums(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor
     key): on the card K6's walk over flat positions, bit-identical from run to
     run; the plain scatter-add in k order elsewhere."""
     if _use_kernel("spmm_t", mode, values, path="segments"):
-        return _spmm.segment_sums(values.contiguous(), order.contiguous(), starts.contiguous())
+        segs = starts.shape[0] - 1
+        # K6's walk over the N flat positions into S segments, summing only
+        with kernel_call("segment_sums",
+                         lambda: _rl.spmm_t_roofline(1, order.shape[0], segs, 0, col_sums=True)):
+            if _meta(values):
+                return values.new_empty((max(segs, 0),), dtype=torch.float32)
+            return _spmm.segment_sums(values.contiguous(), order.contiguous(),
+                                      starts.contiguous())
     return _ref.ref_segment_sums(values, order, starts)
 
 
@@ -195,7 +242,12 @@ def spmm(values: torch.Tensor, indices: torch.Tensor, dense: torch.Tensor,
          mode: str = "auto") -> torch.Tensor:
     """T (n, l) = W @ dense — project compact sparse rows onto l columns."""
     if _use_kernel("spmm", mode, values):
-        return _spmm.spmm(values.contiguous(), indices.contiguous(), dense.contiguous())
+        (n, m), (p, ell) = values.shape, dense.shape
+        with kernel_call("spmm", lambda: _rl.spmm_roofline(n, m, p, ell)):
+            if _meta(values):
+                return values.new_empty((n, ell),
+                                        dtype=_ref.spmm_out_dtype(values.dtype, dense.dtype))
+            return _spmm.spmm(values.contiguous(), indices.contiguous(), dense.contiguous())
     return _ref.ref_spmm(values, indices, dense)
 
 
@@ -204,6 +256,14 @@ def spmm_t(values: torch.Tensor, indices: torch.Tensor, t: torch.Tensor, p: int,
     """Y (p, l) = Wᵀ @ t — scatter sparse rows into the l-dim sketch; with
     ``col_sums``, (Y, Σv, Σv²) per column from the same pass."""
     if _use_kernel("spmm_t", mode, values):
-        return _spmm.spmm_t(values.contiguous(), indices.contiguous(), t.contiguous(), p,
-                            col_sums)
+        (n, m), ell = values.shape, t.shape[1]
+        with kernel_call("spmm_t", lambda: _rl.spmm_t_roofline(n, m, p, ell, col_sums)):
+            if _meta(values):
+                y = values.new_empty((p, ell), dtype=_ref.spmm_out_dtype(values.dtype, t.dtype))
+                if not col_sums:
+                    return y
+                return (y, values.new_empty((p,), dtype=torch.float32),
+                        values.new_empty((p,), dtype=torch.float32))
+            return _spmm.spmm_t(values.contiguous(), indices.contiguous(), t.contiguous(), p,
+                                col_sums)
     return _ref.ref_spmm_t(values, indices, t, p, col_sums)

@@ -158,3 +158,54 @@ def _audio_api(cfg: ModelConfig) -> ModelAPI:
         decode_fn=decode_fn,
         init_decode_state=None,  # built by prefill (needs the encoder's output)
     )
+
+
+# -------------------------------------------------------------- input specs --
+
+def input_specs(cfg: ModelConfig, shape, batch: int | None = None) -> dict:
+    """Meta-device stand-ins for every model input of this (arch, shape) cell
+    (``shape`` a ``configs.base.ShapeConfig``), the reference's
+    ``ShapeDtypeStruct``s as tensors with no storage behind them.
+
+    train  → the kwargs of loss_fn's ``batch``
+    prefill→ the kwargs of prefill_fn's ``batch`` (the audio family's
+             ``frames`` without ``tokens``: prefill is the encoder)
+    decode → ``token`` (B, 1), the cache or state of length S
+             (``init_decode_state`` on meta; the audio family's
+             :func:`encdec_cache_specs`) and ``cur_len`` = S, a full cache
+
+    ``batch`` is the rows a rank holds on a data-parallel mesh (default:
+    the shape's global batch).
+    """
+    B, S = batch or shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    tok = torch.empty((B, S), dtype=torch.int32, device=meta)
+    dtype = getattr(torch, cfg.dtype)
+    if shape.kind in ("train", "prefill"):
+        out: dict[str, Any] = {"tokens": tok}
+        if shape.kind == "train":
+            out["labels"] = torch.empty((B, S), dtype=torch.int32, device=meta)
+        if cfg.family == "vlm":
+            out["positions"] = torch.empty((3, B, S), dtype=torch.int32, device=meta)
+            out["vision_embeds"] = torch.empty((B, cfg.n_vision_tokens, cfg.d_model),
+                                               dtype=dtype, device=meta)
+        if cfg.family == "audio":
+            out["frames"] = torch.empty((B, S, cfg.d_model), dtype=dtype, device=meta)
+            if shape.kind == "prefill":
+                out.pop("tokens")
+        return {"batch": out}
+    token = torch.empty((B, 1), dtype=torch.int32, device=meta)
+    if cfg.family == "audio":
+        cache = encdec_cache_specs(cfg, B, S)
+    else:
+        cache = get_api(cfg).init_decode_state(B, S, device=meta)
+    return {"token": token, "cache": cache, "cur_len": S}
+
+
+def encdec_cache_specs(cfg: ModelConfig, B: int, max_len: int) -> dict:
+    """The audio family's decode cache on meta: self-attention ``k``/``v``
+    and the encoder's cross-attention ``xk``/``xv``, (L, B, max_len, Hkv,
+    hd) bfloat16 each, as ``encdec.init_decode_cache`` makes it."""
+    shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.hd)
+    return {k: torch.empty(shape, dtype=torch.bfloat16, device="meta")
+            for k in ("k", "v", "xk", "xv")}

@@ -32,14 +32,23 @@ by the new residual, and ĝ's leaves are views of the round trip's output.
 The state is updated in place, as the reference's donated state is.
 
 ``abstract_state`` builds the state's shapes on the meta device, and
-``state_shardings`` gives the reference's specs for them; ``lower_cell``
-(XLA's ahead-of-time lowering) is not ported.
+``state_shardings`` gives the reference's specs for them. ``lower_cell``
+(the reference's ahead-of-time lowering) gives a cell's step and its inputs
+on the meta device, for ``roofline.counter.OpCounter`` to count: the dry-run
+runs the same eager step that runs on the card.
+
+The step reads the optimizer's step count from the host: from its
+``step=`` argument, else from the count it keeps of the state it last
+returned, and only for another state (the first step, a restored one) from
+the state's ``opt.step`` tensor, which waits for the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
+import weakref
 
 import numpy as np
 import torch
@@ -48,7 +57,7 @@ import torch.distributed as torch_dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.grad_compress import CompressConfig, compress_flat, exchange_mean, padded_len
 from repro_torch.launch.mesh import dp_axes_of, tp_axis_of
-from repro_torch.models.api import ModelAPI
+from repro_torch.models.api import ModelAPI, get_api, input_specs
 from repro_torch.models.transformer import NO_DIST, Dist
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import sharding as shard_mod
@@ -199,6 +208,8 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
     gc_key = fold_in_str(key, "grad-compress")
     compress = tcfg.compress
     chunk_p = compress.chunk_p if compress is not None else 1
+    # the opt.step tensor the step last returned, and its value on the host
+    last = {"tensor": lambda: None, "step": 0}
 
     def grads_into(params, batch) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """(the summed gradients as one zero-padded float32 vector, the loss,
@@ -227,7 +238,16 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
             return flat, total / a, {}
         return flat, total, {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: dict, batch: dict):
+    def host_step(state: dict, step: int | None) -> int:
+        if step is None:
+            t = state["opt"]["step"]
+            step = last["step"] if t is last["tensor"]() else int(t)
+        return step
+
+    def train_step(state: dict, batch: dict, step: int | None = None):
+        """One step; ``step`` is the optimizer's step count (the state's
+        ``opt.step``) where the caller knows it on the host."""
+        step = host_step(state, step)
         if not tcfg.donate:
             state = tree_map(lambda t: t.clone(), state)
         params = state["params"]
@@ -251,8 +271,7 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
                 for r in res:
                     flat[off:off + r.numel()].add_(r.reshape(-1))
                     off += r.numel()
-                g_flat, res_flat, wire = compress_flat(flat, gc_key, int(state["opt"]["step"]),
-                                                       compress, mesh=mesh)
+                g_flat, res_flat, wire = compress_flat(flat, gc_key, step, compress, mesh=mesh)
                 if res_flat is not None:
                     state["residual"] = tree_unflatten(
                         params, _assign(res or [None] * len(leaves), res_flat, leaves, dtypes))
@@ -267,6 +286,7 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
             del g_flat
             _, state["opt"], opt_stats = opt_mod.adamw_update(
                 tree_unflatten(params, g_leaves), params, state["opt"], tcfg.opt)
+        last["tensor"], last["step"] = weakref.ref(state["opt"]["step"]), step + 1
         return state, {"loss": loss, **stats, **opt_stats, **metrics}
 
     return train_step
@@ -322,3 +342,112 @@ def _assign(dst: list, flat: torch.Tensor, like: list, dtypes: list) -> list:
         else:
             out.append(seg.to(dt, copy=True))
     return out
+
+
+# ------------------------------------------------------- the dry-run's cell ---
+
+@contextlib.contextmanager
+def _fake_group(mesh):
+    """A process group for ``mesh``'s ranks where none is live: this process
+    as rank 0 of ``torch.distributed``'s "fake" backend, whose collectives
+    move nothing (what a rank sends and receives is counted from their
+    shapes). Destroyed on the way out."""
+    if mesh is None or not mesh.collective or torch_dist.is_initialized():
+        yield
+        return
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("counting a data-parallel cell needs torch.distributed's fake "
+                           "backend (torch.testing._internal.distributed.fake_pg), which "
+                           "this torch lacks") from e
+    torch_dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                  world_size=max(mesh.owners) + 1)
+    try:
+        yield
+    finally:
+        torch_dist.destroy_process_group()
+
+
+def lower_cell(cfg: ModelConfig, shape, mesh, tcfg: TrainerConfig | None = None, key=None,
+               device="meta"):
+    """The step of one (arch × shape × mesh) cell and its inputs on the meta
+    device: ``(step, args, meta)``, for ``step(*args)`` to run under
+    ``roofline.counter.OpCounter``. With another ``device`` the same step
+    and inputs there (:func:`materialize`), to hold its count against the
+    meta device's.
+
+    train  → train_step(state, batch)          (the global batch; a rank takes its block)
+    prefill→ prefill_fn(params, batch)         (a rank's rows)
+    decode → decode_fn(params, token, cache, cur_len)
+    ``meta``: ``{"kind", "n_chips", "batch"}`` (the rows a rank holds).
+
+    ``mesh`` None is one device. A mesh whose every axis of more than one
+    position carries data (``tcfg.dp_only``, or no "model" axis) replicates
+    the parameters and splits the batch; where no process group is live the
+    train step runs as rank 0 of a fake group of the mesh's ranks, so its
+    collectives are counted. A mesh that asks for the model axis raises
+    ``not_ported(..., PLACEMENT)``.
+    """
+    tcfg = tcfg or TrainerConfig()
+    key = key if key is not None else np.zeros(2, np.uint32)
+    device = resolve_device(device)
+    api = get_api(cfg)
+    dist = make_dist(mesh, cfg, sp=tcfg.sp, use_ep=tcfg.use_ep, dp_only=tcfg.dp_only)
+    mesh = _dp_mesh(dist)
+    n_data = mesh.size if mesh is not None else 1
+    # a batch the ranks cannot split evenly is held whole by each (replicated)
+    rows = shape.global_batch // n_data if shape.global_batch % n_data == 0 else shape.global_batch
+    info = {"kind": shape.kind, "n_chips": n_data, "batch": rows}
+
+    if shape.kind == "train":
+        fn = make_train_fn(api, tcfg, dist, key, device=device)
+
+        def train_step(state, batch):
+            with _fake_group(mesh):
+                return fn(state, batch, step=0)
+
+        specs = materialize(input_specs(cfg, shape), cfg, device)
+        return train_step, (init_state(api, tcfg, key, device=device), specs["batch"]), info
+
+    params = api.init_params(_seed_of(key), device)
+    specs = materialize(input_specs(cfg, shape, batch=rows), cfg, device)
+    if shape.kind == "prefill":
+        def prefill_step(params, batch):
+            return api.prefill_fn(params, batch, NO_DIST, device=device, q_chunk=tcfg.q_chunk,
+                                  kv_chunk=tcfg.kv_chunk)
+
+        return prefill_step, (params, specs["batch"]), info
+
+    def serve_step(params, token, cache, cur_len):
+        return api.decode_fn(params, token, cache, cur_len, NO_DIST, device=device)
+
+    return serve_step, (params, specs["token"], specs["cache"], specs["cur_len"]), info
+
+
+def materialize(specs: dict, cfg: ModelConfig, device) -> dict:
+    """``models.api.input_specs``'s meta tensors as tensors on ``device`` (the
+    same tree on meta): token ids drawn below the vocabulary, the vlm
+    family's positions a plain 0 … S−1 ramp, the frames and vision
+    embeddings N(0, 1) in their dtype, a cache or state zero; drawn on the
+    host from a generator seeded with 0."""
+    if device.type == "meta":
+        return specs
+    gen = torch.Generator().manual_seed(0)
+
+    def make(name, t):
+        if name in ("tokens", "labels", "token"):
+            return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                 dtype=t.dtype).to(device)
+        if name == "positions":
+            return torch.arange(t.shape[-1], dtype=t.dtype).expand(t.shape).contiguous().to(device)
+        if t.is_floating_point() and name in ("frames", "vision_embeds"):
+            return torch.randn(t.shape, generator=gen).to(t.dtype).to(device)
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return make(name, node) if torch.is_tensor(node) else node
+
+    return walk(specs)

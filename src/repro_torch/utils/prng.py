@@ -37,6 +37,8 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.roofline.counter import host_work
+
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # elements hashed per chunk: bounds the int64 scratch of one draw to ~256 MiB
@@ -98,10 +100,11 @@ def _key_ints(key) -> tuple[int, int]:
 
 def _hash_pairs(key, hi, lo) -> np.ndarray:
     """Hash a few count pairs on the host → (2, len) uint32."""
-    x0 = torch.tensor(hi, dtype=torch.int64)
-    x1 = torch.tensor(lo, dtype=torch.int64)
-    y0, y1 = _threefry2x32(*_key_ints(key), x0, x1)
-    return np.stack([y0.numpy(), y1.numpy()]).astype(np.uint32)
+    with host_work():
+        x0 = torch.tensor(hi, dtype=torch.int64)
+        x1 = torch.tensor(lo, dtype=torch.int64)
+        y0, y1 = _threefry2x32(*_key_ints(key), x0, x1)
+        return np.stack([y0.numpy(), y1.numpy()]).astype(np.uint32)
 
 
 # ------------------------------------------------------------------ keys ----
@@ -132,8 +135,9 @@ def split(key, num: int = 2) -> np.ndarray:
     """``jax.random.split`` → (num, 2) uint32 keys."""
     if not _LAYOUT["partitionable"]:
         words = np.empty(2 * num, dtype=np.uint32)   # threefry_2x32(key, iota(2·num))
-        for start, bits in _original_block(key, 2 * num, 0, 2 * num, "cpu"):
-            words[start:start + bits.numel()] = bits.numpy()
+        with host_work():
+            for start, bits in _original_block(key, 2 * num, 0, 2 * num, "cpu"):
+                words[start:start + bits.numel()] = bits.numpy()
         return words.reshape(num, 2)
     out = _hash_pairs(key, [0] * num, list(range(num)))
     return np.ascontiguousarray(out.T)
