@@ -244,18 +244,20 @@ Phases, in order; any failure exits non-zero:
               full width, its depth cut to DEPTH16 = 6 of 26 layers (one
               5:1 local/global group; two ranks share the 80 GB), bf16,
               AdamW, CompressConfig(gamma=0.1) with error feedback, seq
-              4096, a global batch of 4 (2 rows a rank as 2 micro-batches),
-              3 steps with a checkpoint after step 2. Gates: every loss
-              finite; K2 on its kernel path twice a step on each rank; each
-              step's exchange exactly chunks × m × 4 bytes (counted by the
-              trainer, printed beside the dense 4·p); the launcher again,
-              resuming at 2 ranks from step 2, bit-equal in losses and final
-              parameters (their SHA-256); one process restored from the step-2
-              checkpoint (the elastic path, 2 → 1: the ranks' mean
-              residual) continuing to step 3 with finite losses within 0.05
-              of the 2 ranks'; peak memory under 35 GiB a rank. It prints s
-              a step, tokens/s, the exchange's ms and bytes a step and the
-              mask's share of a step (K2 at a rank's shape is phase 13's).
+              4096, a global batch of 4 (2 rows a rank as one
+              micro-batch), 2 steps with a checkpoint after step 1; the
+              launcher places the state (FSDP, train/fsdp.py). Gates: every
+              loss finite; K2 on its kernel path twice a step on each rank
+              (on its range of the chunks); each step's two all-to-alls
+              exactly the bytes the layout gives (counted by the trainer,
+              printed beside the dense 4·p); the launcher again, resuming at
+              2 ranks from step 1, bit-equal in losses and final parameters
+              (their SHA-256, gathered whole); one process restored from the
+              step-1 checkpoint (the elastic path, 2 → 1: the one residual)
+              continuing to step 2 with finite losses within 0.05 of the 2
+              ranks'; peak memory under 35 GiB a rank. It prints s a step,
+              tokens/s, the all-to-alls' ms and bytes a step and the mask's
+              share of a step.
 
 17. moe — the moe family at full width in bf16, random weights from a seeded
               torch.Generator: (a) qwen3-moe-235b-a22b cut to DEPTH17A = 4 of
@@ -313,9 +315,34 @@ Phases, in order; any failure exits non-zero:
               full 26 layers (t_compute, t_memory, dominant, model_flops).
               Phase 3's bounds come from roofline.kernels too.
 
+19. fsdp — FSDP placement against the replicated path: two gloo ranks on the
+              one card (this script with --fsdp-worker), phase 16's model and
+              trainer (gemma3-1b at full width cut to DEPTH16 layers, bf16,
+              CompressConfig(gamma=0.1) with error feedback, a global batch
+              of 4 × 4096, a rank's 2 rows as ACCUM19 = 2 micro-batches, so
+              each micro-batch's reduce-scatter adds into the placed float32
+              accumulator and the replicated path accumulates over ranks),
+              STEPS19 steps placed (trainer.place_state) and STEPS19 steps
+              replicated (the state init_state builds) from the same
+              weights. Gates: every loss finite; the first step's losses
+              equal in both paths (the same weights and batch), the later
+              steps' within LOSS19 (the placed residual is the ranks' mean,
+              the replicated one each rank's own), and their parameters
+              (the placed ones gathered) within the bf16 bound of
+              tests/test_torch_dp.py (at most 3 % of
+              the coordinates more than one unit apart, each within 2·lr a
+              step plus 2^-7 of its value); each rank's masks of its chunk
+              range bit-equal to those rows of the replicated step's; each
+              rank's state on the card within 2 % of the layout's bytes (its
+              blocks, the leaves that stay whole, its range of the
+              residual); K2 on its kernel path twice a placed step on each
+              rank. It prints both paths' s a step, K2's launches and shape,
+              the bytes each rank's collectives moved by kind and each
+              rank's peak memory.
+
 Then one JSON line listing every kernel (launches: its path's run in phase 5
 or 7; launches_by_phase: that count and phase 9's, 10's, 11's, 12's, 13's, 14's,
-15's, 16's, 17's and 18's paths' own),
+15's, 16's, 17's, 18's and 19's paths' own),
 the card's line again, and the result line
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -423,11 +450,12 @@ SLOTS15, MAXLEN15, REQS15, NEW15 = 4, 64, 4, 8
 # phase 16: data-parallel training through launch.train --devices 2 over gloo
 # on the one card: gemma3-1b at full width cut to DEPTH16 layers (one 5:1
 # local/global group; two ranks share the 80 GB), train_4k's sequence, a
-# global batch of B16 (B16 / 2 rows a rank as ACCUM16 micro-batches), STEPS16
+# global batch of B16 (B16 / 2 rows a rank as ACCUM16 micro-batch: placed,
+# gloo moves every micro-batch's gathers through the host), STEPS16
 # steps with a checkpoint after CKPT16; a rank's peak-memory ceiling; how
 # far the one-process continuation from the checkpoint (2 → 1 ranks) may
 # stray from the 2 ranks' losses
-SEQ16, B16, ACCUM16, STEPS16, CKPT16, DEPTH16 = 4096, 4, 2, 3, 2, 6
+SEQ16, B16, ACCUM16, STEPS16, CKPT16, DEPTH16 = 4096, 4, 1, 2, 1, 6
 PEAK16_GIB, ELASTIC16 = 35.0, 0.05
 # phase 17: the moe family in bf16. (a) qwen3-moe-235b-a22b at full width cut
 # to DEPTH17A of its 94 layers, prefill of B17A × S17 then GEN17A decode
@@ -459,6 +487,16 @@ SLOTS17, MAXLEN17, REQS17, NEW17 = 4, 48, 4, 4
 CPU17, CPU17_EXPERTS, TOL17 = 64, 16, 1e-5
 DEPTH17C, EXPERTS17C, B17C, ACCUM17C, STEPS17C = 1, 32, 2, 2, 3
 DEPTH17D, CF17D_EP, TOL17D, TOL17D_LOSS, A2A17_REPS = 1, 4.0, 0.03, 1e-3, 3
+# phase 19: phase 16's model and trainer on 2 gloo ranks of the card, STEPS19
+# steps placed (FSDP) and STEPS19 replicated from the same weights, each
+# rank's 2 rows as ACCUM19 micro-batches (gloo moves every micro-batch's
+# gathers and reduce-scatters through the host: a placed step took 14.5 s
+# at 2 micro-batches on an H100); the first step's losses equal, a later
+# step's within LOSS19 (7.44e-05 apart at one micro-batch, while a step
+# moves the loss by ≈ 1.9); at most FLIP19 of the parameters more than one
+# bf16 unit apart (tests/test_torch_dp.py's bf16 bound), each rank's state
+# within MEM19 of its layout's bytes
+STEPS19, ACCUM19, FLIP19, MEM19, LR19, LOSS19 = 2, 2, 3e-2, 0.02, 3e-4, 1e-3
 # phase 8's mixture: K Gaussians of unit noise whose means are drawn N(0, SEP²/p·I),
 # so two means lie ≈ SEP·√2 apart; in the sparsified metric a row's margin is
 # ≈ √γ·SEP·√2 / 2 = 6.3 noise σ at γ = 0.05 (dense: ≈ 28 σ)
@@ -2489,13 +2527,19 @@ def phase16_dp_train(card: str) -> dict[str, int]:
     from repro_torch.models.transformer import NO_DIST
     from repro_torch.train import checkpoint as ckpt_mod
     from repro_torch.train import optimizer as opt_mod
-    from repro_torch.train.trainer import TrainerConfig, abstract_params, init_state, make_train_fn
+    from repro_torch.cluster.bootstrap import Mesh
+    from repro_torch.train import fsdp
+    from repro_torch.train.trainer import (TrainerConfig, abstract_params, abstract_state,
+                                           init_state, make_train_fn)
     from repro_torch.utils import prng
     from repro_torch.utils.tree import tree_count_params
 
     cfg = dataclasses.replace(get_arch("gemma3-1b"), n_layers=DEPTH16)
     model = get_api(cfg)
     comp = gc.CompressConfig(gamma=0.1)
+    # the launcher's state, placed on its host mesh of the 2 ranks
+    tcfg16 = TrainerConfig(compress=comp)
+    mesh16 = Mesh((1, 2), ("data", "model"), owners=(0, 1), collective=True)
     cp, m = comp.chunk_p, comp.m
     n = tree_count_params(abstract_params(model))
     nc = -(-n // cp)
@@ -2503,8 +2547,8 @@ def phase16_dp_train(card: str) -> dict[str, int]:
     print(f"== 16 dp-train: python -m repro_torch.launch.train --devices 2 --dist-backend gloo on "
           f"the one card: {cfg.name} at full width, {DEPTH16} of its 26 layers ({n:,} bf16 "
           f"parameters, {nc:,} chunks of {cp}, m {m}), AdamW, CompressConfig(gamma={comp.gamma}) "
-          f"with error feedback, seq {SEQ16}, a global batch of {B16} ({B16 // 2} rows a rank as "
-          f"{ACCUM16} micro-batches), {STEPS16} steps, a checkpoint after step {CKPT16}", flush=True)
+          f"with error feedback, seq {SEQ16}, a global batch of {B16} ({B16 // 2} rows a rank in "
+          f"{ACCUM16} micro-batch), {STEPS16} steps, a checkpoint after step {CKPT16}", flush=True)
     base = [sys.executable, "-m", "repro_torch.launch.train", "--devices", "2", "--dist-backend",
             "gloo", "--device", "cuda", "--arch", cfg.name, "--layers", str(DEPTH16), "--seq",
             str(SEQ16), "--batch", str(B16), "--accum", str(ACCUM16), "--steps", str(STEPS16),
@@ -2519,11 +2563,11 @@ def phase16_dp_train(card: str) -> dict[str, int]:
                                    f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
         return out.stdout, time.perf_counter() - t0
 
-    # a checkpoint holds the bf16 parameters, the float32 moments, the ranks'
-    # mean residual and each rank's: 22 bytes a parameter, kept in host
-    # memory (/dev/shm), as the phases before write theirs to the machine's
-    # disk. Only the step-CKPT16 checkpoint is written (--no-final-ckpt)
-    ck_bytes = 22 * n
+    # a checkpoint holds the bf16 parameters, the float32 moments and the
+    # one residual: 14 bytes a parameter, kept in host memory (/dev/shm), as
+    # the phases before write theirs to the machine's disk. Only the
+    # step-CKPT16 checkpoint is written (--no-final-ckpt)
+    ck_bytes = 14 * n
     free = shutil.disk_usage("/dev/shm").free
     check(free > 1.2 * ck_bytes, f"dp-train: /dev/shm has {free / 1e9:.1f} GB free, the phase's "
                                  f"checkpoint needs {1.2 * ck_bytes / 1e9:.1f}")
@@ -2531,7 +2575,7 @@ def phase16_dp_train(card: str) -> dict[str, int]:
     try:
         run_dir = os.path.join(tmp, "run")
         out, t_run = launch("--ckpt-dir", run_dir, "--ckpt-every", str(CKPT16), "--no-final-ckpt",
-                            "--time-exchange", "2")
+                            "--time-exchange", "1")
         for line in out.splitlines():
             if line.startswith("step "):
                 print(f"    {line}")
@@ -2542,8 +2586,11 @@ def phase16_dp_train(card: str) -> dict[str, int]:
               f"dp-train: not 2 gloo ranks on the card: {runs}")
         losses = runs[0]["losses"]
         step_s = float(np.median(runs[0]["step_s"][1:]))
-        ex, mask = runs[0]["exchange_ms"], runs[0]["mask_ms"]
-        payload = runs[0]["payload_bytes"]
+        to_ms, from_ms, mask = (runs[0]["to_chunks_ms"], runs[0]["from_chunks_ms"],
+                                runs[0]["mask_ms"])
+        layouts = [dataclasses.replace(fsdp.Layout.of(abstract_state(model, tcfg16), mesh16),
+                                       rank=r) for r in (0, 1)]
+        moves = [lay.chunk_bytes() for lay in layouts]
         ck_size = os.path.getsize(os.path.join(ckpt_mod.latest_step_dir(run_dir), "arrays.npz"))
         print(f"  2 ranks, uninterrupted with a checkpoint after step {CKPT16} ({ck_size:,} bytes): "
               f"{t_run:.1f} s with the processes' start (rank 0: {runs[0]['ready_s']:.1f} s to its "
@@ -2551,12 +2598,15 @@ def phase16_dp_train(card: str) -> dict[str, int]:
               f"(median of rank 0's steps 1-{STEPS16 - 1}; step 0 {runs[0]['step_s'][0]:.3f} s), "
               f"{tokens / step_s:,.0f} tokens/s; peak memory "
               f"{[round(r['peak_gib'], 2) for r in runs]} GiB a rank; {card}", flush=True)
-        print(f"  the exchange a step: {payload:,} bytes ({nc:,} × {m} float32) against the dense "
-              f"gradient's 4·p = {runs[0]['dense_bytes']:,} ({payload / runs[0]['dense_bytes']:.4f} "
-              f"of it); all-reduced over gloo in {ex[0]:.1f} ms (min of 2, median {ex[1]:.1f}); "
-              f"counted over the run {runs[0]['exchange_bytes']}; the mask (sample_indices, "
-              f"{nc:,} × {m}) {mask[0]:.1f} ms (median {mask[1]:.1f}), {mask[1] / 1e3 / step_s:.3f} "
-              f"of a step; launches {[r['launches'] for r in runs]}; {card}", flush=True)
+        rows = [r["rows"][1] - r["rows"][0] for r in runs]
+        print(f"  placed (FSDP): each rank's chunks {[r['rows'] for r in runs]} of {nc:,}; the "
+              f"all-to-alls a step move {moves} bytes a rank (the dense gradient's 4·p = "
+              f"{runs[0]['dense_bytes']:,}); over gloo into the ranges {to_ms[0]:.1f} ms, back "
+              f"{from_ms[0]:.1f} ms (one timed call each); counted over the run "
+              f"{[r['exchange_bytes'] for r in runs]}; rank 0's mask (sample_indices, "
+              f"{rows[0]:,} × {m}) {mask[0]:.1f} ms, {mask[0] / 1e3 / step_s:.3f} of a step; "
+              f"launches {[r['launches'] for r in runs]}; "
+              f"{card}", flush=True)
         check(all(math.isfinite(v) for v in losses) and len(losses) == STEPS16,
               f"dp-train: a loss is not finite: {losses}")
         check(all(r["losses"] == losses and r["params_sha256"] == runs[0]["params_sha256"]
@@ -2565,9 +2615,11 @@ def phase16_dp_train(card: str) -> dict[str, int]:
                   and r["dispatch"].get("hd_precondition/kernel") == 2 * STEPS16
                   and not [k for k in r["dispatch"] if k.endswith("/ref")] for r in runs),
               "dp-train: K2 did not launch twice a step on each rank's kernel path")
-        check(runs[0]["params"] == n and payload == nc * m * 4
-              and all(r["exchange_bytes"] == {"shared-mask": STEPS16 * nc * m * 4} for r in runs),
-              f"dp-train: the exchange is not {nc} × {m} × 4 bytes a step")
+        check(runs[0]["params"] == n and all(r["chunks"] == nc for r in runs)
+              and all({k: r["exchange_bytes"].get(k) for k in mv} == {k: STEPS16 * v
+                                                                       for k, v in mv.items()}
+                      for r, mv in zip(runs, moves)),
+              f"dp-train: the all-to-alls did not move the layout's bytes {moves} a step")
         check(all(r["peak_gib"] < PEAK16_GIB for r in runs),
               f"dp-train: peak memory ≥ {PEAK16_GIB} GiB a rank")
 
@@ -2584,7 +2636,7 @@ def phase16_dp_train(card: str) -> dict[str, int]:
                   for r in res_runs), "dp-train: the resumed run differs from the uninterrupted one")
 
         # the elastic path 2 → 1: this process restores the step-2 checkpoint
-        # (the ranks' mean residual) and continues on the global batch
+        # (the one residual) and continues on the global batch
         tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=3e-4, warmup_steps=max(1, STEPS16 // 20),
                                                    total_steps=STEPS16),
                              accum_steps=ACCUM16, compress=comp, q_chunk=min(512, SEQ16),
@@ -2603,7 +2655,7 @@ def phase16_dp_train(card: str) -> dict[str, int]:
             elastic.append(float(met["loss"]))
         k2_one = ops.launch_counts()["hd_precondition"]
         gap = max(abs(a - b) for a, b in zip(elastic, losses[CKPT16:]))
-        print(f"  elastic 2 → 1: one process restored the step-{CKPT16} checkpoint (the ranks' mean "
+        print(f"  elastic 2 → 1: one process restored the step-{CKPT16} checkpoint (the one "
               f"residual) in {t_restore:.2f} s and continued: losses {elastic} against the 2 ranks' "
               f"{losses[CKPT16:]}, {gap:.3g} apart (≤ {ELASTIC16}); K2 launches {k2_one}; peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}", flush=True)
@@ -2618,6 +2670,189 @@ def phase16_dp_train(card: str) -> dict[str, int]:
     print(f"  launches in phase 16 (both ranks' uninterrupted run): {launches16}")
     print(f"  phase 16: {time.perf_counter() - t16:.1f} s; {card}", flush=True)
     return launches16
+
+
+def _fsdp_worker(argv) -> None:
+    """``python3 chip_smoke.py --fsdp-worker --coordinator HOST:PORT --out DIR
+    --process-id R``: rank R of phase 19's two gloo ranks on the card. It
+    trains phase 16's model STEPS19 steps placed, then STEPS19 steps
+    replicated from the same weights, and writes to DIR/rank{R}.pt each
+    path's losses, step times, peak memory and masks' agreement, the placed
+    state's bytes beside its layout's, K2's launches and rows, the bytes its
+    collectives moved and how far the two paths' parameters lie apart."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fsdp-worker", action="store_true")
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch import cluster, obs
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import grad_compress as gc
+    from repro_torch.data.pipeline import SyntheticLMSource
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_api
+    from repro_torch.train import fsdp
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.trainer import (TrainerConfig, abstract_state, init_state, make_dist,
+                                           make_train_fn, place_state)
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    cluster.initialize(args.coordinator, 2, args.process_id, backend="gloo", device="cuda")
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), n_layers=DEPTH16)
+    model = get_api(cfg)
+    tcfg = TrainerConfig(opt=opt_mod.OptConfig(peak_lr=LR19, warmup_steps=1, total_steps=STEPS19),
+                         accum_steps=ACCUM19, compress=gc.CompressConfig(gamma=0.1),
+                         q_chunk=512, kv_chunk=1024, dp_only=True)
+    key = prng.PRNGKey(0)
+    dist = make_dist(make_host_mesh(1, 2), cfg, dp_only=True)
+    fn = make_train_fn(model, tcfg, dist, key, device="cuda")
+    src = SyntheticLMSource(cfg.vocab_size, SEQ16, B16, seed=0)
+    batches = [src.batch_for(s) for s in range(STEPS19)]
+    drawn, draw = [], gc.sample_indices
+
+    def recording(*a, **kw):
+        idx = draw(*a, **kw)
+        drawn.append(idx)
+        return idx
+
+    gc.sample_indices = recording
+
+    def moved() -> dict:
+        return {m.labels["mode"]: m.value for m in obs.default_registry().metrics()
+                if m.name == "grad_compress.exchange_bytes"}
+
+    def run(state):
+        losses, times, masks = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            drawn.clear()
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            t = time.perf_counter()
+            state, met = fn(state, b)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            masks.append(drawn[0])
+        return state, losses, times, masks, torch.cuda.max_memory_allocated() / 2**30
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    placed = place_state(init_state(model, tcfg, key, device="cuda"), dist)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    layout = placed.layout
+    reckoned = layout.state_bytes(abstract_state(model, tcfg))
+    before = moved()
+    ops.reset_counts()
+    placed, p_losses, p_times, p_masks, p_peak = run(placed)
+    counts = ops.launch_counts()
+    dispatch = {f"{k[0]}/{k[1]}": v for k, v in ops.DISPATCH.items()}
+    after = moved()
+    bytes_by_kind = {k: v - before.get(k, 0) for k, v in after.items() if v > before.get(k, 0)}
+    p_params = [fsdp.gather_leaf(leaf, layout.places["['params']" + name])
+                for name, leaf in tree_leaves_with_path(placed["params"])]
+    del placed
+    torch.cuda.empty_cache()
+    rep, r_losses, r_times, r_masks, r_peak = run(init_state(model, tcfg, key, device="cuda"))
+    c0, c1 = layout.chunk_ranges[layout.rank]
+    masks_equal = all(torch.equal(pm, rm[c0:c1]) for pm, rm in zip(p_masks, r_masks))
+    flipped = total = 0
+    within = True
+    for p, q in zip(p_params, tree_leaves(rep["params"])):
+        p, q = p.detach(), q.detach()
+        d = (p.float() - q.float()).abs()
+        total += d.numel()
+        if p.dtype == torch.bfloat16:
+            ulps = (p.view(torch.int16).int() - q.view(torch.int16).int()).abs()
+            flipped += int(((ulps > 1) | (p.float() * q.float() < 0)).sum())
+            within &= bool((d <= 2 * LR19 * STEPS19 + q.float().abs() * 2.0**-7).all())
+        else:
+            flipped += int((d > 1e-6).sum())
+            within &= float(d.max()) <= 2 * LR19 * STEPS19
+        del d
+    torch.save(dict(placed_losses=p_losses, placed_s=p_times, placed_peak_gib=p_peak,
+                    replicated_losses=r_losses, replicated_s=r_times, replicated_peak_gib=r_peak,
+                    masks_equal=masks_equal, mask_rows=[c0, c1], n_chunks=layout.n_chunks,
+                    state_bytes=held, layout_bytes=reckoned, counts=counts, dispatch=dispatch,
+                    bytes_by_kind=bytes_by_kind, flipped=flipped, coords=total, within=within),
+               os.path.join(args.out, f"rank{args.process_id}.pt"))
+    torch.distributed.barrier()
+    cluster.shutdown()
+
+
+def phase19_fsdp(card: str) -> dict[str, int]:
+    """Phase 19 (module docstring): FSDP placement against the replicated
+    path on two gloo ranks of the card (``_fsdp_worker``). Returns the
+    kernels' launches of the placed steps, summed over the ranks."""
+    t19 = time.perf_counter()
+    import torch
+
+    from repro_torch.cluster.bootstrap import free_port, run_ranks
+
+    tokens = B16 * SEQ16
+    print(f"== 19 fsdp: gemma3-1b at full width, {DEPTH16} of its 26 layers, bf16, on 2 gloo ranks "
+          f"of the card: {STEPS19} steps with the state placed (FSDP) and {STEPS19} replicated from "
+          f"the same weights, CompressConfig(gamma=0.1) with error feedback, a global batch of "
+          f"{B16} × {SEQ16} ({ACCUM19} micro-batches of {B16 // 2 // ACCUM19} row a rank)",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="fsdp19-")
+    try:
+        rc = run_ranks([sys.executable, os.path.abspath(__file__), "--fsdp-worker",
+                        "--coordinator", f"127.0.0.1:{free_port()}", "--out", tmp], 2)
+        check(rc == 0, f"fsdp: a rank exited {rc}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    p_s, r_s = float(np.median(r0["placed_s"][1:] or r0["placed_s"])), \
+        float(np.median(r0["replicated_s"][1:] or r0["replicated_s"]))
+    gap = max(abs(a - b) for a, b in zip(r0["placed_losses"][1:], r0["replicated_losses"][1:]))
+    moved = max(abs(a - b) for a, b in zip(r0["replicated_losses"][1:], r0["replicated_losses"]))
+    print(f"  placed: losses {r0['placed_losses']}, {p_s:.3f} s a step (rank 0's steps "
+          f"{[round(t, 3) for t in r0['placed_s']]}), {tokens / p_s:,.0f} tokens/s; replicated: "
+          f"losses {r0['replicated_losses']}, {r_s:.3f} s a step ({[round(t, 3) for t in r0['replicated_s']]}); "
+          f"step 0 equal {r0['placed_losses'][0] == r0['replicated_losses'][0]}, steps 1– "
+          f"{gap:.3g} apart (≤ {LOSS19}; a step moves the loss by {moved:.3g}); {card}", flush=True)
+    for r, x in enumerate(ranks):
+        rows = x["mask_rows"][1] - x["mask_rows"][0]
+        print(f"  rank {r}: state on the card {x['state_bytes']:,} bytes against the layout's "
+              f"{x['layout_bytes']:,} ({x['state_bytes'] / x['layout_bytes']:.4f}); K2 launches "
+              f"{x['counts']['hd_precondition']} at ({rows:,}, 16384), chunks {x['mask_rows']} of "
+              f"{x['n_chunks']:,}; masks bit-equal to the replicated step's rows {x['masks_equal']}; "
+              f"bytes sent by kind over {STEPS19} steps {x['bytes_by_kind']}; peak memory placed "
+              f"{x['placed_peak_gib']:.2f} GiB, replicated {x['replicated_peak_gib']:.2f} GiB; "
+              f"parameters more than one bf16 unit apart {x['flipped']:,} of {x['coords']:,} "
+              f"(≤ {FLIP19:g}), each within its bound {x['within']}; {card}", flush=True)
+    check(all(math.isfinite(v) for x in ranks for v in x["placed_losses"] + x["replicated_losses"]),
+          "fsdp: a loss is not finite")
+    check(ranks[0]["placed_losses"] == ranks[1]["placed_losses"]
+          and all(x["placed_losses"][0] == x["replicated_losses"][0] for x in ranks)
+          and gap <= LOSS19, f"fsdp: the placed and replicated losses differ: "
+                             f"{r0['placed_losses']} against {r0['replicated_losses']}")
+    check(all(x["masks_equal"] for x in ranks), "fsdp: a placed mask differs from the replicated")
+    check(ranks[0]["mask_rows"][1] == ranks[1]["mask_rows"][0]
+          and ranks[1]["mask_rows"][1] == ranks[0]["n_chunks"], "fsdp: the ranks' chunks overlap")
+    check(all(abs(x["state_bytes"] / x["layout_bytes"] - 1) <= MEM19 for x in ranks),
+          "fsdp: a rank's state on the card is off its layout's bytes")
+    check(all(x["flipped"] <= FLIP19 * x["coords"] and x["within"] for x in ranks),
+          "fsdp: the placed parameters are off the replicated ones")
+    check(all(x["counts"]["hd_precondition"] == 2 * STEPS19
+              and x["dispatch"].get("hd_precondition/kernel") == 2 * STEPS19
+              and not [k for k in x["dispatch"] if k.endswith("/ref")] for x in ranks),
+          "fsdp: K2 did not launch twice a placed step on each rank's kernel path")
+    launches19 = {name: sum(x["counts"][name] for x in ranks) for name in r0["counts"]}
+    print(f"  launches in phase 19 (both ranks' placed steps): {launches19}")
+    print(f"  phase 19: {time.perf_counter() - t19:.1f} s; {card}", flush=True)
+    return launches19
 
 
 def _moe_layer_gate(label: str, moe_p: dict, n_experts: int, cfg, card: str) -> None:
@@ -4700,6 +4935,9 @@ def main() -> None:
     # ------------------------------------------------------------ 18 roofline
     launches18 = phase18_roofline(card)
 
+    # ---------------------------------------------------------------- 19 fsdp
+    launches19 = phase19_fsdp(card)
+
     # ---------------------------------------------------------------- summary
     hadamard = "src/repro_torch/kernels/csrc/hadamard.cu"
     sources = {"sketch_fused": (hadamard, "src/repro/kernels/sketch_fused.py:80", launches),
@@ -4721,7 +4959,7 @@ def main() -> None:
              "10 scan and replay": launches10_replay, "10 fd": launches_fd,
              "11 serve": launches11, "12 sharded": launches12, "13 train": launches13,
              "14 lm-serve": launches14, "15 lm-families": launches15, "16 dp-train": launches16,
-             "17 moe": launches17, "18 roofline": launches18}
+             "17 moe": launches17, "18 roofline": launches18, "19 fsdp": launches19}
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=counts[name],
                     launches_by_phase={"5" if counts is launches else "7": counts[name],
@@ -4740,5 +4978,7 @@ if __name__ == "__main__":
         _dp_worker(sys.argv[1:])
     elif "--moe-worker" in sys.argv[1:]:
         _moe_worker(sys.argv[1:])
+    elif "--fsdp-worker" in sys.argv[1:]:
+        _fsdp_worker(sys.argv[1:])
     else:
         main()

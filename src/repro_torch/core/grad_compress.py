@@ -34,6 +34,14 @@ indices are distinct within a row, so each scatter is repeatable on the
 card. ``compress_decompress`` and ``compress_grads`` never read ``mode``, as
 the reference's do not: either mode runs the shared-mask round trip there.
 
+**a range of chunks** (``compress_range``, the trainer's placed state,
+``train/fsdp.py``): each rank holds one contiguous range of whole chunks of
+the mean gradient (the ranks' mean is taken before compression) and the
+residual's values in that range, and round-trips only its own rows, their
+masks the rows of the one-vector draw (``sample_indices(..., row0=,
+total_rows=)``). Nothing crosses ranks here; ``train/fsdp.py`` moves the
+gradient into the ranges and ĝ back.
+
 The keys are the repo's (seed, step, shard) discipline: a sketch spec over the
 chunk length gives the signs key, and each step's mask is
 ``sample_indices(sketch.batch_key(spec, step, shard), nc, chunk_p, m)`` —
@@ -93,8 +101,12 @@ def padded_len(n: int, chunk_p: int) -> int:
 
 
 def round_trip(chunks: torch.Tensor, key, step: int, cfg: CompressConfig,
-               unbiased: bool | None = None, shard: int = 0, mesh: Mesh | None = None):
+               unbiased: bool | None = None, shard: int = 0, mesh: Mesh | None = None,
+               row0: int = 0, total_rows: int | None = None):
     """ĝ and the wire payload of the zero-padded chunks (nc, chunk_p).
+
+    ``row0`` and ``total_rows``: ``chunks`` are rows ``[row0, row0 + nc)`` of
+    a vector of ``total_rows`` chunks, and take those rows' masks.
 
     Returns (g_hat (nc, chunk_p), vals (nc, m)). With a collective ``mesh``
     (the shared-mask exchange) ``vals`` is the ranks' mean of their kept
@@ -109,7 +121,7 @@ def round_trip(chunks: torch.Tensor, key, step: int, cfg: CompressConfig,
     signs_key = spec.signs_key()
     y = ros.precondition(chunks, signs_key, "hadamard")
     idx = sample_indices(sketch_mod.batch_key(spec, step, shard), nc, cp, cfg.m,
-                         device=chunks.device)
+                         device=chunks.device, row0=row0, total_rows=total_rows)
     vals = torch.empty((nc, cfg.m), dtype=y.dtype, device=y.device)
     for r0 in range(0, nc, _ROW_BLOCK):
         torch.gather(y[r0:r0 + _ROW_BLOCK], 1, idx[r0:r0 + _ROW_BLOCK].long(),
@@ -135,7 +147,7 @@ def exchange_mean(vals: torch.Tensor, mesh: Mesh | None, mode: str = "shared-mas
         return vals
     with record_function("grad_compress.exchange"):
         dist.all_reduce(vals)
-    _count_exchange(mode, vals.numel() * vals.element_size())
+    count_exchange(mode, vals.numel() * vals.element_size())
     return vals.div_(dist.get_world_size())
 
 
@@ -169,6 +181,26 @@ def compress_flat(flat: torch.Tensor, key, step: int, cfg: CompressConfig, shard
     g_hat = g_hat.view(-1)
     residual = flat.sub_(g_hat) if cfg.error_feedback else None
     return g_hat, residual, vals.numel()
+
+
+def compress_range(rows: torch.Tensor, key, step: int, cfg: CompressConfig, row0: int,
+                   total_rows: int):
+    """The round trip of one rank's range of chunks of a gradient vector.
+
+    ``rows`` is the (k·chunk_p,) float32 range g + r of chunks ``[row0, row0
+    + k)`` of a zero-padded vector of ``total_rows`` chunks: the mean
+    gradient plus the error-feedback residual. Returns (g_hat, residual,
+    wire_floats) as :func:`compress_flat` does for the whole vector, rows for
+    rows (the masks are those rows of the whole vector's): ``g_hat`` a new
+    (k·chunk_p,) range, ``residual`` ``rows`` overwritten with g + r − ĝ
+    under error feedback (else None), ``wire_floats`` the whole vector's
+    kept values, ``total_rows`` · m.
+    """
+    g_hat, _ = round_trip(rows.view(-1, cfg.chunk_p), key, step, cfg, row0=row0,
+                          total_rows=total_rows)
+    g_hat = g_hat.view(-1)
+    residual = rows.sub_(g_hat) if cfg.error_feedback else None
+    return g_hat, residual, total_rows * cfg.m
 
 
 def compress_grads(grads: Any, key, step: int, cfg: CompressConfig,
@@ -257,9 +289,11 @@ def _workers(mesh_or_group, axes):
     return shard_id(mine), peers, None
 
 
-def _count_exchange(mode: str, nbytes: int) -> None:
+def count_exchange(mode: str, nbytes: int) -> None:
     """The bytes a rank's exchange moved, as the counter
-    ``grad_compress.exchange_bytes{mode=}`` of the default registry."""
+    ``grad_compress.exchange_bytes{mode=}`` of the default registry (the
+    placed trainer's collectives count under modes of their own,
+    ``train/fsdp.py``)."""
     obs.default_registry().counter("grad_compress.exchange_bytes", mode=mode).inc(nbytes)
 
 
@@ -267,7 +301,7 @@ def _all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     """Every rank's ``t``, by group rank (gloo's and NCCL's all-gathers take
     CUDA tensors)."""
     world = dist.get_world_size(group)
-    _count_exchange("per-worker", world * t.numel() * t.element_size())
+    count_exchange("per-worker", world * t.numel() * t.element_size())
     parts = [torch.empty_like(t) for _ in range(world)]
     with record_function("grad_compress.exchange"):
         dist.all_gather(parts, t, group=group)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import estimators, sketch
@@ -62,3 +63,28 @@ def explained_variance(components: torch.Tensor, x: torch.Tensor) -> torch.Tenso
     x = x.to(torch.float32)
     proj = x @ components.to(torch.float32).T      # (n, k)
     return torch.sum(proj**2) / torch.sum(x**2)
+
+
+def recovered_components(est, true, thresh: float = 0.95) -> int:
+    """Table-I metric: #true components recovered under a greedy ONE-TO-ONE match.
+
+    Pairs the globally largest |⟨û_i, u_j⟩| first, then removes both û_i and
+    u_j from contention and repeats — so one estimated component can never be
+    credited for several true ones (a per-true-component ``max`` over the Gram
+    matrix would double-count exactly that way and inflate the metric).
+    ``est`` (ke, p) and ``true`` (kt, p): tensors on any device or arrays;
+    the match runs in float32 numpy on the host.
+    """
+    def f32(a):
+        return torch.as_tensor(a).detach().to("cpu", torch.float32).numpy()
+
+    g = np.abs(f32(est) @ f32(true).T)                  # (ke, kt)
+    recovered = 0
+    for _ in range(min(g.shape)):
+        i, j = np.unravel_index(np.argmax(g), g.shape)
+        if g[i, j] <= thresh:
+            break
+        recovered += 1
+        g[i, :] = -1.0  # û_i is spent …
+        g[:, j] = -1.0  # … and u_j is matched
+    return recovered

@@ -46,8 +46,13 @@ class SparseRows:
         return out.scatter_(1, self.indices.long(), self.values)
 
 
-def sample_indices(key, n: int, p: int, m: int, device="cpu") -> torch.Tensor:
+def sample_indices(key, n: int, p: int, m: int, device="cpu", row0: int = 0,
+                   total_rows: int | None = None) -> torch.Tensor:
     """(n, m) int32 — m distinct columns per row, uniform without replacement.
+
+    With ``row0`` and ``total_rows`` the rows are rows ``[row0, row0 + n)``
+    of the draw of ``total_rows`` rows under ``key``, bit for bit (a rank's
+    range of a gradient's chunks).
 
     The reference takes ``lax.top_k`` of threefry uniforms, which puts the
     lower index first among equal values; a stable descending sort does the
@@ -61,11 +66,14 @@ def sample_indices(key, n: int, p: int, m: int, device="cpu") -> torch.Tensor:
     """
     if not (0 < m <= p):
         raise ValueError(f"need 0 < m <= p, got m={m}, p={p}")
+    total = n if total_rows is None else total_rows
+    if row0 < 0 or row0 + n > total:
+        raise ValueError(f"rows [{row0}, {row0 + n}) are not rows of a draw of {total}")
     out = torch.empty((n, m), dtype=torch.int32, device=device)
     rows = max(1, SAMPLE_BLOCK // p)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
-        u = uniform(key, (r1 - r0, p), device=device, offset=r0 * p, total=n * p)
+        u = uniform(key, (r1 - r0, p), device=device, offset=(row0 + r0) * p, total=total * p)
         order = torch.sort(u, dim=-1, descending=True, stable=True).indices[:, :m]
         del u
         out[r0:r1] = torch.sort(order.to(torch.int32), dim=-1).values

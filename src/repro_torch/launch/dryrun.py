@@ -13,10 +13,13 @@ device pays (flops by dtype, bytes), the collectives' wire bytes, and with
 peaks (``roofline.hw``).
 
 Meshes: ``1`` and ``4`` are H100 cards with every axis carrying data (four:
-the train step runs as rank 0 of a fake process group of four, its
-all-reduces counted). ``single`` and ``multi`` are the reference's 16×16 and
-2×16×16 production meshes: they need the model axis, which the port does
-not place yet, so their records say ``status: "not_ported"``.
+the train step runs placed, FSDP, as rank 0 of a fake process group of four,
+its gathers, reduce-scatters, all-reduces and all-to-alls counted; the
+record's ``memory.state_bytes`` is the state a card holds: its blocks, the
+leaves that stay whole and its part of the residual). ``single`` and
+``multi`` are the reference's 16×16 and 2×16×16 production meshes: they need
+the model axis, so their records say ``status: "not_ported"``, quoting
+ROADMAP's "Expert and TP placement of parameters over the model axis".
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
@@ -61,6 +64,25 @@ def make_mesh(kind: str):
     return Mesh(shape, axes, owners=range(math.prod(shape)), collective=True)
 
 
+def state_bytes(cfg, shape, mesh, tcfg) -> int | None:
+    """The trainer's state bytes a card holds at full depth (None for a
+    serving cell): the whole state on one card, rank 0's placed share of it
+    on a mesh."""
+    from repro_torch.core.grad_compress import CompressConfig
+    from repro_torch.models.api import get_api
+    from repro_torch.train import fsdp
+    from repro_torch.train.trainer import abstract_state
+    from repro_torch.utils.tree import tree_size_bytes
+
+    if shape.kind != "train":
+        return None
+    state = abstract_state(get_api(cfg), tcfg)
+    if mesh is None or mesh.size < 2:
+        return tree_size_bytes(state)
+    chunk_p = (tcfg.compress or CompressConfig()).chunk_p
+    return fsdp.Layout.of(state, mesh, chunk_p).state_bytes(state)
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, roofline: bool = False) -> dict:
     from repro_torch.configs.registry import cell_is_runnable, get_arch, get_shape
     from repro_torch.roofline.analysis import (count_params, extrapolate, probe_cell,
@@ -83,7 +105,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, roofline: bool = False)
         t0 = time.time()
         probe = probe_cell(cfg, shape, mesh, tcfg)
         count_s = time.time() - t0
-    except NotImplementedError as e:   # the model axis: placement is not ported
+    except NotImplementedError as e:   # the model axis: TP placement is not ported
         rec["status"] = "not_ported"
         rec["reason"] = str(e)
         return rec
@@ -111,6 +133,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, roofline: bool = False)
         "n_chips": n_chips,
         "count_s": round(count_s, 1),
         "memory": {
+            "state_bytes": state_bytes(cfg, shape, mesh, tcfg),
             "peak_bytes": int(peak),
             "fits_80GB": peak < hw.HBM_BYTES,
             "modeled_peak_bytes": model["total"],

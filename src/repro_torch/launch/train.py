@@ -26,20 +26,25 @@ than cards, naming gloo; gloo serves ranks that share a card or run on the
 CPU. ``--mesh host`` puts the N ranks on the reference's host mesh
 ``(max(1, N // 2), min(2, N))``, ``single`` and ``multi`` on the pod meshes
 (16 × 16, 2 × 16 × 16: one rank a position). Every mesh axis carries data
-(``dp_only``): each rank takes its block of the ``--batch`` rows, the
-compressed gradient crosses ranks as the shared-mask exchange, and rank 0
-prints the log line and writes the checkpoints (with each rank's residual).
-Each rank prints a ``rank-summary`` JSON line at the end: its losses, step
-times, peak memory, kernel launches, the exchange's bytes and a SHA-256 of
-its final parameters; with ``--time-exchange K`` also the exchange's and the
-mask's times. ``--no-final-ckpt`` writes only the ``--ckpt-every``
-checkpoints.
+(``dp_only``): each rank takes its block of the ``--batch`` rows, and the
+state is placed over the ranks as the reference's launcher places it (FSDP,
+``trainer.init_placed_state``: only the parameters are drawn whole, so a
+model whose whole state exceeds a card trains): each rank holds its block of
+the parameters and moments and its range of chunks of the one residual, and
+compresses its own chunks. Rank 0 prints the log line and writes the
+checkpoints (the reference's tree, each leaf gathered to it). Each rank
+prints a ``rank-summary`` JSON line at the end: its losses, step times, peak memory,
+kernel launches, the bytes its collectives sent by kind and a SHA-256 of the
+final parameters (gathered whole, a leaf at a time); with
+``--time-exchange K`` also the times of a rank's two all-to-alls of the
+gradient's chunks and of its masks. ``--no-final-ckpt`` writes only the
+``--ckpt-every`` checkpoints.
 
 Every family runs (the moe family with its aux loss in the loss and
-``nll``/``aux`` among the metrics; its experts are replicated like every
-parameter, so ``--devices`` splits the batch, not the experts: the routers'
-load-balance statistics are averaged over the ranks, each bucket's
-capacity is a rank's block's). A vlm batch
+``nll``/``aux`` among the metrics; its experts are placed like every
+parameter and gathered a layer at a time, so ``--devices`` splits the
+batch, not the experts: the routers' load-balance statistics are averaged
+over the ranks, each bucket's capacity is a rank's block's). A vlm batch
 carries the positions broadcast to the three M-RoPE streams and zero vision
 embeddings, an audio batch the frames ``0.1 · normal(fold_in(key, step), (B,
 S, d_model))`` in the config's dtype, both as the reference's do (the frames
@@ -128,8 +133,8 @@ def _train(args):
     from repro_torch.models.api import get_api
     from repro_torch.train import checkpoint
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.trainer import (TrainerConfig, abstract_state, init_state, make_dist,
-                                           make_train_fn, state_shardings)
+    from repro_torch.train.trainer import (TrainerConfig, init_placed_state, init_state,
+                                           make_dist, make_train_fn)
     from repro_torch.utils.device import resolve_device
     from repro_torch.utils.prng import PRNGKey, fold_in, normal
 
@@ -170,15 +175,16 @@ def _train(args):
     key = PRNGKey(args.seed)
     dist = make_dist(mesh, cfg, sp=tcfg.sp, dp_only=tcfg.dp_only)
     step_fn = make_train_fn(api, tcfg, dist, key, device=device)
-    state = init_state(api, tcfg, key, device=device)
-    shardings = (state_shardings(abstract_state(api, tcfg), mesh, tcfg.dp_only)
-                 if mesh is not None else None)
+    if mesh is None:
+        state = init_state(api, tcfg, key, device=device)
+    else:
+        state = init_placed_state(api, tcfg, key, dist, device=device)
 
     source = SyntheticLMSource(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     start_step = 0
     if args.ckpt_dir:
         try:
-            state, extra = checkpoint.restore(args.ckpt_dir, state, shardings=shardings)
+            state, extra = checkpoint.restore(args.ckpt_dir, state)
             start_step = int(extra.get("pipeline", {}).get("step", 0))
             source.state.step = start_step
             if rank == 0:
@@ -214,17 +220,17 @@ def _train(args):
         last = step + 1 == args.steps
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0 and (args.final_ckpt or not last):
             checkpoint.save(args.ckpt_dir, step + 1, state,
-                            extra={"pipeline": source.state.to_json()}, mesh=mesh)
+                            extra={"pipeline": source.state.to_json()})
             saved = step + 1
     if args.ckpt_dir and args.final_ckpt and saved != args.steps:
         checkpoint.save(args.ckpt_dir, args.steps, state,
-                        extra={"pipeline": source.state.to_json()}, async_=False, mesh=mesh)
+                        extra={"pipeline": source.state.to_json()}, async_=False)
     checkpoint.wait_for_pending()
     if args.process_id is not None:
         summary = dict(rank=rank, world=world, backend=torch.distributed.get_backend(),
                        device=str(device), steps=[start_step, args.steps], losses=losses,
                        step_s=step_s, tokens_a_step=args.batch * args.seq,
-                       exchange_bytes=_exchanged(obs), params_sha256=_digest(state["params"]),
+                       exchange_bytes=_exchanged(obs), params_sha256=_digest(state),
                        ready_s=t_ready)
         if device.type == "cuda":
             from repro_torch.kernels import ops
@@ -233,8 +239,8 @@ def _train(args):
             summary.update(peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                            launches=ops.launch_counts(),
                            dispatch={f"{op}/{path}": n for (op, path), n in ops.DISPATCH.items()})
-        if args.time_exchange and compress is not None:
-            summary.update(_time_exchange(state, compress, mesh, device, args.time_exchange))
+        if args.time_exchange and compress is not None and mesh is not None:
+            summary.update(_time_exchange(state, compress, device, args.time_exchange))
         summary["wall_s"] = time.perf_counter() - t_main
         # one write of the whole line: the ranks share the coordinator's stdout
         print(f"rank-summary {json.dumps(summary)}\n", end="", flush=True)
@@ -244,17 +250,21 @@ def _train(args):
         print("done")
 
 
-def _digest(tree) -> str:
-    """SHA-256 of the tree's leaves' bytes, in its leaf order."""
+def _digest(state) -> str:
+    """SHA-256 of the parameters' bytes, whole, in their leaf order (a
+    placed state's gathered a leaf at a time)."""
     import hashlib
 
     import numpy as np
 
+    from repro_torch.train import fsdp
     from repro_torch.utils.host import to_host
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_leaves_with_path
 
     h = hashlib.sha256()
-    for leaf in tree_leaves(tree):
+    for name, leaf in tree_leaves_with_path(state["params"]):
+        if isinstance(state, fsdp.PlacedState):
+            leaf = fsdp.gather_leaf(leaf, state.layout.places["['params']" + name])
         h.update(np.ascontiguousarray(to_host(leaf)).reshape(-1).view(np.uint8).data)
     return h.hexdigest()
 
@@ -265,23 +275,27 @@ def _exchanged(obs) -> dict:
             if m.name == "grad_compress.exchange_bytes"}
 
 
-def _time_exchange(state, compress, mesh, device, reps: int) -> dict:
-    """Each rank: ``reps`` shared-mask exchanges of a step's (chunks, m)
-    float32 kept values and ``reps`` masks, timed by the host clock around a
-    synchronised call (the least and the median, ms), beside the payload's
-    and the dense gradient's bytes."""
+def _time_exchange(state, compress, device, reps: int) -> dict:
+    """Each rank of a placed state: ``reps`` moves of a step's gradient
+    into the chunk ranges and of ĝ back (``fsdp.to_chunks`` /
+    ``from_chunks``, one all-to-all each) and ``reps`` masks of the rank's
+    chunks, timed by the host clock around a synchronised call (the least
+    and the median, ms), beside the dense gradient's bytes."""
     import numpy as np
     import torch
 
     from repro_torch.core import grad_compress as gc
     from repro_torch.core import sketch as sketch_mod
     from repro_torch.core.sampling import sample_indices
+    from repro_torch.train import fsdp
     from repro_torch.utils.prng import PRNGKey
-    from repro_torch.utils.tree import tree_count_params
+    from repro_torch.utils.tree import tree_leaves
 
-    n = tree_count_params(state["params"])
-    nc, m = -(-n // compress.chunk_p), compress.m
-    vals = torch.ones((nc, m), dtype=torch.float32, device=device)
+    layout = state.layout
+    grads = [torch.zeros(leaf.shape, dtype=torch.float32, device=device)
+             for leaf in tree_leaves(state["params"])]
+    nc, m = layout.n_chunks, compress.m
+    c0, c1 = layout.chunk_ranges[layout.rank]
     spec = gc.mask_spec(compress, PRNGKey(0))
 
     def timed(fn):
@@ -297,11 +311,14 @@ def _time_exchange(state, compress, mesh, device, reps: int) -> dict:
             out.append((time.perf_counter() - t) * 1e3)
         return [min(out), float(np.median(out))]
 
-    ex = timed(lambda i: gc.exchange_mean(vals, mesh))
-    mask = timed(lambda i: sample_indices(sketch_mod.batch_key(spec, i, 0), nc,
-                                          compress.chunk_p, m, device=device))
-    return dict(params=n, chunks=nc, m=m, payload_bytes=vals.numel() * vals.element_size(),
-                dense_bytes=4 * n, exchange_ms=ex, mask_ms=mask)
+    rng = fsdp.to_chunks(grads, layout)
+    to_ms = timed(lambda i: fsdp.to_chunks(grads, layout))
+    from_ms = timed(lambda i: fsdp.from_chunks(rng, layout))
+    mask = timed(lambda i: sample_indices(sketch_mod.batch_key(spec, i, 0), c1 - c0,
+                                          compress.chunk_p, m, device=device, row0=c0,
+                                          total_rows=nc))
+    return dict(params=layout.n, chunks=nc, rows=[c0, c1], m=m, dense_bytes=4 * layout.n,
+                to_chunks_ms=to_ms, from_chunks_ms=from_ms, mask_ms=mask)
 
 
 if __name__ == "__main__":

@@ -4,16 +4,27 @@ the chunked cross-entropy (the port of ``repro.models.common``).
 Functional style over parameter dicts of tensors, as the reference's: the
 same arithmetic in the same dtypes — norms and RoPE in float32, cast back to
 the activations' dtype; matmuls in the operands' promoted dtype (``matmul``).
+
+A parameter of a state placed over ranks (``train/fsdp.py``) reaches the
+model as a :class:`Block`: the rank's block of it. ``run_blocks`` gathers
+each layer's blocks whole inside that layer's recomputed region
+(:class:`GatherBlock`), so a recomputed layer gathers again and no layer
+stays whole after its use; the gather's backward reduce-scatters the layer's
+gradient back to the block, a float32 mean over the ranks, into the block's
+accumulator.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.grad_compress import count_exchange
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.host import from_host, to_host
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -52,11 +63,78 @@ def params_to_reference(params: dict) -> dict:
     return tree_map(to_host, params)
 
 
+@dataclasses.dataclass(eq=False)
+class Block:
+    """This rank's block of a parameter placed over the ranks of the default
+    process group: ``data`` is the parameter's part at ``rank·s … (rank+1)·s``
+    along ``dim`` (s its size there), the ranks' blocks in rank order.
+    ``acc`` (float32, ``data``'s shape) receives the block of the gradient;
+    ``anchor`` is a scalar that requires grad, which joins the gather to the
+    graph (``data`` itself carries no autograd). A stacked leaf's block keeps
+    its layer axis first: :meth:`layers` gives one block a layer."""
+
+    data: torch.Tensor
+    dim: int
+    acc: torch.Tensor
+    anchor: torch.Tensor
+
+    def layers(self) -> list["Block"]:
+        return [Block(d, self.dim - 1, a, self.anchor)
+                for d, a in zip(self.data.unbind(0), self.acc.unbind(0))]
+
+
+def all_gather_dim(block: torch.Tensor, dim: int, mode: str = "fsdp-all-gather") -> torch.Tensor:
+    """The whole tensor whose blocks along ``dim`` the ranks hold, in rank
+    order: one all-gather over the default group (contiguous)."""
+    world = torch_dist.get_world_size()
+    part = block.movedim(dim, 0).contiguous()
+    out = torch.empty((world * part.shape[0], *part.shape[1:]), dtype=part.dtype,
+                      device=part.device)
+    torch_dist.all_gather_into_tensor(out, part)
+    count_exchange(mode, (world - 1) * part.numel() * part.element_size())
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def reduce_scatter_mean(whole: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the ranks' float32 mean of
+    ``whole``: one reduce-scatter over the default group."""
+    world = torch_dist.get_world_size()
+    full = whole.movedim(dim, 0).to(torch.float32).contiguous()
+    out = torch.empty((full.shape[0] // world, *full.shape[1:]), dtype=torch.float32,
+                      device=full.device)
+    torch_dist.reduce_scatter_tensor(out, full)
+    count_exchange("fsdp-reduce-scatter", (world - 1) * out.numel() * out.element_size())
+    return out.div_(world).movedim(0, dim)
+
+
+class GatherBlock(torch.autograd.Function):
+    """A :class:`Block` gathered whole; the backward adds the block of the
+    ranks' mean gradient into the block's ``acc`` and passes nothing on."""
+
+    @staticmethod
+    def forward(ctx, anchor, data, dim, acc):
+        ctx.dim, ctx.acc = dim, acc
+        return all_gather_dim(data, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.acc.add_(reduce_scatter_mean(grad, ctx.dim))
+        return None, None, None, None
+
+
+def gather(b: "Block") -> torch.Tensor:
+    """The whole parameter of a :class:`Block` (a tensor stays as it is)."""
+    if not isinstance(b, Block):
+        return b
+    return GatherBlock.apply(b.anchor, b.data, b.dim, b.acc)
+
+
 def unstack(layers: dict) -> list[dict]:
     """A stacked layer tree (each leaf ``(n_layers, ...)``) as one parameter
     dict a layer: one unbind a stacked leaf, whose backward stacks the
-    layers' gradients once."""
-    unbound = [leaf.unbind(0) for leaf in tree_leaves(layers)]
+    layers' gradients once; a stacked :class:`Block` as one block a layer."""
+    unbound = [leaf.layers() if isinstance(leaf, Block) else leaf.unbind(0)
+               for leaf in tree_leaves(layers)]
     return [tree_unflatten(layers, [u[i] for u in unbound]) for i in range(len(unbound[0]))]
 
 
@@ -65,10 +143,17 @@ def run_blocks(block, x: torch.Tensor, lps, remat: bool, *args,
     """x through ``block(x, lp, *args)`` for each layer's ``lp`` in turn, each
     recomputed in the backward pass when ``remat`` and autograd is on (the
     reference's ``jax.checkpoint``). With ``aux`` a list, ``block`` returns
-    ``(x, a)`` and each layer's ``a`` is appended to it."""
+    ``(x, a)`` and each layer's ``a`` is appended to it. A layer whose
+    ``lp`` holds :class:`Block` leaves gathers them whole inside its
+    recomputed region."""
     remat = remat and torch.is_grad_enabled()
+
+    def gathered(x, lp, *args):
+        return block(x, tree_map(gather, lp), *args)
+
     for lp in lps:
-        out = checkpoint(block, x, lp, *args, use_reentrant=False) if remat else block(x, lp, *args)
+        fn = gathered if any(isinstance(t, Block) for t in tree_leaves(lp)) else block
+        out = checkpoint(fn, x, lp, *args, use_reentrant=False) if remat else fn(x, lp, *args)
         if aux is None:
             x = out
         else:

@@ -20,13 +20,15 @@ A bfloat16 leaf is written as its 2-byte words in a ``|V2`` array, the bytes
 and header the reference's ``ml_dtypes`` array gives, and read back from
 them: ``np.load`` returns such a leaf as ``|V2`` words in either package.
 
-A data-parallel run's state (``save(..., mesh=)``, called by every rank;
-rank 0 writes) is stored in the same layout, its ``residual`` the ranks'
-mean, so the reference and a run at any world size restore it; beside it
-each rank's own residual, ``['rank_residual'][r]…``. ``restore(...,
-shardings=)`` is the elastic path: a run with as many ranks as wrote the
-checkpoint takes each rank's own residual back (a resume bit for bit),
-another world size the mean.
+A placed state (``train/fsdp.py``; ``save`` called by every rank) is
+written as the reference's tree: each leaf gathered whole to rank 0, one
+leaf at a time (over gloo staged through the host, so rank 0's card holds
+no other rank's block), the residual one tree. ``restore`` into a placed
+``like`` holds every member to its CRC-32 (each member read through by one
+rank) and then reads only the rank's own block of each leaf and its part
+of the residual. A checkpoint that holds each rank's residual
+(``['rank_residual'][r]…``) beside their mean ``['residual']`` restores,
+placed or whole, to the mean, the reference's residual.
 
 Reads take each ``.npy`` member of ``arrays.npz`` straight from the file
 (``np.fromfile`` at the member's offset) and hold it to the zip's CRC-32,
@@ -50,98 +52,187 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from repro_torch.cluster.bootstrap import process_count, process_index
+from repro_torch.cluster.bootstrap import process_index
 from repro_torch.utils.host import from_host, is_bf16_words, to_host
-from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten
+from repro_torch.utils.tree import tree_leaves_with_path, tree_unflatten
 
 _SAVE_LOCK = threading.Lock()
 _PENDING: list[threading.Thread] = []
 # members of arrays.npz read at once
 READ_THREADS = 8
-# the names of a data-parallel checkpoint's mean residual and of each rank's
-_RES, _RANKS = "['residual']", "rank_residual"
 
 
 def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
-         async_: bool = True, keep_last: int = 3, mesh=None) -> None:
+         async_: bool = True, keep_last: int = 3) -> None:
     """Snapshot the tree ``state`` (+ JSON-serializable ``extra``, e.g. the
     data pipeline's cursor) as step ``step``; its leaves are copied to the
     host before this returns, so the caller may update them in place.
 
-    With a collective ``mesh`` every rank calls this with its own state (the
-    same but for ``residual``); rank 0 writes the ranks' mean residual and
-    each rank's own (the module docstring)."""
-    if mesh is None or not mesh.collective:
-        _save_arrays(ckpt_dir, step, {k: to_host(v) for k, v in tree_leaves_with_path(state)},
-                     extra, async_, keep_last)
+    A placed state is saved by every rank together: its leaves gathered
+    whole to rank 0, which writes them (the module docstring)."""
+    from repro_torch.train.fsdp import PlacedState
+
+    if isinstance(state, PlacedState):
+        arrays = _gather_placed(state)
+        if process_index() == 0:
+            _save_arrays(ckpt_dir, step, arrays, extra, async_, keep_last)
         return
-    ranks = _gather_residuals(state.get("residual"))
-    if process_index() != 0:
-        return
-    arrays = {k: to_host(v) for k, v in tree_leaves_with_path(state)
-              if ranks is None or not k.startswith(_RES)}
-    if ranks is not None:
-        # the mean and the ranks' residuals are host tensors of this call's own
-        ours = {"residual": tree_map(_mean, *ranks), _RANKS: ranks}
-        arrays.update((k, to_host(v, copy=False)) for k, v in tree_leaves_with_path(ours))
-    _save_arrays(ckpt_dir, step, arrays, extra, async_, keep_last)
+    _save_arrays(ckpt_dir, step, {k: to_host(v) for k, v in tree_leaves_with_path(state)},
+                 extra, async_, keep_last)
 
 
-def _mean(*leaves: torch.Tensor) -> torch.Tensor:
-    """The leaves' mean, summed in float32 in order, in their dtype."""
-    acc = leaves[0].float().clone()
-    for t in leaves[1:]:
-        acc += t.float()
-    return acc.div_(len(leaves)).to(leaves[0].dtype)
+def _gather_placed(state) -> dict | None:
+    """A placed state's leaves, whole, as host arrays on rank 0 (None on
+    the other ranks): a leaf's blocks by one gather to rank 0, a residual
+    leaf's parts sent to it by the ranks that hold one."""
+    from repro_torch.train.fsdp import RES
 
-
-def _gather_residuals(residual):
-    """Every rank's residual tree on rank 0's host, in rank order (None on
-    the other ranks, and without a residual), one gather to rank 0 a leaf.
-    Over gloo each leaf is gathered from host memory, where rank 0 needs it,
-    so rank 0's card holds no other rank's leaf; NCCL gathers on the card."""
-    if residual is None:
-        return None
-    rank, world = process_index(), process_count()
+    layout = state.layout
+    rank, world = layout.rank, layout.world
     staged = torch.distributed.get_backend() == "gloo"
-    out = [[] for _ in range(world)]
-    for leaf in tree_leaves(residual):
+    out = {} if rank == 0 else None
+    for name, leaf in tree_leaves_with_path(state):
         t = leaf.detach().to("cpu", copy=True) if staged else leaf.detach()
+        if name.startswith(RES):
+            i = layout.params.index(name[len(RES):])
+            whole = (torch.empty((layout.param(i).numel,), dtype=t.dtype) if rank == 0
+                     else None)
+            for r in range(world):
+                a, b = layout.part(i, r)
+                if b == a:
+                    continue
+                if r == rank == 0:
+                    whole[a:b] = t
+                elif rank == 0:
+                    buf = torch.empty((b - a,), dtype=t.dtype, device=t.device)
+                    torch.distributed.recv(buf, src=r)
+                    whole[a:b] = buf.to("cpu")
+                elif rank == r:
+                    torch.distributed.send(t.contiguous(), dst=0)
+            if rank == 0:
+                out[name] = to_host(whole.view(layout.param(i).shape), copy=False)
+            continue
+        place = layout.places[name]
+        if place.dim is None:
+            if rank == 0:
+                out[name] = to_host(t)
+            continue
         parts = [torch.empty_like(t) for _ in range(world)] if rank == 0 else None
-        torch.distributed.gather(t, parts, dst=0)
+        torch.distributed.gather(t.contiguous(), parts, dst=0)
         if rank == 0:
-            for r, part in enumerate(parts):
-                out[r].append(part.to("cpu"))
-    return [tree_unflatten(residual, leaves) for leaves in out] if rank == 0 else None
+            out[name] = to_host(torch.cat([q.to("cpu") for q in parts], place.dim), copy=False)
+    return out
 
 
-def restore(ckpt_dir: str, like, device=None, shardings=None) -> tuple[dict, dict]:
+def restore(ckpt_dir: str, like, device=None) -> tuple[dict, dict]:
     """Load the latest checkpoint into the structure, dtypes and devices of the
     tree ``like`` (or onto ``device``). Returns (state, extra); raises
     FileNotFoundError if there is no checkpoint.
 
-    ``shardings`` (the restoring run's ``trainer.state_shardings``) makes it
-    the elastic path of a data-parallel run: each rank takes its own
-    residual where the checkpoint holds one for each rank of this run's
-    world, else the ranks' mean. Every leaf is restored whole on each rank:
-    this port replicates parameters (their placement over a mesh is not
-    ported)."""
+    Into a placed ``like`` (``train/fsdp.py``; called by every rank) each
+    rank reads its own block of every leaf and its part of the residual;
+    into a whole ``like`` every leaf is restored whole."""
+    from repro_torch.train.fsdp import PlacedState
+
     d = latest_step_dir(ckpt_dir)
     if d is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     with open(os.path.join(d, "manifest.json")) as f:
         meta = json.load(f)
+    if isinstance(like, PlacedState):
+        return _restore_placed(os.path.join(d, "arrays.npz"), like, device), meta.get("extra", {})
     specs = tree_leaves_with_path(like)
-    names = [name for name, _ in specs]
-    stored = {k[len(_RANKS) + 5:].split("]")[0] for k in meta.get("keys", ())
-              if k.startswith(f"['{_RANKS}'][")}
-    if shardings is not None and len(stored) == process_count() > 1:
-        own = f"['{_RANKS}'][{process_index()}]"
-        names = [own + n[len(_RES):] if n.startswith(_RES) else n for n in names]
-    arrays = _read_npz(os.path.join(d, "arrays.npz"), names)
+    arrays = _read_npz(os.path.join(d, "arrays.npz"), [name for name, _ in specs])
     leaves = [from_host(a, spec.dtype, spec.device if device is None else device)
               for (_, spec), a in zip(specs, arrays)]
     return tree_unflatten(like, leaves), meta.get("extra", {})
+
+
+def _restore_placed(path: str, like, device):
+    """The placed state of ``like``'s layout from an ``.npz``: each leaf's
+    block (a residual leaf's part), read from the member mapped in place
+    once every member has passed its CRC-32 (:func:`_check_members`),
+    ``READ_THREADS`` members at a time."""
+    from repro_torch.train.fsdp import RES, PlacedState
+
+    layout = like.layout
+    with zipfile.ZipFile(path) as zf:
+        have = {info.filename: info for info in zf.infolist()}
+    names = tree_leaves_with_path(like)
+    missing = [n for n, _ in names if n + ".npy" not in have]
+    if missing:
+        raise KeyError(f"checkpoint missing leaf {missing[0]}")
+    _check_members(path, [have[n + ".npy"] for n, _ in names], layout,
+                   names[0][1].device if device is None else device)
+
+    def block(name: str) -> np.ndarray:
+        a = _map_member(path, have[name + ".npy"])
+        if name.startswith(RES):
+            lo, hi = layout.part(layout.params.index(name[len(RES):]), layout.rank)
+            a = a.reshape(-1)[lo:hi]
+        else:
+            place = layout.places[name]
+            if tuple(a.shape) != place.shape:
+                raise ValueError(f"checkpoint leaf {name} is {a.shape}, the state's {place.shape}")
+            a = place.block(a, layout.rank)
+        # a copy of what was sliced: only those pages are read
+        return np.array(a)
+
+    blocks = _read_ahead(block, [name for name, _ in names])
+    leaves = [from_host(a, spec.dtype, spec.device if device is None else device)
+              for (_, spec), a in zip(names, blocks)]
+    return PlacedState(tree_unflatten(like, leaves), layout)
+
+
+def _check_members(path: str, infos: list, layout, device) -> None:
+    """Hold each member of ``infos`` to its zip CRC-32, member j read
+    through by rank ``j mod world`` (``READ_THREADS`` at a time); one
+    all-reduce of a flag on ``device`` tells every rank. Raises ValueError
+    on every rank if a member is truncated or corrupt."""
+    mine = [info for j, info in enumerate(infos) if j % layout.world == layout.rank]
+
+    def intact(info: zipfile.ZipInfo) -> bool:
+        try:
+            with zipfile.ZipFile(path) as zf, zf.open(info) as f:
+                while f.read(1 << 26):
+                    pass
+        except (zipfile.BadZipFile, EOFError):
+            return False
+        return True
+
+    bad = next((info.filename for info, ok in zip(mine, _read_ahead(intact, mine)) if not ok),
+               None)
+    flag = torch.tensor([int(bad is not None)], dtype=torch.int32, device=device)
+    torch.distributed.all_reduce(flag)
+    if int(flag.item()):
+        raise ValueError(f"{path}: member {bad or 'read by another rank'} is truncated or corrupt")
+
+
+def _map_member(path: str, info: zipfile.ZipInfo) -> np.ndarray:
+    """One stored ``.npy`` member of an ``.npz`` mapped from the file,
+    read-only (only what is sliced from it is read)."""
+    with open(path, "rb") as f:
+        _, shape, fortran, dtype = _member_header(f, path, info)
+        offset = f.tell()
+    # a 0-d member maps as one value
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset, shape=tuple(shape) or (1,),
+                     order="F" if fortran else "C").reshape(shape)
+
+
+def _member_header(f, path: str, info: zipfile.ZipInfo):
+    """(the member's offset, shape, Fortran order, dtype) of a stored
+    ``.npy`` member, ``f`` left at its data."""
+    f.seek(info.header_offset)
+    n_name, n_extra = struct.unpack("<HH", f.read(30)[26:30])
+    start = info.header_offset + 30 + n_name + n_extra
+    f.seek(start)
+    version = np.lib.format.read_magic(f) if info.compress_type == zipfile.ZIP_STORED else None
+    if version not in ((1, 0), (2, 0)):
+        raise ValueError(f"{path}: member {info.filename} is not a stored .npy of format "
+                         f"1.0 or 2.0")
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    return (start, *read_header(f))
 
 
 def save_arrays(ckpt_dir: str, step: int, arrays: dict, extra: dict | None = None,
@@ -234,34 +325,28 @@ def _read_npz(path: str, names: list[str]):
     if missing:
         raise KeyError(f"checkpoint missing leaf {missing[0]}")
 
-    def gen():
-        with ThreadPoolExecutor(READ_THREADS) as pool:
-            ahead = collections.deque()
-            for n in names:
-                ahead.append(pool.submit(_read_member, path, have[n + ".npy"]))
-                if len(ahead) > READ_THREADS:
-                    yield ahead.popleft().result()
-            while ahead:
-                yield ahead.popleft().result()
+    return _read_ahead(lambda n: _read_member(path, have[n + ".npy"]), names)
 
-    return gen()
+
+def _read_ahead(fn, items):
+    """``fn(item)`` for each of ``items``, in order, as a generator: run by
+    ``READ_THREADS`` threads, at most ``READ_THREADS`` ahead of the one
+    taken."""
+    with ThreadPoolExecutor(READ_THREADS) as pool:
+        ahead = collections.deque()
+        for item in items:
+            ahead.append(pool.submit(fn, item))
+            if len(ahead) > READ_THREADS:
+                yield ahead.popleft().result()
+        while ahead:
+            yield ahead.popleft().result()
 
 
 def _read_member(path: str, info: zipfile.ZipInfo) -> np.ndarray:
     """One ``.npy`` member of an ``.npz`` as ``np.savez`` stores it (both
     packages write no other), straight from the file, held to its CRC-32."""
     with open(path, "rb") as f:
-        f.seek(info.header_offset)
-        n_name, n_extra = struct.unpack("<HH", f.read(30)[26:30])
-        start = info.header_offset + 30 + n_name + n_extra
-        f.seek(start)
-        version = np.lib.format.read_magic(f) if info.compress_type == zipfile.ZIP_STORED else None
-        if version not in ((1, 0), (2, 0)):
-            raise ValueError(f"{path}: member {info.filename} is not a stored .npy of format "
-                             f"1.0 or 2.0")
-        read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
-                       else np.lib.format.read_array_header_2_0)
-        shape, fortran, dtype = read_header(f)
+        start, shape, fortran, dtype = _member_header(f, path, info)
         n_head = f.tell() - start
         f.seek(start)
         crc = zlib.crc32(f.read(n_head))

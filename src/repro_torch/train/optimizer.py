@@ -8,6 +8,13 @@ runs in place on the parameter and moment tensors (the reference donates
 them) and does its per-leaf math in float32, one slice of a large leaf at a
 time: the math is elementwise (and the factored means run over the last two
 axes), so slicing the leading axis gives the whole leaf's values.
+
+Over a placed state (``layout=``, ``train/fsdp.py``) the update runs on the
+rank's blocks: the global norm adds the blocks' squares over the ranks (one
+scalar all-reduce) to the whole leaves', the weight-decay rule reads the
+whole leaf's shape, and a factored second moment (whole on every rank, as
+the reference's specs keep it) takes its row and column means over the
+whole leaf from one small all-reduce of the blocks' partial sums.
 """
 from __future__ import annotations
 
@@ -16,7 +23,10 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as torch_dist
 
+from repro_torch.core.grad_compress import count_exchange
+from repro_torch.train.fsdp import Place, ring_bytes
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_global_norm
 
 
@@ -91,8 +101,8 @@ def _v_hat(v):
     return v.float()
 
 
-def _ref_is_big(p: torch.Tensor) -> bool:
-    return p.numel() * 4 > BIG_LEAF_BYTES and p.ndim >= 2 and 1 < p.shape[0] <= 512
+def _ref_is_big(shape) -> bool:
+    return math.prod(shape) * 4 > BIG_LEAF_BYTES and len(shape) >= 2 and 1 < shape[0] <= 512
 
 
 def _slices(p: torch.Tensor, cfg: OptConfig):
@@ -105,18 +115,22 @@ def _slices(p: torch.Tensor, cfg: OptConfig):
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, params: Any, state: dict, cfg: OptConfig):
+def adamw_update(grads: Any, params: Any, state: dict, cfg: OptConfig, layout=None):
     """One AdamW step with global-norm clipping, in place on ``params`` and
-    ``state``. Returns (params, state, stats)."""
+    ``state``. Returns (params, state, stats). ``layout``: a placed state's
+    ``fsdp.Layout``, whose blocks ``params`` and ``state`` hold."""
+    places = None if layout is None else [layout.param(i) for i in range(len(layout.params))]
     step = state["step"]
     dev = step.device
-    gnorm = tree_global_norm(grads)
+    gnorm = tree_global_norm(grads) if places is None else _placed_norm(grads, places)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     b1c = 1 - _f32(cfg.b1, dev) ** (step + 1).float()
     b2c = 1 - _f32(cfg.b2, dev) ** (step + 1).float()
     lr = lr_at(step, cfg)
 
-    def leaf_math(p, g, m, v, decay: bool):
+    def leaf_math(p, g, m, v, decay: bool, v_hat=None):
+        """``v_hat``: the factored second moment's estimate for this slice,
+        already updated (a placed leaf's), else None."""
         g32 = g.float() * scale
         if m is not None:
             m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
@@ -124,9 +138,11 @@ def adamw_update(grads: Any, params: Any, state: dict, cfg: OptConfig):
             mhat = m32 / b1c
         else:
             mhat = g32
-        new_v = _v_update(v, g32 * g32, cfg)
-        tree_map(lambda dst, src: dst.copy_(src), v, new_v)
-        delta = mhat / (torch.sqrt(_v_hat(new_v) / b2c) + cfg.eps)
+        if v_hat is None:
+            new_v = _v_update(v, g32 * g32, cfg)
+            tree_map(lambda dst, src: dst.copy_(src), v, new_v)
+            v_hat = _v_hat(new_v)
+        delta = mhat / (torch.sqrt(v_hat / b2c) + cfg.eps)
         if decay:  # no decay on norms/scalars
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
@@ -135,14 +151,69 @@ def adamw_update(grads: Any, params: Any, state: dict, cfg: OptConfig):
     is_v = (lambda x: isinstance(x, dict) and "row" in x)
     vs = _v_leaves(state["v"], is_v)
     for i, (p, g) in enumerate(zip(tree_leaves(params), tree_leaves(grads))):
+        pl = places[i] if places is not None else None
+        shape = tuple(p.shape) if pl is None else pl.shape
         # the reference maps a big stacked leaf over its layers, so its decay
         # rule sees one dimension fewer there
-        decay = (p.ndim - 1 if _ref_is_big(p) else p.ndim) >= 2
+        decay = (len(shape) - 1 if _ref_is_big(shape) else len(shape)) >= 2
+        m_i = None if ms is None else ms[i]
+        if pl is not None and pl.dim is not None and is_v(vs[i]):
+            _factored_block(p, g, m_i, vs[i], pl, layout.rank, scale, cfg, leaf_math, decay)
+            continue
         for sl in _slices(p, cfg):
             v = tree_map(lambda t: t[sl], vs[i])
-            leaf_math(p[sl], g[sl], None if ms is None else ms[i][sl], v, decay)
+            leaf_math(p[sl], g[sl], None if m_i is None else m_i[sl], v, decay)
     state["step"] = step + 1
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _placed_norm(grads, places) -> torch.Tensor:
+    """The global ℓ2 norm of a placed gradient: each leaf's sum of squares
+    in float32, the blocks' summed over the ranks by one all-reduce."""
+    sq = [torch.dot(g.reshape(-1).float(), g.reshape(-1).float()) for g in tree_leaves(grads)]
+    dev = sq[0].device
+    cut = torch.stack([q for q, pl in zip(sq, places) if pl.dim is not None]
+                      or [torch.zeros((), device=dev)]).sum()
+    torch_dist.all_reduce(cut)
+    count_exchange("fsdp-all-reduce", ring_bytes(cut, places[0].world))
+    whole = [q for q, pl in zip(sq, places) if pl.dim is None]
+    return torch.sqrt(cut + (torch.stack(whole).sum() if whole else 0.0))
+
+
+def _factored_block(p, g, m, v: dict, pl, rank: int, scale, cfg: OptConfig, leaf_math,
+                    decay: bool):
+    """AdamW on rank ``rank``'s block of a leaf whose factored second moment
+    (``v``, whole) needs the whole leaf's row and column means of g²: the
+    block's partial sums, placed in whole-leaf buffers, summed over the
+    ranks by one all-reduce; the update of ``v`` on every rank alike, then
+    the block's own, a slice of its leading axis at a time."""
+    nd, d = len(pl.shape), pl.dim
+    row = torch.zeros(pl.shape[:-1], dtype=torch.float32, device=p.device)
+    col = torch.zeros(pl.shape[:-2] + pl.shape[-1:], dtype=torch.float32, device=p.device)
+    # the block's rows (columns) in the whole row (column) statistic, and in
+    # the rows' mean: each cut where the leaf's cut dimension lies in it
+    row_pl = Place(row.shape, d if d < nd - 1 else None, pl.world)
+    col_pl = Place(col.shape, d if d < nd - 2 else nd - 2 if d == nd - 1 else None, pl.world)
+    rows, cols = row_pl.block(row, rank), col_pl.block(col, rank)
+    sls = _slices(p, cfg) if nd > 2 else [...]
+    for sl in sls:
+        g2 = (g[sl].float() * scale) ** 2
+        rows[sl] += g2.sum(-1)
+        cols[sl] += g2.sum(-2)
+    buf = torch.cat([row.reshape(-1), col.reshape(-1)])
+    torch_dist.all_reduce(buf)
+    count_exchange("fsdp-all-reduce", ring_bytes(buf, pl.world))
+    row = buf[:row.numel()].view(row.shape) / pl.shape[-1]
+    col = buf[row.numel():].view(col.shape) / pl.shape[-2]
+    v["row"].copy_(cfg.b2 * v["row"].float() + (1 - cfg.b2) * row)
+    v["col"].copy_(cfg.b2 * v["col"].float() + (1 - cfg.b2) * col)
+    r32, c32 = v["row"].float(), v["col"].float()
+    denom = torch.clamp(torch.mean(r32, dim=-1, keepdim=True), min=1e-30)
+    r_blk, c_blk = row_pl.block(r32, rank), col_pl.block(c32, rank)
+    den_blk = Place(denom.shape, d if d < nd - 2 else None, pl.world).block(denom, rank)
+    for sl in sls:
+        v_hat = r_blk[sl][..., None] * c_blk[sl][..., None, :] / den_blk[sl][..., None]
+        leaf_math(p[sl], g[sl], None if m is None else m[sl], None, decay, v_hat=v_hat)
 
 
 def _v_leaves(v_tree, is_v) -> list:

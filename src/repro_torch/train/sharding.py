@@ -10,10 +10,11 @@ read only through ``mesh.axis_names`` and ``mesh.shape[axis]``).
 TP+FSDP by default: the ``model`` axis carries tensor/expert/vocab
 parallelism, the data axes carry FSDP. A dim is only sharded when divisible
 by the axis size; otherwise the rule falls back to replication on that dim.
-The port's data-parallel trainer places no parameter by these specs yet
-(TP/FSDP placement is ROADMAP.md's next LM item): it replicates parameters
-and takes each rank's block of the batch by :func:`batch_shardings` with
-``dp_only=True`` (:func:`local_batch`).
+The port's data-parallel trainer takes each rank's block of the batch by
+:func:`batch_shardings` with ``dp_only=True`` (:func:`local_batch`), and a
+placed state (``train/fsdp.py``) holds each rank's block of every leaf these
+specs cut over the data axes (FSDP); TP and expert placement over the
+"model" axis are ROADMAP.md's next LM item.
 """
 from __future__ import annotations
 

@@ -11,31 +11,43 @@ AdamW. Its metrics carry the reference's names (``loss``, ``wire_floats``,
 family's loss carries its routers' load-balance term.
 
 Data parallel (a ``Dist`` whose mesh, from ``launch.mesh``, spans the
-ranks): parameters are replicated, and each rank runs the accumulation loop
-on its contiguous block of each micro-batch of the global batch
-(``sharding.local_batch``, the reference's ``batch_shardings(...,
-dp_only=True)``). The moe family's load-balance statistics are averaged
-over the ranks (``moe.moe_apply_local``), so its aux loss is the global
-micro-batch's; its capacity is the rank's block's. The compressed gradient
-crosses ranks as the shared-mask exchange (one all-reduce of the kept
-values, ``grad_compress.compress_flat``), so every rank applies the same
-AdamW update to the same ĝ and keeps its own residual; without compression
-the gradient is all-reduced whole. The metrics are the global batch's: one
-scalar all-reduce averages the loss (and ``nll``/``aux``) over the ranks.
-Every mesh axis of more than one position must carry data (``make_dist``
-with ``dp_only``): placing parameters over the "model" axis is not ported.
+ranks): each rank runs the accumulation loop on its contiguous block of each
+micro-batch of the global batch (``sharding.local_batch``, the reference's
+``batch_shardings(..., dp_only=True)``). The moe family's load-balance
+statistics are averaged over the ranks (``moe.moe_apply_local``), so its aux
+loss is the global micro-batch's; its capacity is the rank's block's. The
+metrics are the global batch's: one scalar all-reduce averages the loss (and
+``nll``/``aux``) over the ranks. Every mesh axis of more than one position
+must carry data (``make_dist`` with ``dp_only``): tensor and expert
+placement over the "model" axis is not ported. Where the state lies follows
+the way the caller built it, as the reference's shardings do:
+
+- a state ``init_state`` builds is whole on every rank (replicated): the
+  compressed gradient crosses ranks as the shared-mask exchange (one
+  all-reduce of the kept values, ``grad_compress.compress_flat``), so every
+  rank applies the same AdamW update to the same ĝ and keeps its own
+  residual; without compression the gradient is all-reduced whole;
+- a state ``place_state`` (or ``checkpoint.restore`` into a placed state)
+  builds is placed by FSDP (``train/fsdp.py``): each rank holds its block of
+  the parameters and moments and its range of chunks of the one residual;
+  the forward gathers a layer at a time, the backward reduce-scatters into
+  float32 blocks, and the compressor round-trips each rank's own chunks of
+  the mean gradient. Both give the reference's single-device step on the
+  global batch.
 
 Memory at a billion parameters: the gradients are summed straight into one
 zero-padded float32 vector in the reference's flatten order (the
-compressor's input), the residual is added into it and overwritten in place
-by the new residual, and ĝ's leaves are views of the round trip's output.
-The state is updated in place, as the reference's donated state is.
+compressor's input; placed, a rank's blocks, then its range), the residual
+is added into it and overwritten in place by the new residual, and ĝ's
+leaves are views of the round trip's output. The state is updated in place,
+as the reference's donated state is.
 
 ``abstract_state`` builds the state's shapes on the meta device, and
 ``state_shardings`` gives the reference's specs for them. ``lower_cell``
 (the reference's ahead-of-time lowering) gives a cell's step and its inputs
 on the meta device, for ``roofline.counter.OpCounter`` to count: the dry-run
-runs the same eager step that runs on the card.
+runs the same eager step that runs on the card, on a mesh of more than one
+rank with the state placed.
 
 The step reads the optimizer's step count from the host: from its
 ``step=`` argument, else from the count it keeps of the state it last
@@ -55,10 +67,13 @@ import torch
 import torch.distributed as torch_dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.grad_compress import CompressConfig, compress_flat, exchange_mean, padded_len
+from repro_torch.core.grad_compress import (CompressConfig, compress_flat, compress_range,
+                                            count_exchange, exchange_mean, padded_len)
 from repro_torch.launch.mesh import dp_axes_of, tp_axis_of
 from repro_torch.models.api import ModelAPI, get_api, input_specs
+from repro_torch.models.common import Block, gather
 from repro_torch.models.transformer import NO_DIST, Dist
+from repro_torch.train import fsdp
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import sharding as shard_mod
 from repro_torch.utils.device import PLACEMENT, not_ported, resolve_device
@@ -112,6 +127,30 @@ def init_state(api: ModelAPI, tcfg: TrainerConfig, key, device="cuda") -> dict:
         state["residual"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                            device=p.device), params)
     return state
+
+
+def place_state(state: dict, dist: Dist, chunk_p: int = CompressConfig.chunk_p,
+                device=None) -> fsdp.PlacedState:
+    """This rank's FSDP-placed state (``train/fsdp.py``) of the whole
+    ``state``, the same on every rank of ``dist``'s mesh (every axis of which
+    carries data): its block of each parameter and moment leaf, the leaves
+    the reference's specs replicate whole, and its range of ``chunk_p``
+    chunks of the residual (the compressor's ``chunk_p``). The step given a
+    placed state runs placed; the caller drops ``state``."""
+    mesh = _dp_mesh(dist)
+    return fsdp.place_state(state, mesh, chunk_p, device)
+
+
+def init_placed_state(api: ModelAPI, tcfg: TrainerConfig, key, dist: Dist,
+                      device="cuda") -> fsdp.PlacedState:
+    """``place_state(init_state(api, tcfg, key, device), dist)`` without the
+    whole moments and residual: only the parameters are drawn whole, then
+    each rank's blocks are kept and the rest made zero at the rank's blocks
+    (a model whose whole state exceeds a card trains placed)."""
+    device = resolve_device(device)
+    state = abstract_state(api, tcfg)
+    state["params"] = api.init_params(_seed_of(key), device)
+    return place_state(state, dist, (tcfg.compress or CompressConfig()).chunk_p, device)
 
 
 def abstract_params(api: ModelAPI) -> dict:
@@ -188,8 +227,8 @@ def _dp_mesh(dist: Dist):
         return None
     idle = [a for a in mesh.axis_names if mesh.shape[a] > 1 and a not in dist.dp_axes]
     if idle:
-        raise not_ported(f"TP/FSDP placement of parameters over the mesh axes {idle} (train "
-                         "with dp_only=True: every axis carries data)", PLACEMENT)
+        raise not_ported(f"TP placement of parameters over the mesh axes {idle} (train with "
+                         "dp_only=True: every axis carries data, FSDP)", PLACEMENT)
     return mesh
 
 
@@ -244,25 +283,13 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
             step = last["step"] if t is last["tensor"]() else int(t)
         return step
 
-    def train_step(state: dict, batch: dict, step: int | None = None):
-        """One step; ``step`` is the optimizer's step count (the state's
-        ``opt.step``) where the caller knows it on the host."""
-        step = host_step(state, step)
-        if not tcfg.donate:
-            state = tree_map(lambda t: t.clone(), state)
+    def replicated(state: dict, batch: dict, step: int, dtypes: list):
+        """(ĝ's leaves, loss, metrics, stats) of a state whole on every rank."""
         params = state["params"]
-        if mesh is not None:
-            batch = _rank_rows(batch, mesh, tcfg.accum_steps)
-        batch = {k: on_device(v, device) for k, v in batch.items()}
-        if batch["tokens"].shape[0] % tcfg.accum_steps:
-            raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into "
-                             f"{tcfg.accum_steps} micro-batches")
         flat, loss, metrics = grads_into(params, batch)
         loss, metrics = _mean_over_ranks(loss, metrics, mesh)
         with torch.no_grad():
             leaves = tree_leaves(params)
-            # the gradients' dtypes: float32 sums under accumulation, else the params'
-            dtypes = [torch.float32 if tcfg.accum_steps > 1 else p.dtype for p in leaves]
             stats = {}
             g_flat = flat
             if compress is not None:
@@ -283,13 +310,139 @@ def make_train_fn(api: ModelAPI, tcfg: TrainerConfig, dist: Dist, key, device="c
             for p, dt in zip(leaves, dtypes):
                 g_leaves.append(g_flat[off:off + p.numel()].view(p.shape).to(dt))
                 off += p.numel()
-            del g_flat
+        return g_leaves, loss, metrics, stats
+
+    def placed_grads(state: fsdp.PlacedState, batch: dict):
+        """(per parameter leaf its gradient's block, float32 — whole for a
+        leaf the ranks hold whole —, the loss, the loss function's metrics):
+        each micro-batch's gathers and reduce-scatters (``run_blocks``) add
+        into the blocks, the whole leaves' local sums are all-reduced once."""
+        layout = state.layout
+        params = state["params"]
+        named = tree_leaves_with_path(params)
+        places = [layout.param(i) for i in range(len(named))]
+        acc = [torch.zeros(leaf.shape, dtype=torch.float32, device=device) for _, leaf in named]
+        whole = [i for i, pl in enumerate(places) if pl.dim is None]
+        a = tcfg.accum_steps
+        total, metrics = torch.zeros((), dtype=torch.float32, device=device), {}
+        for k in range(a):
+            mb = _micro_batch(batch, k, a)
+            anchor = torch.zeros((), dtype=torch.float32, device=device, requires_grad=True)
+            tree = []
+            for (name, leaf), pl, g in zip(named, places, acc):
+                if pl.dim is None:
+                    tree.append(leaf.requires_grad_(True))
+                    continue
+                b = Block(leaf.detach(), pl.dim, g, anchor)
+                # a layer stack's blocks are gathered layer by layer in
+                # run_blocks; the other leaves here, where the loss starts
+                tree.append(b if name.startswith(_STACKS) else gather(b))
+            loss, metrics = api.loss_fn(tree_unflatten(params, tree), mb, dist,
+                                        q_chunk=tcfg.q_chunk, kv_chunk=tcfg.kv_chunk)
+            grads = torch.autograd.grad(loss, [named[i][1] for i in whole] + [anchor],
+                                        allow_unused=True)
+            with torch.no_grad():
+                for i, g in zip(whole, grads):
+                    if g is not None:
+                        acc[i].add_(g)
+            del tree, grads
+            total = total + loss.detach()
+        with torch.no_grad():
+            if whole:
+                buf = torch.cat([acc[i].reshape(-1) for i in whole])
+                torch_dist.all_reduce(buf)
+                count_exchange("fsdp-all-reduce", fsdp.ring_bytes(buf, layout.world))
+                buf.div_(layout.world)
+                off = 0
+                for i in whole:
+                    acc[i].copy_(buf[off:off + acc[i].numel()].view(acc[i].shape))
+                    off += acc[i].numel()
+                del buf
+            if a > 1:
+                for g in acc:
+                    g.div_(a)
+        if a > 1:
+            return acc, total / a, {}
+        return acc, total, {k: v.detach() for k, v in metrics.items()}
+
+    def placed(state: fsdp.PlacedState, batch: dict, step: int, dtypes: list):
+        """(ĝ's leaves, loss, metrics, stats) of a placed state: the ranks'
+        mean gradient in blocks, moved into the chunk ranges and compressed
+        there against the rank's part of the residual, ĝ moved back."""
+        layout = state.layout
+        if layout.mesh != mesh:
+            raise ValueError(f"a state placed on {layout.mesh} given to a step on {mesh}")
+        params = state["params"]
+        grads, loss, metrics = placed_grads(state, batch)
+        loss, metrics = _mean_over_ranks(loss, metrics, mesh)
+        stats = {}
+        with torch.no_grad():
+            if compress is not None:
+                if layout.chunk_p != compress.chunk_p:
+                    raise ValueError(f"the state's residual is placed in chunks of "
+                                     f"{layout.chunk_p}, the compressor's are {compress.chunk_p}")
+                rng = fsdp.to_chunks(grads, layout)
+                del grads
+                me = layout.rank
+                A = layout.flat_range(me)[0]
+                res = tree_leaves(state.get("residual"))
+                spans = []                 # each leaf's part of the residual in rng
+                for i in range(len(layout.params)):
+                    a, b = layout.part(i, me)
+                    spans.append((layout.offsets[i] - A + a, layout.offsets[i] - A + b))
+                for r, (lo, hi) in zip(res, spans):
+                    rng[lo:hi].add_(r)
+                c0 = layout.chunk_ranges[me][0]
+                g_hat, res_rng, wire = compress_range(rng, gc_key, step, compress, c0,
+                                                      layout.n_chunks)
+                if res_rng is not None:          # in the gradients' dtypes, as _assign's
+                    new = []
+                    for r, (lo, hi), dt in zip(res or [None] * len(spans), spans, dtypes):
+                        seg = res_rng[lo:hi]
+                        new.append(r.copy_(seg) if r is not None and r.dtype == dt
+                                   else seg.to(dt, copy=True))
+                    state["residual"] = tree_unflatten(params, new)
+                del rng, res_rng
+                grads = fsdp.from_chunks(g_hat, layout)
+                del g_hat
+                stats["wire_floats"] = torch.tensor(float(wire), dtype=torch.float32)
+            g_leaves = [g.to(dt) for g, dt in zip(grads, dtypes)]
+        return g_leaves, loss, metrics, stats
+
+    def train_step(state: dict, batch: dict, step: int | None = None):
+        """One step; ``step`` is the optimizer's step count (the state's
+        ``opt.step``) where the caller knows it on the host. A
+        :class:`~repro_torch.train.fsdp.PlacedState` steps placed."""
+        step = host_step(state, step)
+        is_placed = isinstance(state, fsdp.PlacedState)
+        if not tcfg.donate:
+            cloned = tree_map(lambda t: t.clone(), dict(state))
+            state = fsdp.PlacedState(cloned, state.layout) if is_placed else cloned
+        params = state["params"]
+        if mesh is not None:
+            batch = _rank_rows(batch, mesh, tcfg.accum_steps)
+        batch = {k: on_device(v, device) for k, v in batch.items()}
+        if batch["tokens"].shape[0] % tcfg.accum_steps:
+            raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into "
+                             f"{tcfg.accum_steps} micro-batches")
+        # the gradients' dtypes: float32 sums under accumulation, else the params'
+        dtypes = [torch.float32 if tcfg.accum_steps > 1 else p.dtype for p in tree_leaves(params)]
+        if is_placed:
+            g_leaves, loss, metrics, stats = placed(state, batch, step, dtypes)
+        else:
+            g_leaves, loss, metrics, stats = replicated(state, batch, step, dtypes)
+        with torch.no_grad():
             _, state["opt"], opt_stats = opt_mod.adamw_update(
-                tree_unflatten(params, g_leaves), params, state["opt"], tcfg.opt)
+                tree_unflatten(params, g_leaves), params, state["opt"], tcfg.opt,
+                layout=state.layout if is_placed else None)
         last["tensor"], last["step"] = weakref.ref(state["opt"]["step"]), step + 1
         return state, {"loss": loss, **stats, **opt_stats, **metrics}
 
     return train_step
+
+
+# the parameters stacked a layer a row, whose blocks run_blocks gathers
+_STACKS = ("['layers']", "['enc_layers']", "['dec_layers']")
 
 
 def _micro_batch(batch: dict, i: int, a: int) -> dict:
@@ -382,11 +535,12 @@ def lower_cell(cfg: ModelConfig, shape, mesh, tcfg: TrainerConfig | None = None,
     decode → decode_fn(params, token, cache, cur_len)
     ``meta``: ``{"kind", "n_chips", "batch"}`` (the rows a rank holds).
 
-    ``mesh`` None is one device. A mesh whose every axis of more than one
-    position carries data (``tcfg.dp_only``, or no "model" axis) replicates
-    the parameters and splits the batch; where no process group is live the
-    train step runs as rank 0 of a fake group of the mesh's ranks, so its
-    collectives are counted. A mesh that asks for the model axis raises
+    ``mesh`` None is one device. A mesh of more than one position whose
+    every axis of more than one position carries data (``tcfg.dp_only``, or
+    no "model" axis) places the state (``place_state``: rank 0's blocks)
+    and splits the batch; where no process group is live the train step
+    runs as rank 0 of a fake group of the mesh's ranks, so its collectives
+    are counted. A mesh that asks for the model axis raises
     ``not_ported(..., PLACEMENT)``.
     """
     tcfg = tcfg or TrainerConfig()
@@ -408,7 +562,11 @@ def lower_cell(cfg: ModelConfig, shape, mesh, tcfg: TrainerConfig | None = None,
                 return fn(state, batch, step=0)
 
         specs = materialize(input_specs(cfg, shape), cfg, device)
-        return train_step, (init_state(api, tcfg, key, device=device), specs["batch"]), info
+        state = init_state(api, tcfg, key, device=device)
+        if mesh is not None and mesh.size > 1:
+            chunk_p = (tcfg.compress or CompressConfig()).chunk_p
+            state = fsdp.place_state(state, mesh, chunk_p)
+        return train_step, (state, specs["batch"]), info
 
     params = api.init_params(_seed_of(key), device)
     specs = materialize(input_specs(cfg, shape, batch=rows), cfg, device)

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 # the ROADMAP.md item (Queue 1) that what is still missing on the LM side names
-PLACEMENT = "Expert and TP/FSDP placement of parameters over the model axis"
+PLACEMENT = "Expert and TP placement of parameters over the model axis"
 
 
 def resolve_device(device="cuda") -> torch.device:

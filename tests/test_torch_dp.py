@@ -35,11 +35,11 @@ from repro.models.api import get_api as jget_api
 from repro.train import checkpoint as jckpt
 from repro.train import optimizer as jopt
 from repro.train import trainer as jtrainer
+from repro_torch.cluster.bootstrap import Mesh
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.grad_compress import CompressConfig
-from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import get_api, params_from_reference
-from repro_torch.train import checkpoint, optimizer, trainer
+from repro_torch.train import checkpoint, fsdp, optimizer, trainer
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 from test_torch_train import LR, _as_jax, _as_torch, _params_close, _params_near_eps, _rel
 from torch_layout import prng_layout  # noqa: F401  (the port's draws in JAX's layout)
@@ -215,11 +215,12 @@ def _copy_step(src, dst, step):
 def test_dp_launcher_matches_reference_and_resumes(tmp_path, capsys):
     """``launch.train --devices 2 --device cpu`` from the reference
     launcher's initial checkpoint prints the reference launcher's losses at
-    one device (to its log line's 4 decimals); its step-2 checkpoint holds
-    each rank's residual and their mean, restores in the reference, resumes
-    at 2 ranks bit for bit (losses, and the final checkpoint's every array)
-    and restores at 1 rank (the elastic path: the mean residual), which
-    continues with the 2-rank run's losses."""
+    one device (to its log line's 4 decimals); it places the state (FSDP),
+    so each rank's collectives move its layout's bytes; its step-2
+    checkpoint is the reference's tree (one residual), restores in the
+    reference, resumes at 2 ranks bit for bit (losses, and the final
+    checkpoint's every array) and restores at 1 rank, which continues with
+    the 2-rank run's losses."""
     flags = ["--arch", "gemma3-1b", "--reduced", "--grad-compress-gamma", "0.1",
              "--batch", "4", "--seq", "32", "--log-every", "1"]
     jlaunch.main(flags + ["--steps", "0", "--ckpt-dir", str(tmp_path / "init")])
@@ -236,18 +237,25 @@ def test_dp_launcher_matches_reference_and_resumes(tmp_path, capsys):
     assert all(abs(a - b) <= 2e-4 for (_, a), (_, b) in zip(got, want)), (got, want)
     runs = _summaries(port)
     assert [s["rank"] for s in runs] == [0, 1] and runs[0]["losses"] == runs[1]["losses"]
-    assert runs[0]["exchange_bytes"] == {"shared-mask": 4 * 11 * 1638 * 4}
+    assert runs[0]["params_sha256"] == runs[1]["params_sha256"]
+    api = get_api(get_arch("gemma3-1b", reduced=True))
+    tcfg = trainer.TrainerConfig(compress=CompressConfig(gamma=0.1))
+    mesh = Mesh((1, 2), ("data", "model"), owners=(0, 1), collective=True)
+    for r, run in enumerate(runs):
+        layout = dataclasses.replace(fsdp.Layout.of(trainer.abstract_state(api, tcfg), mesh),
+                                     rank=r)
+        assert layout.n_chunks == 11
+        moved = run["exchange_bytes"]
+        assert {k: moved[k] for k in ("fsdp-to-chunks", "fsdp-from-chunks")} == \
+            {k: 4 * v for k, v in layout.chunk_bytes().items()}
+        assert {"fsdp-all-gather", "fsdp-reduce-scatter", "fsdp-all-reduce"} < set(moved)
 
-    # the step-2 checkpoint: the reference's layout, the mean residual, each rank's
+    # the step-2 checkpoint: the reference's layout, one residual
     ck = str(tmp_path / "port")
     _copy_step(ck, str(tmp_path / "at2"), 2)
     arrays, extra = checkpoint.load_arrays(str(tmp_path / "at2"))
     assert extra["pipeline"]["step"] == 2
-    res = {k: v for k, v in arrays.items() if k.startswith("['residual']")}
-    for k, v in res.items():
-        r0, r1 = (arrays[k.replace("['residual']", f"['rank_residual'][{r}]")] for r in (0, 1))
-        np.testing.assert_array_equal(v, (r0.astype(np.float32) + r1) / 2)
-        assert not np.array_equal(r0, r1), k
+    assert not any("rank_residual" in k for k in arrays)
     like = jtrainer.abstract_state(jget_api(jget_arch("gemma3-1b", reduced=True)),
                                    jtrainer.TrainerConfig(compress=JCompressConfig(gamma=0.1)))
     jstate, jextra = jckpt.restore(str(tmp_path / "at2"), like)
@@ -263,18 +271,14 @@ def test_dp_launcher_matches_reference_and_resumes(tmp_path, capsys):
     assert _summaries(resumed)[0]["losses"] == runs[0]["losses"][2:]
     final, _ = checkpoint.load_arrays(ck)
     again, _ = checkpoint.load_arrays(str(tmp_path / "resume"))
-    assert sorted(final) == sorted(again) and any("rank_residual" in k for k in final)
+    assert sorted(final) == sorted(again) and not any("rank_residual" in k for k in final)
     for k in final:
         assert final[k].tobytes() == again[k].tobytes(), k
 
-    # restored at 1 rank: the mean residual, then the 2-rank run's losses
+    # restored at 1 rank: the one residual, then the 2-rank run's losses
     _copy_step(ck, str(tmp_path / "one"), 2)
-    api = get_api(get_arch("gemma3-1b", reduced=True))
-    tcfg = trainer.TrainerConfig(compress=CompressConfig(gamma=0.1))
     state = trainer.init_state(api, tcfg, np.zeros(2, np.uint32), device="cpu")
-    shardings = trainer.state_shardings(trainer.abstract_state(api, tcfg), make_host_mesh(1, 1),
-                                        dp_only=True)
-    state, _ = checkpoint.restore(str(tmp_path / "one"), state, shardings=shardings)
+    state, _ = checkpoint.restore(str(tmp_path / "one"), state)
     for name, t in tree_leaves_with_path(state["residual"]):
         np.testing.assert_array_equal(t.numpy(), arrays[f"['residual']{name}"])
     one = _launch(*flags, "--steps", "4", "--ckpt-dir", str(tmp_path / "one"))

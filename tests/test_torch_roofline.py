@@ -37,6 +37,7 @@ from repro_torch.models.api import get_api, input_specs
 from repro_torch.roofline import analysis, hlo, memmodel, report
 from repro_torch.roofline import kernels as rk
 from repro_torch.roofline.counter import OpCounter
+from repro_torch.train import fsdp
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import trainer
 from repro_torch.utils.device import PLACEMENT
@@ -202,20 +203,40 @@ def test_extrapolation_clamps():
 
 
 def test_fake_two_rank_step_records_one_exchange():
+    """A train cell on a mesh of 2 runs the placed step (FSDP) as rank 0 of a
+    fake group: each placed leaf's block gathered where it is used (a
+    stacked layer's again in its recompute) and its gradient
+    reduce-scattered once a micro-batch, one all-reduce of the whole
+    leaves' gradients, one exchange into the chunk ranges and one back
+    (the layout's bytes), the loss's and the norm's scalars; K2 twice on
+    rank 0's chunks."""
     cfg, shape = treg.get_arch("gemma3-1b", reduced=True), ShapeConfig("t", 32, 4, "train")
     mesh = Mesh((2,), ("data",), owners=(0, 1), collective=True)
     tcfg = _compressed()
     c, info = _count(cfg, shape, tcfg, "meta", mesh)
     assert not torch_dist.is_initialized()
     assert info == {"kind": "train", "n_chips": 2, "batch": 2}
-    n = analysis.count_params(cfg)["total"]
-    exchange = padded_len(n, tcfg.compress.chunk_p) // tcfg.compress.chunk_p * tcfg.compress.m * 4
-    reduces = [r for r in c.collectives if r["kind"] == "all-reduce"]
-    assert [r["result_bytes"] for r in reduces].count(exchange) == 1
-    assert len(c.collectives) == len(reduces) == 2     # and the loss's scalar buffer
-    assert all(r["group"] == 2 for r in reduces)
-    stats = hlo.collective_stats(c.collectives)
-    assert stats["total_wire_bytes"] == sum(2.0 * r["result_bytes"] / 2 for r in reduces)
+    layout = fsdp.Layout.of(trainer.abstract_state(get_api(cfg), tcfg), mesh,
+                            tcfg.compress.chunk_p)
+    places = [layout.param(i) for i in range(len(layout.params))]
+    stacked = [name.startswith("['layers']") for name in layout.params]
+    cut = [i for i, pl in enumerate(places) if pl.dim is not None]
+    assert cut and any(stacked[i] for i in cut) and any(not stacked[i] for i in cut)
+    blocks = sum(places[i].shape[0] if stacked[i] else 1 for i in cut)
+    recomputed = sum(places[i].shape[0] for i in cut if stacked[i])
+    kinds = [r["kind"] for r in c.collectives]
+    a = tcfg.accum_steps
+    assert kinds.count("reduce-scatter") == a * blocks
+    assert kinds.count("all-gather") == a * (blocks + recomputed)
+    assert all(r["group"] == 2 for r in c.collectives)
+    block_bytes = 4 * sum(math.prod(places[i].block_shape) for i in cut)
+    whole_bytes = 4 * sum(pl.numel for pl in places if pl.dim is None)
+    moves = [r for r in c.collectives if r["kind"] == "all-to-all"]
+    assert [r["operand_bytes"] for r in moves][0] == block_bytes
+    assert [r["result_bytes"] for r in moves][1] == block_bytes + whole_bytes
+    reduces = [r["result_bytes"] for r in c.collectives if r["kind"] == "all-reduce"]
+    assert sorted(reduces) == [4, 4, whole_bytes]      # the loss, the norm, the whole leaves
+    assert len(c.collectives) == 2 + len(reduces) + a * (2 * blocks + recomputed)
     assert c.kernels == {"hd_precondition": 2}
 
 

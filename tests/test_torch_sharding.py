@@ -202,7 +202,7 @@ def test_make_dist_fields():
                 assert got.seq_axis == want.seq_axis
     assert trainer.make_dist(None, get_arch("gemma3-1b")) is trainer.NO_DIST
     cfg = get_arch("gemma3-1b", reduced=True)
-    with pytest.raises(NotImplementedError, match="Expert and TP/FSDP placement"):
+    with pytest.raises(NotImplementedError, match="Expert and TP placement"):
         trainer.make_train_fn(get_api(cfg), trainer.TrainerConfig(),
                               trainer.make_dist(mesh_mod.make_host_mesh(4, 2), cfg),
                               np.zeros(2, np.uint32), device="cpu")

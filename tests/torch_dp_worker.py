@@ -1,6 +1,6 @@
 """Rank processes for the multi-process CPU tests (``tests/test_torch_dp.py``,
-``tests/test_torch_sharding.py``, and expert parallelism in
-``tests/test_torch_moe.py`` and ``tests/test_torch_moe_lm.py``).
+``tests/test_torch_fsdp.py``, ``tests/test_torch_sharding.py``, and expert
+parallelism in ``tests/test_torch_moe.py`` and ``tests/test_torch_moe_lm.py``).
 
     python tests/torch_dp_worker.py TASK --job job.pt --out out --world N \\
         --coordinator HOST:PORT --process-id R
@@ -27,8 +27,10 @@ from repro_torch.cluster.bootstrap import axis_group
 from repro_torch.models import moe
 from repro_torch.models import transformer as tr
 from repro_torch.models.api import get_api
+from repro_torch.train import checkpoint
+from repro_torch.train import fsdp as fsdp_mod
 from repro_torch.train import trainer
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_size_bytes
 
 
 def perworker(job: dict) -> dict:
@@ -59,6 +61,85 @@ def train(job: dict) -> dict:
         steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
                       "state": tree_map(lambda t: t.detach().clone(), state)})
     return {"steps": steps}
+
+
+def fsdp(job: dict) -> dict:
+    """The placed trainer over ``make_host_mesh(1, N)``. For each of the
+    job's cases: its whole state placed (``place_state``) and gathered back,
+    the rank's state bytes beside the layout's count, then one step a batch:
+    every step's metrics, the whole state gathered after it and the masks
+    the step drew (rows ``[row0, …)`` of the chunks). Then the checkpoint
+    round trips: case 0's final state saved placed (``save_dir``), and the
+    job's checkpoints restored into a placed state and gathered whole (or
+    the restore's ValueError, for a corrupt checkpoint). The
+    gradient moves in runs of ``move_values`` values a rank. Last, the
+    ``factored`` case's steps placed and replicated side by side."""
+    mesh = make_host_mesh(1, dist.get_world_size())
+    fsdp_mod.MOVE_VALUES = job["move_values"]
+    drawn, draw = [], gc.sample_indices
+
+    def recording(key, n, p, m, device="cpu", row0=0, total_rows=None):
+        idx = draw(key, n, p, m, device=device, row0=row0, total_rows=total_rows)
+        drawn.append((row0, idx.clone()))
+        return idx
+
+    gc.sample_indices = recording
+    cases = []
+    for case in job["cases"]:
+        api = get_api(case["cfg"])
+        tcfg = trainer.TrainerConfig(**case["tcfg"])
+        d = trainer.make_dist(mesh, api.cfg, dp_only=True)
+        fn = trainer.make_train_fn(api, tcfg, d, job["key"], device="cpu")
+        state = trainer.place_state(case["state"], d)
+        back = fsdp_mod.gather_state(state)
+        same = [name for (name, a), (_, b) in zip(tree_leaves_with_path(back),
+                                                  tree_leaves_with_path(case["state"]))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+        whole = {name: leaf for name, leaf in tree_leaves_with_path(case["state"])}
+        out = {"round_trip_differs": same, "state_bytes": tree_size_bytes(state),
+               "layout_bytes": state.layout.state_bytes(case["state"]),
+               "whole_bytes": tree_size_bytes(case["state"]),
+               "whole_leaf_bytes": sum(whole[n].numel() * whole[n].element_size()
+                                       for n, pl in state.layout.places.items()
+                                       if pl.dim is None),
+               "steps": []}
+        for batch in case["batches"]:
+            drawn.clear()
+            state, metrics = fn(state, batch)
+            out["steps"].append({"metrics": {k: float(v) for k, v in metrics.items()},
+                                 "state": fsdp_mod.gather_state(state), "masks": list(drawn)})
+        if not cases:
+            checkpoint.save(job["save_dir"], len(case["batches"]), state, async_=False)
+        cases.append(out)
+    gc.sample_indices = draw
+    # the factored second moment placed against the same ranks replicated
+    fac = job["factored"]
+    api = get_api(fac["cfg"])
+    tcfg = trainer.TrainerConfig(**fac["tcfg"])
+    d = trainer.make_dist(mesh, api.cfg, dp_only=True)
+    fn = trainer.make_train_fn(api, tcfg, d, job["key"], device="cpu")
+    paths = {"placed": trainer.place_state(fac["state"], d),
+             "replicated": tree_map(torch.clone, fac["state"])}
+    factored = {k: [] for k in paths}
+    for batch in fac["batches"]:
+        for k in paths:
+            paths[k], metrics = fn(paths[k], batch)
+            factored[k].append({k: float(v) for k, v in metrics.items()})
+    factored["params"] = [fsdp_mod.gather_state(paths["placed"])["params"],
+                          paths["replicated"]["params"]]
+    api = get_api(job["cases"][0]["cfg"])
+    d = trainer.make_dist(mesh, api.cfg, dp_only=True)
+    restored = {}
+    for name, path in job["restore"].items():
+        like = trainer.place_state(job["cases"][0]["state"], d)
+        try:
+            state, extra = checkpoint.restore(path, like)
+        except ValueError as e:
+            restored[name] = {"error": str(e)}
+            continue
+        restored[name] = {"state": fsdp_mod.gather_state(state), "extra": extra,
+                          "placed": isinstance(state, fsdp_mod.PlacedState)}
+    return {"cases": cases, "restored": restored, "factored": factored}
 
 
 def _coords(mesh) -> tuple[int, ...]:
@@ -111,7 +192,8 @@ def lm_ep(job: dict) -> dict:
             "index": axis_group(mesh, ("model",)).index}
 
 
-TASKS = {"perworker": perworker, "train": train, "moe_ep": moe_ep, "lm_ep": lm_ep}
+TASKS = {"perworker": perworker, "train": train, "moe_ep": moe_ep, "lm_ep": lm_ep,
+         "fsdp": fsdp}
 
 
 def run(task: str, job: dict, world: int, tmp_dir, partitionable: bool) -> list[dict]:
